@@ -1,0 +1,93 @@
+"""The PyTorch port stands alone: no file of crdt_tpu_torch/ (nor
+chip_smoke.py) imports jax, flax or crdt_tpu; constructors never quietly
+fall back to the CPU; the kernel entry point never reaches its plain twin
+for a non-CPU tensor."""
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+import crdt_tpu_torch
+from crdt_tpu_torch import convert
+from crdt_tpu_torch.models import oplog, oplog_columnar
+from crdt_tpu_torch.ops import hopper_union
+from crdt_tpu_torch.parallel import swarm
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "crdt_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "flax", "crdt_tpu")
+
+
+def _imported_modules(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+        elif (isinstance(node, ast.Call) and getattr(node.func, "attr", None)
+              == "import_module" and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            yield node.args[0].value
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_nothing_of_jax_or_crdt_tpu(path):
+    assert path.exists(), path
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in FORBIDDEN, f"{path.name} imports {mod}"
+
+
+def test_scan_sees_the_whole_package():
+    names = {p.name for p in PORT_FILES}
+    assert {"hopper_union.py", "oplog_columnar.py", "oplog_engine.py",
+            "swarm.py", "chip_smoke.py"} <= names
+
+
+@pytest.mark.parametrize("make", [
+    lambda: oplog.empty(8),
+    lambda: oplog.from_ops(8, {f: [] for f in oplog._FIELDS}),
+    lambda: oplog_columnar.empty(8, 4),
+    lambda: swarm.random_peers(torch.Generator(), 4),
+    lambda: convert.oplog_from_numpy(convert.oplog_to_numpy(oplog.empty(4, device="cpu"))),
+    lambda: crdt_tpu_torch.default_device(),
+], ids=["oplog.empty", "from_ops", "columnar.empty", "random_peers",
+        "convert", "default_device"])
+def test_constructor_without_device_raises_when_no_card(make, monkeypatch):
+    """device=None means the CUDA card; without one it raises rather than
+    returning CPU tensors."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make()
+
+
+def test_kernel_entry_has_no_try_fallback():
+    """No `try` anywhere in the wrapper module: a failed build or launch
+    raises, it cannot fall through to the twin."""
+    tree = ast.parse(Path(hopper_union.__file__).read_text())
+    assert not any(isinstance(n, ast.Try) for n in ast.walk(tree))
+
+
+def test_non_cpu_planes_never_reach_the_twin(monkeypatch, tmp_path):
+    """Planes on a device with no kernel raise; the CUDA launch path with
+    no toolkit raises too, and neither counts a launch or calls the twin."""
+    def twin_called(*_a, **_k):
+        raise AssertionError("the plain twin was reached")
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(hopper_union, "_lexn_union_plain", twin_called)
+    planes = [torch.full((8, 4), 2**31 - 1, dtype=torch.int32, device="meta")] * 4
+    before = hopper_union.LAUNCHES["lexn_union"]
+    with pytest.raises(ValueError, match="no lexn_union kernel"):
+        hopper_union.sorted_union_columnar_fused_lex2(
+            planes[:2], planes[2:], planes[:2], planes[2:])
+    monkeypatch.setattr(hopper_union._build, "_nvcc", no_nvcc)
+    monkeypatch.setattr(hopper_union._build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(hopper_union._build, "_LIBS", {})
+    cpu = [torch.full((8, 4), 2**31 - 1, dtype=torch.int32)] * 4
+    with pytest.raises(RuntimeError, match="nvcc"):
+        hopper_union._lexn_union_cuda(cpu[:2], cpu[2:], cpu[:2], cpu[2:], 8)
+    assert hopper_union.LAUNCHES["lexn_union"] == before
