@@ -1,9 +1,10 @@
 """State carried across from the JAX package, as numpy.
 
-The JAX package's ``OpLog`` and ``ColumnarOpLog`` are plain arrays; these
-functions take them as a dict of numpy arrays (``np.asarray`` of each
-field) and build the port's tensors, and give them back the same way, so
-both packages can be fed identical state and compared plane by plane.
+The JAX package's ``OpLog``, ``ColumnarOpLog``, ``ORSet``, ``ORSetBitmap``
+and ``ORSetBucketed`` are plain arrays; these functions take them as a dict
+of numpy arrays (``np.asarray`` of each field) and build the port's
+tensors, and give them back the same way, so both packages can be fed
+identical state and compared plane by plane.
 """
 from __future__ import annotations
 
@@ -15,9 +16,11 @@ import torch
 from crdt_tpu_torch import default_device
 from crdt_tpu_torch.models.oplog import _FIELDS, KVState, OpLog
 from crdt_tpu_torch.models.oplog_columnar import ColumnarOpLog
+from crdt_tpu_torch.models.orset import ORSet, ORSetBitmap, ORSetBucketed
 
 _COLUMNAR_PLANES = ("hi", "lo", "val", "pay")
 _KV_FIELDS = ("present", "is_num", "num", "num_count", "payload")
+_ORSET_FIELDS = ("elem", "rid", "seq", "removed")
 
 
 def _tensor(x, dtype, device) -> torch.Tensor:
@@ -55,3 +58,42 @@ def columnar_to_numpy(col: ColumnarOpLog) -> dict:
 
 def kvstate_to_numpy(kv: KVState) -> dict:
     return {f: getattr(kv, f).cpu().numpy() for f in _KV_FIELDS}
+
+
+def orset_from_numpy(d: Mapping[str, np.ndarray], device=None) -> ORSet:
+    """An ORSet (single [C] or batched [R, C]) from elem/rid/seq/removed."""
+    device = default_device(device)
+    return ORSet(**{
+        f: _tensor(d[f], torch.bool if f == "removed" else torch.int32, device)
+        for f in _ORSET_FIELDS
+    })
+
+
+def orset_to_numpy(s: ORSet) -> dict:
+    return {f: getattr(s, f).cpu().numpy() for f in _ORSET_FIELDS}
+
+
+def bitmap_from_numpy(d: Mapping[str, np.ndarray], device=None) -> ORSetBitmap:
+    """An ORSetBitmap from its present/removed int32 word planes."""
+    device = default_device(device)
+    return ORSetBitmap(present=_tensor(d["present"], torch.int32, device),
+                       removed=_tensor(d["removed"], torch.int32, device))
+
+
+def bitmap_to_numpy(s: ORSetBitmap) -> dict:
+    return {"present": s.present.cpu().numpy(), "removed": s.removed.cpu().numpy()}
+
+
+def bucketed_from_numpy(d: Mapping[str, np.ndarray], n_buckets: int,
+                        key_bits: int = 31, device=None) -> ORSetBucketed:
+    """An ORSetBucketed from its keys/removed planes plus the layout's
+    static bucket count and key width."""
+    device = default_device(device)
+    return ORSetBucketed(keys=_tensor(d["keys"], torch.int32, device),
+                         removed=_tensor(d["removed"], torch.int32, device),
+                         n_buckets=n_buckets, key_bits=key_bits)
+
+
+def bucketed_to_numpy(s: ORSetBucketed) -> dict:
+    return {"keys": s.keys.cpu().numpy(), "removed": s.removed.cpu().numpy(),
+            "n_buckets": s.n_buckets, "key_bits": s.key_bits}

@@ -1,4 +1,5 @@
-"""Seeded reference-shaped writes for driving the OpLog swarm.
+"""Seeded workloads for driving the port: reference-shaped writes for the
+OpLog swarm, and the OR-Set swarm of BASELINE.json's configs[3].
 
 The reference's workload (its ``dummyInsertions``; the JAX package's
 ``harness/workload.py`` and ``utils/config.py`` defaults): single-key
@@ -9,7 +10,8 @@ stamp them with a millisecond ``ts`` that several writes share.  A share
 of the writes carries a non-numeric string, exercising the LWW payload
 path of the rebuild.
 
-Everything is drawn from a numpy generator seeded by the caller.
+The writes are drawn from a numpy generator seeded by the caller, the
+OR-Set swarm from a torch.Generator on the device it is built on.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ import numpy as np
 import torch
 
 from crdt_tpu_torch import default_device
-from crdt_tpu_torch.models import oplog
+from crdt_tpu_torch.models import oplog, orset
 from crdt_tpu_torch.utils.constants import SENTINEL_PY
 from crdt_tpu_torch.utils.intern import Interner, encode_value
 
@@ -141,3 +143,134 @@ def converged_view(ops: dict, held_by_alive: np.ndarray, keys: Interner,
         if acc is not None and acc[1] > 1:
             state[k] = str(acc[0])
     return state
+
+
+# ---- the OR-Set swarm ----
+#
+# BASELINE.json's configs[3], "OR-Set: 1M replicas x 1K elements": elements
+# uniform over a 1,024-id universe, 64 writers (the packed tag's full 6-bit
+# rid budget) with 20 add-tags each, seqs contiguous from 0.  A seeded
+# quarter of the tags has been removed somewhere; a replica holds a seeded
+# 40% of the tags and, of each removable tag it holds, has seen the remove
+# with probability 1/2 — so a replica's tombstones are always among its
+# tags.  A lane then holds ~512 tags and the union of two ~819, under the
+# 1024-row capacity.
+SET_ELEMS = 1024
+SET_WRITERS = 64
+SET_TAGS_PER_WRITER = 20
+SET_REMOVABLE = 0.25
+SET_HOLD = 0.4
+SET_SEEN_REMOVE = 0.5
+# lanes drawn per generator pass (bounds the draw's temporaries)
+_SET_CHUNK = 1 << 16
+
+
+@dataclasses.dataclass
+class SetPool:
+    """The add-tags every replica draws from, numpy columns sorted by
+    (elem, rid, seq) — the table's own row order."""
+
+    elem: np.ndarray
+    rid: np.ndarray
+    seq: np.ndarray
+    removable: np.ndarray  # bool: the tag's remove happened somewhere
+
+    def __len__(self) -> int:
+        return len(self.elem)
+
+
+@dataclasses.dataclass
+class SetSwarm:
+    """A batched [R, C] ORSet and, per replica, which pool tags it holds
+    (``held[r, i]``) and which of those it has seen removed (``seen``)."""
+
+    sets: orset.ORSet
+    held: torch.Tensor
+    seen: torch.Tensor
+
+
+def set_pool(seed: int) -> SetPool:
+    rng = np.random.default_rng(seed)
+    n = SET_WRITERS * SET_TAGS_PER_WRITER
+    rid = np.repeat(np.arange(SET_WRITERS, dtype=np.int32), SET_TAGS_PER_WRITER)
+    seq = np.tile(np.arange(SET_TAGS_PER_WRITER, dtype=np.int32), SET_WRITERS)
+    elem = rng.integers(0, SET_ELEMS, n).astype(np.int32)
+    removable = np.zeros(n, bool)
+    removable[rng.choice(n, int(round(SET_REMOVABLE * n)), replace=False)] = True
+    order = np.lexsort((seq, rid, elem))
+    return SetPool(elem=elem[order], rid=rid[order], seq=seq[order],
+                   removable=removable[order])
+
+
+def set_swarm(pool: SetPool, n_replicas: int, capacity: int, seed: int,
+              device=None) -> SetSwarm:
+    """R replicas' OR-Sets drawn from ``pool`` with a torch.Generator on
+    ``device`` seeded by ``seed``, in bulk (lane blocks of 65,536, no loop
+    over lanes).  A replica that draws more than ``capacity`` tags keeps
+    its first ``capacity`` in key order; ``held`` says which it kept."""
+    device = default_device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    p = len(pool)
+
+    def col(x):
+        return torch.as_tensor(x, device=device)[None].expand(_SET_CHUNK, p)
+
+    elem, rid, seq = col(pool.elem), col(pool.rid), col(pool.seq)
+    removable = col(pool.removable)
+    s = torch.full((n_replicas, capacity), SENTINEL_PY, dtype=torch.int32, device=device)
+    sets = orset.ORSet(elem=s, rid=s.clone(), seq=s.clone(),
+                       removed=torch.zeros((n_replicas, capacity), dtype=torch.bool,
+                                           device=device))
+    held = torch.empty((n_replicas, p), dtype=torch.bool, device=device)
+    seen = torch.empty((n_replicas, p), dtype=torch.bool, device=device)
+    for start in range(0, n_replicas, _SET_CHUNK):
+        n = min(_SET_CHUNK, n_replicas - start)
+        h = torch.rand((n, p), generator=gen, device=device) < SET_HOLD
+        row = torch.cumsum(h, dim=1, dtype=torch.int32) - 1
+        h &= row < capacity
+        sn = h & removable[:n] & (torch.rand((n, p), generator=gen, device=device)
+                                  < SET_SEEN_REMOVE)
+        # held tags to their row in pool (= key) order; the rest to a spare
+        # column that is cut off
+        dest = torch.where(h, row, capacity).long()
+        for name, src, fill in (("elem", elem, SENTINEL_PY), ("rid", rid, SENTINEL_PY),
+                                ("seq", seq, SENTINEL_PY), ("removed", sn, False)):
+            out = getattr(sets, name)
+            table = torch.full((n, capacity + 1), fill, dtype=out.dtype, device=device)
+            out[start:start + n] = table.scatter_(1, dest, src[:n])[:, :capacity]
+        held[start:start + n] = h
+        seen[start:start + n] = sn
+    return SetSwarm(sets=sets, held=held, seen=seen)
+
+
+def set_view(pool: SetPool, held: np.ndarray, seen: np.ndarray):
+    """Plain fold over replicas of the OR-Set join: ``held``/``seen`` are
+    bool[P] for one replica or bool[k, P] for k replicas to join.  Returns
+    ({(elem, rid, seq): tombstoned}, {live elements}) — an independent
+    check of the device path."""
+    tags: dict = {}
+    for h_row, s_row in zip(np.atleast_2d(held), np.atleast_2d(seen)):
+        for i in np.nonzero(h_row)[0]:
+            tag = (int(pool.elem[i]), int(pool.rid[i]), int(pool.seq[i]))
+            tags[tag] = tags.get(tag, False) or bool(s_row[i])
+    members = {e for (e, _, _), dead in tags.items() if not dead}
+    return tags, members
+
+
+def strided_columns(capacity: int, lanes: int, fill: int, space: int, seed: int,
+                    device=None):
+    """Per-lane sorted unique keys with a SENTINEL tail (the JAX package's
+    three-arm draw, ``benches/bench_orset.py`` ``make_columns`` with
+    ``space``): the ``fill`` live rows are strided-jittered over
+    [0, space), one key per ``space // fill`` stratum, so every lane is
+    strictly ascending and the same draw is legal for the sorted,
+    bucketed and bitmap layouts.  Values are key & 1 on live rows and 0 on
+    padding, the contract's padding.  Returns (keys, vals) int32[C, L]."""
+    device = default_device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    stride = max(space // max(fill, 1), 1)
+    jitter = torch.randint(0, stride, (capacity, lanes), generator=gen,
+                           dtype=torch.int32, device=device)
+    ks = torch.arange(capacity, dtype=torch.int32, device=device)[:, None] * stride + jitter
+    live = torch.arange(capacity, device=device)[:, None] < fill
+    return torch.where(live, ks, SENTINEL_PY), torch.where(live, ks & 1, 0)

@@ -9,8 +9,8 @@ import pytest
 import torch
 
 import crdt_tpu_torch
-from crdt_tpu_torch import convert
-from crdt_tpu_torch.models import oplog, oplog_columnar
+from crdt_tpu_torch import convert, workload
+from crdt_tpu_torch.models import gset, oplog, oplog_columnar, orset
 from crdt_tpu_torch.ops import hopper_union
 from crdt_tpu_torch.parallel import swarm
 
@@ -42,7 +42,8 @@ def test_port_imports_nothing_of_jax_or_crdt_tpu(path):
 def test_scan_sees_the_whole_package():
     names = {p.name for p in PORT_FILES}
     assert {"hopper_union.py", "oplog_columnar.py", "oplog_engine.py",
-            "swarm.py", "chip_smoke.py"} <= names
+            "swarm.py", "chip_smoke.py", "pack.py", "union_engine.py",
+            "orset.py", "gset.py"} <= names
 
 
 @pytest.mark.parametrize("make", [
@@ -52,8 +53,18 @@ def test_scan_sees_the_whole_package():
     lambda: swarm.random_peers(torch.Generator(), 4),
     lambda: convert.oplog_from_numpy(convert.oplog_to_numpy(oplog.empty(4, device="cpu"))),
     lambda: crdt_tpu_torch.default_device(),
+    lambda: orset.empty(8),
+    lambda: orset.bitmap_empty(64),
+    lambda: orset.bucketed_empty(16, 4),
+    lambda: gset.g_empty(8),
+    lambda: gset.tp_empty(8),
+    lambda: convert.orset_from_numpy(convert.orset_to_numpy(orset.empty(4, device="cpu"))),
+    lambda: workload.set_swarm(workload.set_pool(0), 2, 8, 0),
+    lambda: workload.strided_columns(8, 2, 4, 64, 0),
 ], ids=["oplog.empty", "from_ops", "columnar.empty", "random_peers",
-        "convert", "default_device"])
+        "convert", "default_device", "orset.empty", "bitmap_empty",
+        "bucketed_empty", "g_empty", "tp_empty", "convert.orset", "set_swarm",
+        "strided_columns"])
 def test_constructor_without_device_raises_when_no_card(make, monkeypatch):
     """device=None means the CUDA card; without one it raises rather than
     returning CPU tensors."""
@@ -91,3 +102,21 @@ def test_non_cpu_planes_never_reach_the_twin(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc"):
         hopper_union._lexn_union_cuda(cpu[:2], cpu[2:], cpu[:2], cpu[2:], 8)
     assert hopper_union.LAUNCHES["lexn_union"] == before
+
+
+@pytest.mark.parametrize("name", ["set_union", "merge", "bucketed_union"])
+def test_set_kernels_without_a_toolkit_raise(name, monkeypatch, tmp_path):
+    """The CUDA launch path of csrc/set_union.cu with no nvcc raises and
+    counts no launch."""
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(hopper_union._build, "_nvcc", no_nvcc)
+    monkeypatch.setattr(hopper_union._build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(hopper_union._build, "_LIBS", {})
+    cpu = [torch.full((8, 4), 2**31 - 1, dtype=torch.int32)] * 4
+    before = dict(hopper_union.LAUNCHES)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        hopper_union._set_union_cuda(name, *cpu, 8 if name != "bucketed_union" else 4,
+                                     16 if name == "merge" else 4)
+    assert hopper_union.LAUNCHES == before
