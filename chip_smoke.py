@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's OpLog swarm path and its OR-Set swarm path on a
-CUDA card and check them.
+"""Drive the PyTorch port's OpLog, OR-Set and RSeq swarm paths on a CUDA
+card and check them.
 
     python3 chip_smoke.py
 
@@ -32,7 +32,24 @@ Phases (any failure exits non-zero and prints no result):
 8. OR-Set engines at L=131,072: the ``auto`` plan's bucket fallback, the
    three engines bit-identical on the strided draw, the bucket-resident
    chain and the unfused union (merge kernel + epilogue) against the sort
-   path; then the merge, bucketed_union and auto-dispatch times.
+   path; then the merge, bucketed_union and auto-dispatch times;
+9. RSeq: the lexn_merge and lexn_compact kernels vs their twins at C=1024,
+   L=10,240 on a ``workload.seq_swarm`` draw at 18 key words with 2 and 3
+   value planes, lexn_union at those splits at C=512, the striped path at
+   a forced stripe of 256 and ``auto`` at C=2048 against the fused twin,
+   overflow, ragged lanes, and the shared-memory refusals;
+10. RSeq end to end at R=10,240 replicas x C=1024 rows x depth 6:
+    ``rseq_columnar.plan`` (must pick the columnar engine) → 3
+    ``gossip_round``s with one replica dead → ``converge_checked`` →
+    ``unstack``, checked against the port's generic engine at full width,
+    a plain fold of the editing history on 64 sampled lanes, and the
+    predicted launch counts;
+11. the RSeq GC barrier: ``tomb_gc.gc_round`` on the columnar engine ==
+    ``engine="generic"``, exactly the removed rows under the frontier
+    collected, live lists unchanged; then the dead replica revived by one
+    GC-aware pull (``rseq_engine.gc_merge_checked``);
+12. RSeq times (gossip, converge, GC converge, each kernel with its twin
+    and bound) and one profiled gossip round and converge.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -272,8 +289,9 @@ def bound(n_bytes: int, n_ops: int) -> tuple:
 def kernel_row(name, source, replaces, launches, err, ms, plain_ms, n_bytes, n_ops,
                library_ms, card) -> dict:
     bound_ms, bound_by = bound(n_bytes, n_ops)
+    library = "—" if library_ms is None else f"{library_ms:.4f} ms"
     log(f"{name}: {ms:.4f} ms/launch, plain twin {plain_ms:.4f} ms, library "
-        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+        f"{library}, bound {bound_ms:.4f} ms by {bound_by} "
         f"({n_bytes / 1e9:.3f} GB at 3.35 TB/s; {n_ops / 1e9:.3f} G int32 compares "
         f"at {INT32_OPS_PER_S / 1e12:.1f} T/s) [{card}]")
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -673,6 +691,411 @@ def set_phases(card: str) -> list:
     return rows
 
 
+# ---- the RSeq slice ----
+#
+# R=10,240 replicas (the OpLog phase's swarm) x C=1024 rows x depth 6 (the
+# JAX package's RSeq bench shape) over workload.seq_pool's editing history:
+# 16 writers, 1,000 elements, a quarter removable.
+
+SEQ_C = 1024
+SEQ_W = 16                  # GC floor writers: the history's 16 writers
+SEQ_SAMPLED = 64            # seeded lanes checked against the plain fold
+N_KEYS_SEQ = 18             # 3 packed words x depth 6
+
+
+def seq_columnar(pool, lanes: int, c: int, seed: int):
+    """A seq_swarm draw on the card, stacked into the columnar layout."""
+    from crdt_tpu_torch import workload
+    from crdt_tpu_torch.models import rseq_columnar as rc
+
+    return rc.stack(workload.seq_swarm(pool, lanes, c, seed, device="cuda").states)
+
+
+def lexn_sides(a, b, gc: bool):
+    """(keys_a, vals_a, keys_b, vals_b) of two columnar swarms: 18 key words
+    and (elem, removed), plus the GC join's src marker when ``gc``."""
+    def vals(col, k):
+        v = (col.elem, col.removed)
+        return v + ((col.keys[0] != SENTINEL).to(torch.int32) * k,) if gc else v
+
+    return tuple(a.keys), vals(a, 1), tuple(b.keys), vals(b, 2)
+
+
+def check_rseq_kernels(pool) -> dict:
+    """Phase 9: lexn_merge, lexn_compact and lexn_union at RSeq's width
+    against their twins, the striped and auto paths against the fused
+    twin, overflow, ragged lanes and the shared-memory refusals.  Returns
+    the largest |kernel - twin| by kernel."""
+    from crdt_tpu_torch.ops import hopper_union as hu
+
+    err = {"lexn_merge": 0, "lexn_compact": 0, "lexn_union_rseq": 0}
+
+    def merge(sides, label):
+        got = hu.lexn_merge_columnar(*sides)
+        err["lexn_merge"] = max(err["lexn_merge"], same(
+            f"lexn_merge {label}", (*got[0], *got[1]),
+            tuple(x for t in hu._lexn_merge_plain(*sides) for x in t)))
+        return got
+
+    def compact(keys, vals, out, label):
+        got = hu.lexn_compact_columnar(keys, vals, out)
+        want = hu._lexn_compact_plain(keys, vals, out)
+        err["lexn_compact"] = max(err["lexn_compact"], same(
+            f"lexn_compact {label}", (*got[0], *got[1], got[2]),
+            (*want[0], *want[1], want[2])))
+        return int(got[2].max())
+
+    def union(sides, out, label):
+        got = hu.sorted_union_columnar_fused_lexn(*sides, out_size=out)
+        want = hu._lexn_union_plain(*sides, out)
+        err["lexn_union_rseq"] = max(err["lexn_union_rseq"], same(
+            f"lexn_union {label}", (*got[0], *got[1], got[2]),
+            (*want[0], *want[1], want[2])))
+        return int(got[2].max())
+
+    a, b = seq_columnar(pool, R, SEQ_C, SEED + 41), seq_columnar(pool, R, SEQ_C, SEED + 42)
+    for gc in (False, True):
+        split = f"(18, {3 if gc else 2})"
+        mk, mv = merge(lexn_sides(a, b, gc), f"{split} C={SEQ_C} L={R}")
+        nu = compact(mk, mv, SEQ_C, f"{split} out=C")
+        compact(mk, mv, 2 * SEQ_C, f"{split} out=2C")
+        if compact(mk, mv, SEQ_C // 4, f"{split} overflow out=C/4") <= SEQ_C // 4:
+            raise AssertionError("the compaction overflow case did not overflow")
+    log(f"lexn_merge + lexn_compact vs twins: bit-exact at (18, 2) and (18, 3), "
+        f"C={SEQ_C} L={R}, out=C/2C and overflow (max n_unique {nu})")
+    half_a, half_b = (seq_columnar(pool, R, SEQ_C // 2, SEED + 43),
+                      seq_columnar(pool, R, SEQ_C // 2, SEED + 44))
+    for gc in (False, True):
+        split = f"(18, {3 if gc else 2})"
+        nu = union(lexn_sides(half_a, half_b, gc), SEQ_C // 2, f"{split} C=512 out=C")
+        union(lexn_sides(half_a, half_b, gc), SEQ_C, f"{split} C=512 out=2C")
+        if nu <= SEQ_C // 2:
+            raise AssertionError("the C=512 union did not overflow its capacity")
+    del half_a, half_b
+    log(f"lexn_union vs twin: bit-exact at (18, 2) and (18, 3), C=512 L={R} "
+        f"(overflowing: max n_unique {nu})")
+
+    sides = lexn_sides(a, b, True)
+    want = hu._lexn_union_plain(*sides, SEQ_C)
+    before = dict(hu.LAUNCHES)
+    got = hu.sorted_union_columnar_striped_lexn(*sides, out_size=SEQ_C, stripe=256)
+    same("striped, stripe 256", (*got[0], *got[1], got[2]), (*want[0], *want[1], want[2]))
+    merges = hu.LAUNCHES["lexn_merge"] - before["lexn_merge"]
+    compacts = hu.LAUNCHES["lexn_compact"] - before["lexn_compact"]
+    if (merges, compacts) != (12, 1):
+        raise AssertionError(f"stripe 256 launched {merges} merges and {compacts} "
+                             "compactions, expected 12 and 1")
+    wide_a = seq_columnar(pool, 2048, 2 * SEQ_C, SEED + 45)
+    wide_b = seq_columnar(pool, 2048, 2 * SEQ_C, SEED + 46)
+    sides = lexn_sides(wide_a, wide_b, False)
+    before = dict(hu.LAUNCHES)
+    got = hu.sorted_union_columnar_lexn_auto(*sides, out_size=2 * SEQ_C)
+    want = hu._lexn_union_plain(*sides, 2 * SEQ_C)
+    same("auto C=2048", (*got[0], *got[1], got[2]), (*want[0], *want[1], want[2]))
+    delta = {k: hu.LAUNCHES[k] - before[k] for k in ("lexn_union", "lexn_merge", "lexn_compact")}
+    if delta != {"lexn_union": 0, "lexn_merge": 4, "lexn_compact": 1}:
+        raise AssertionError(f"auto at C=2048 did not run the block network: {delta}")
+    log("striped (stripe 256: 12 merges + 1 compaction) and auto at C=2048 on 2,048 "
+        "lanes (stripe 1024: 4 merges + 1 compaction) == the fused twin")
+
+    for n in (1, 127, 130):
+        ra, rb = seq_columnar(pool, n, SEQ_C, SEED + 47), seq_columnar(pool, n, SEQ_C, SEED + 48)
+        mk, mv = merge(lexn_sides(ra, rb, True), f"ragged L={n}")
+        compact(mk, mv, SEQ_C, f"ragged L={n}")
+        ra, rb = (seq_columnar(pool, n, SEQ_C // 2, SEED + 49),
+                  seq_columnar(pool, n, SEQ_C // 2, SEED + 50))
+        union(lexn_sides(ra, rb, False), SEQ_C // 2, f"ragged L={n}")
+    log("ragged L=1/127/130: bit-exact")
+
+    limit = hu.smem_limit(torch.device("cuda"))
+    big = [torch.full((2 * SEQ_C, 2), SENTINEL, dtype=torch.int32, device="cuda")] * 20
+    full = [p[:SEQ_C] for p in big]
+    refusals = []
+    before = dict(hu.LAUNCHES)
+    for label, call, want_bytes in (
+        ("fused union (18, 2) at C=1024", lambda: hu.sorted_union_columnar_fused_lexn(
+            full[:18], full[18:], full[:18], full[18:]), hu.lexn_union_smem_bytes(18, 2, SEQ_C)),
+        ("merge at S=2048", lambda: hu.lexn_merge_columnar(
+            big[:18], big[18:], big[:18], big[18:]), hu.lexn_merge_smem_bytes(18, 2 * SEQ_C)),
+    ):
+        try:
+            call()
+        except RuntimeError as e:
+            if f"{want_bytes} B of shared memory" not in str(e):
+                raise AssertionError(f"{label}: refusal without its figure: {e}") from e
+            refusals.append(f"{label} ({want_bytes} B > {limit} B)")
+        else:
+            raise AssertionError(f"{label} launched past the {limit} B limit")
+    try:
+        hu.lexn_plan(1 << 17, N_KEYS_SEQ, 2, limit)
+    except ValueError as e:
+        refusals.append(f"plan at C=131,072 ({e})")
+    else:
+        raise AssertionError("the plan accepted C=131,072")
+    if hu.LAUNCHES != before:
+        raise AssertionError("a refused launch was counted")
+    torch.cuda.synchronize()
+    log(f"shared-memory refusals with the figure, limit {limit} B: " + "; ".join(refusals))
+    return err
+
+
+def run_rseq_slice(pool) -> dict:
+    """Phases 10-11: the RSeq main path at full size through the entry
+    points a user calls, the GC barrier and the revival, then their
+    checks.  Returns what the timing phase needs."""
+    import warnings
+
+    import numpy as np
+
+    from crdt_tpu_torch import workload
+    from crdt_tpu_torch.models import rseq, rseq_columnar as rc, rseq_engine as reng
+    from crdt_tpu_torch.models import tomb_gc
+    from crdt_tpu_torch.models.oplog_engine import EngineFallback
+    from crdt_tpu_torch.ops import hopper_union as hu
+    from crdt_tpu_torch.ops import joins
+    from crdt_tpu_torch.parallel import swarm
+    from crdt_tpu_torch.utils.tree import leaves, tree_map
+
+    sw = workload.seq_swarm(pool, R, SEQ_C, SEED + 31, device="cuda")
+    alive = torch.ones(R, dtype=torch.bool, device="cuda")
+    alive[DEAD] = False
+    peer_gen = torch.Generator(device="cuda").manual_seed(SEED + 32)
+    rounds = [swarm.random_peers(peer_gen, R, device="cuda") for _ in range(3)]
+    rng = np.random.default_rng(SEED + 33)
+    lanes = sorted({0, R - 1, DEAD, *rng.choice(R, SEQ_SAMPLED, replace=False).tolist()})
+    held, seen = sw.held.cpu().numpy(), sw.seen.cpu().numpy()
+    alive_np = alive.cpu().numpy()
+    torch.cuda.synchronize()
+
+    for name in hu.LAUNCHES:
+        hu.LAUNCHES[name] = 0
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", EngineFallback)
+        t0 = time.perf_counter()
+        col, reason = rc.plan(sw.states)
+        start = col
+        for peers in rounds:
+            col = rc.gossip_round(col, peers, alive)
+        col, max_nu = rc.converge_checked(col, alive)
+        conv = rc.unstack(col)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    launches = dict(hu.LAUNCHES)
+    log(f"RSeq main path: plan -> 3 gossip rounds -> converge -> unstack at R={R} "
+        f"C={SEQ_C} D={rseq.DEPTH}: {seconds:.3f} s host wall, launches {launches}; "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+
+    if reason is not None or start is None:
+        raise AssertionError(f"plan fell back: {reason}")
+    levels = math.ceil(math.log2(R))
+    expected = {"lexn_merge": 3 + levels, "lexn_compact": 3 + levels}
+    if {k: launches[k] for k in expected} != expected or launches["lexn_union"] != 0:
+        raise AssertionError(f"RSeq launches {launches}, expected {expected} and no "
+                             "fused union (C=1024 stripes)")
+    max_nu = int(max_nu)
+    if max_nu > SEQ_C:
+        raise AssertionError(f"max_n_unique {max_nu} > C={SEQ_C}")
+
+    # the port's generic engine at full width
+    g = swarm.make(sw.states, alive)
+    for peers in rounds:
+        g = swarm.gossip_round(g, peers, rseq.join)
+    neutral = rseq.empty(SEQ_C, device="cuda")
+    work = joins.pad_to_pow2(swarm.mask_dead_with_neutral(g.state, alive, neutral), neutral)
+    g_nu = 0
+    while leaves(work)[0].shape[0] > 1:
+        p = leaves(work)[0].shape[0] // 2
+        work, nu = rseq.join_checked(tree_map(lambda x: x[:p], work),
+                                     tree_map(lambda x: x[p:2 * p], work))
+        g_nu = max(g_nu, int(nu.max()))
+    generic = swarm.broadcast_where_alive(g.state, alive, tree_map(lambda x: x[0], work))
+    same("columnar engine vs generic engine", leaves(conv), leaves(generic))
+    if g_nu != max_nu:
+        raise AssertionError(f"max_n_unique {max_nu} != generic {g_nu}")
+    del g, work, generic
+    lub_tombs, lub_live = workload.seq_view(pool, held[alive_np], seen[alive_np])
+    for lane in lanes:
+        one = rseq.RSeq(conv.keys[lane], conv.elem[lane], conv.removed[lane])
+        want = (workload.seq_view(pool, held[lane], seen[lane])[1] if lane == DEAD
+                else lub_live)
+        if rseq.to_list(one) != want:
+            raise AssertionError(f"lane {lane}: to_list != the plain fold")
+    log(f"RSeq slice checks: == generic engine on every plane of all {R} lanes, "
+        f"{len(lanes)} sampled lanes == plain fold ({len(lub_live)} live of "
+        f"{len(lub_tombs)} elements), max_n_unique={max_nu} <= C, dead lane unchanged, "
+        f"launches == prediction ({expected})")
+
+    # ---- 11. the GC barrier ----
+    if not held[alive_np].any(axis=0).all():
+        raise AssertionError("the alive LUB misses a pool element: the stable "
+                             "frontier's precondition fails")
+    gstate = tomb_gc.Gc(inner=conv, floor=torch.full((R, SEQ_W), -1, dtype=torch.int32,
+                                                     device="cuda"))
+    for name in hu.LAUNCHES:
+        hu.LAUNCHES[name] = 0
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", EngineFallback)
+        t0 = time.perf_counter()
+        gcd = tomb_gc.gc_round(swarm.make(gstate, alive), rseq.GC_ADAPTER, neutral).state
+        torch.cuda.synchronize()
+        gc_seconds = time.perf_counter() - t0
+    gc_launches = dict(hu.LAUNCHES)
+    gen = tomb_gc.gc_round(swarm.make(gstate, alive), rseq.GC_ADAPTER, neutral,
+                           engine="generic").state
+    same("gc_round columnar vs generic", leaves(gcd), leaves(gen))
+    del gen
+    floor = gcd.floor[0]
+    if not bool((gcd.floor[alive] == floor).all()):
+        raise AssertionError("alive lanes disagree on the floor")
+    rid, seq = rseq.GC_ADAPTER.rid_seq(conv)
+    covered = rseq.GC_ADAPTER.valid(conv) & (seq <= floor[rid.clamp(0, SEQ_W - 1).long()])
+    dropped = (covered & conv.removed).sum(dim=1, dtype=torch.int32)
+    if not torch.equal(torch.where(alive, rseq.n_rows(conv) - dropped, rseq.n_rows(conv)),
+                       rseq.n_rows(gcd.inner)):
+        raise AssertionError("the barrier did not collect exactly the removed rows under "
+                             "the frontier")
+    if not torch.equal(rseq.size(conv), rseq.size(gcd.inner)):
+        raise AssertionError("the barrier changed a live count")
+    for lane in lanes:
+        if lane == DEAD:
+            continue
+        one = rseq.RSeq(gcd.inner.keys[lane], gcd.inner.elem[lane], gcd.inner.removed[lane])
+        if rseq.to_list(one) != lub_live:
+            raise AssertionError(f"lane {lane}: the barrier changed the live list")
+    for x, y in zip(leaves(gstate), leaves(gcd)):
+        if not torch.equal(x[DEAD], y[DEAD]):
+            raise AssertionError("the barrier touched the dead lane")
+    log(f"GC barrier: gc_round (columnar) == engine=\"generic\" at R={R}, floor "
+        f"{floor.tolist()}, collected {int(dropped[0])} removed rows a lane, live lists "
+        f"unchanged, {gc_seconds:.3f} s host wall, launches {gc_launches}")
+
+    def lane_gc(i):
+        return tree_map(lambda x: x[i:i + 1], gcd)
+
+    peer = 0
+    bits = reng.fit_joint_seq_bits(lane_gc(DEAD).inner, lane_gc(peer).inner)
+    for name in hu.LAUNCHES:
+        hu.LAUNCHES[name] = 0
+    out, nu = reng.gc_merge_checked(reng.stack(lane_gc(DEAD), bits),
+                                    reng.stack(lane_gc(peer), bits))
+    revived = reng.unstack(out)
+    pull_launches = dict(hu.LAUNCHES)
+    same("revived replica vs the collected LUB", leaves(revived), leaves(lane_gc(peer)))
+    rows = revived.inner.keys[0, :int(nu[0])].cpu().numpy()
+    idents = {(int(r[-2]), int(r[-1])) for r in rows}
+    if idents != {k for k, dead in lub_tombs.items() if not dead}:
+        raise AssertionError("the revived replica's identities != the live identities "
+                             "of the plain fold")
+    if (pull_launches["lexn_merge"], pull_launches["lexn_compact"]) != (1, 1):
+        raise AssertionError(f"the GC pull launched {pull_launches}")
+    log(f"revival: replica {DEAD} after one gc_merge_checked from replica {peer} == the "
+        f"collected LUB ({int(nu[0])} rows, no collected row brought back), launches "
+        f"{pull_launches}")
+    return {"start": start, "alive": alive, "rounds": rounds, "launches": launches,
+            "gstate": gstate, "gc_launches": gc_launches}
+
+
+def rseq_times(pool, ctx, err, card) -> list:
+    """Phase 12: the RSeq calls' times, each kernel's with its twin and
+    bound, and one profiled gossip round and converge.  Returns the table
+    rows of lexn_merge, lexn_compact and lexn_union at (18, 2)."""
+    from crdt_tpu_torch.models import rseq_columnar as rc, rseq_engine as reng
+    from crdt_tpu_torch.ops import hopper_union as hu
+
+    col, alive, rounds = ctx["start"], ctx["alive"], ctx["rounds"]
+    gossip_ms = time_ms(lambda: rc.gossip_round(col, rounds[0], alive), reps=5)
+    converge_ms = time_ms(lambda: rc.converge_checked(col, alive), reps=3, warmup=1)
+    cg = reng.stack(ctx["gstate"])
+    gc_ms = time_ms(lambda: reng.gc_converge_checked(cg, alive), reps=3, warmup=1)
+    del cg
+    log(f"RSeq gossip_round (R={R}, C={SEQ_C}, D=6): {gossip_ms:.4f} ms")
+    log(f"RSeq converge_checked (R={R}): {converge_ms:.4f} ms")
+    log(f"RSeq gc_converge_checked (R={R}, W={SEQ_W}): {gc_ms:.4f} ms")
+
+    a, b = seq_columnar(pool, R, SEQ_C, SEED + 41), seq_columnar(pool, R, SEQ_C, SEED + 42)
+    log_c = math.ceil(math.log2(SEQ_C))
+    rows = []
+    for gc in (False, True):
+        sides = lexn_sides(a, b, gc)
+        n_planes, out = N_KEYS_SEQ + len(sides[1]), 2 * SEQ_C if gc else SEQ_C
+        label = "GC join, 21 planes, out=2C" if gc else "20 planes, out=C"
+        merge_ms = time_ms(lambda: hu.lexn_merge_columnar(*sides), reps=10)
+        merge_plain = time_ms(lambda: hu._lexn_merge_plain(*sides), reps=3, warmup=1)
+        mk, mv = hu.lexn_merge_columnar(*sides)
+        compact_ms = time_ms(lambda: hu.lexn_compact_columnar(mk, mv, out), reps=10)
+        compact_plain = time_ms(lambda: hu._lexn_compact_plain(mk, mv, out), reps=3, warmup=1)
+        # bytes: every input plane read once, every output plane written
+        # once; operations: one key-word compare for each binary-search step
+        # of the 2C merged rows (further words are compared only on ties),
+        # one for each row's duplicate test
+        merge = ("lexn_merge", "crdt_tpu/ops/pallas_union.py:492", ctx["launches"]["lexn_merge"],
+                 merge_ms, merge_plain, 4 * (2 * n_planes * SEQ_C * R + n_planes * 2 * SEQ_C * R),
+                 2 * SEQ_C * R * log_c)
+        compact = ("lexn_compact", "crdt_tpu/ops/pallas_union.py:557",
+                   ctx["launches"]["lexn_compact"], compact_ms, compact_plain,
+                   4 * (n_planes * 2 * SEQ_C * R + n_planes * out * R + R), 2 * SEQ_C * R)
+        for name, replaces, launches, ms, plain_ms, n_bytes, n_ops in (merge, compact):
+            if gc:
+                bound_ms, by = bound(n_bytes, n_ops)
+                log(f"{name} [{label}]: {ms:.4f} ms/launch, plain twin {plain_ms:.4f} ms, "
+                    f"bound {bound_ms:.4f} ms by {by} ({n_bytes / 1e9:.3f} GB), "
+                    f"{ctx['gc_launches'][name]} launches in the GC barrier [{card}]")
+            else:
+                rows.append(kernel_row(name, "crdt_tpu_torch/csrc/lexn_union.cu", replaces,
+                                       launches, err[name], ms, plain_ms, n_bytes, n_ops,
+                                       None, card))
+        del mk, mv
+    log("lexn_merge / lexn_compact library yardstick: none — no single PyTorch call "
+        "does an 18-word lexicographic merge (torch.sort takes one key) or a "
+        "punch-and-compact")
+    del a, b
+    half = (seq_columnar(pool, R, SEQ_C // 2, SEED + 43),
+            seq_columnar(pool, R, SEQ_C // 2, SEED + 44))
+    for gc in (False, True):
+        sides = lexn_sides(*half, gc)
+        n_planes, c = N_KEYS_SEQ + len(sides[1]), SEQ_C // 2
+        ms = time_ms(lambda: hu.sorted_union_columnar_fused_lexn(*sides, out_size=c), reps=10)
+        plain_ms = time_ms(lambda: hu._lexn_union_plain(*sides, c), reps=3, warmup=1)
+        n_bytes = 4 * (2 * n_planes * c * R + n_planes * c * R + R)
+        n_ops = 2 * c * R * math.ceil(math.log2(c))
+        if gc:
+            bound_ms, by = bound(n_bytes, n_ops)
+            log(f"lexn_union [(18, 3), C=512]: {ms:.4f} ms/launch, plain twin "
+                f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {by} [{card}]")
+        else:
+            rows.append(kernel_row(
+                "lexn_union_rseq", "crdt_tpu_torch/csrc/lexn_union.cu",
+                "crdt_tpu/ops/pallas_union.py:353", ctx["launches"]["lexn_union"],
+                err["lexn_union_rseq"], ms, plain_ms, n_bytes, n_ops, None, card))
+    log("lexn_union_rseq: the fused union at (18, 2), C=512; the RSeq main path at "
+        "C=1024 stripes instead, so it launches it no time; library: none (as above)")
+    del half
+
+    profile("RSeq gossip_round", lambda: rc.gossip_round(col, rounds[0], alive))
+    profile("RSeq converge_checked", lambda: rc.converge_checked(col, alive))
+    return rows
+
+
+def rseq_phases(card: str) -> list:
+    """Phases 9-12: the RSeq swarm path.  Returns the table rows of
+    lexn_merge, lexn_compact and lexn_union at (18, 2)."""
+    from crdt_tpu_torch import workload
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    pool = workload.seq_pool(SEED)
+    log(f"RSeq pool: {len(pool)} elements, {int(pool.removable.sum())} removable, "
+        f"depth histogram {pool.depth_histogram()}")
+    err = check_rseq_kernels(pool)
+    torch.cuda.empty_cache()
+    ctx = run_rseq_slice(pool)
+    torch.cuda.empty_cache()
+    rows = rseq_times(pool, ctx, err, card)
+    log(f"RSeq phases: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB "
+        "(kernel checks, main path, generic engine and GC barrier at full width)")
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -695,6 +1118,7 @@ def main() -> int:
 
     rows = [oplog_phases(card)]
     rows += set_phases(card)
+    rows += rseq_phases(card)
 
     print(card, flush=True)
     log(json.dumps({"kernels": rows}))

@@ -7,13 +7,20 @@ the standard library only — never ``jax`` and nothing of ``crdt_tpu``.
 
 Layout (mirrors ``crdt_tpu``):
 
-- ``utils``    — constants, table growth, host string interning;
-- ``ops``      — ``sorted_union`` (plain torch) and ``hopper_union`` (the
-  hand-written CUDA fused lexN union kernel, ``csrc/lexn_union.cu``);
-- ``models``   — ``oplog``, ``oplog_columnar``, ``oplog_engine``;
-- ``parallel`` — ``swarm`` (anti-entropy over a stacked replica axis);
+- ``utils``    — constants, table growth, host string interning, the
+  structure map over state containers;
+- ``ops``      — ``sorted_union`` and ``joins`` (plain torch), ``pack`` and
+  ``union_engine`` (the OR-Set engines), and ``hopper_union``: the wrappers
+  of the hand-written CUDA kernels (``csrc/lexn_union.cu``: the lexN union,
+  merge and compaction; ``csrc/set_union.cu``: the single-key union, merge
+  and bucket-local union) and their plain twins;
+- ``models``   — ``oplog``, ``oplog_columnar``, ``oplog_engine``; ``orset``,
+  ``gset``; ``rseq``, ``rseq_columnar``, ``rseq_engine``; ``tomb_gc``;
+- ``parallel`` — ``swarm`` (anti-entropy over a stacked replica axis, the
+  stable frontier and the compaction barrier);
 - ``convert``  — state carried across from the JAX package as numpy;
-- ``workload`` — seeded reference-shaped writes for driving a swarm.
+- ``workload`` — seeded reference-shaped writes, the OR-Set swarm and the
+  RSeq editing history for driving a swarm.
 
 Device rule: every constructor takes ``device=None``, which resolves to
 the CUDA card (:func:`default_device`); without a card that raises rather

@@ -1,7 +1,8 @@
 """State carried across from the JAX package, as numpy.
 
-The JAX package's ``OpLog``, ``ColumnarOpLog``, ``ORSet``, ``ORSetBitmap``
-and ``ORSetBucketed`` are plain arrays; these functions take them as a dict
+The JAX package's ``OpLog``, ``ColumnarOpLog``, ``ORSet``, ``ORSetBitmap``,
+``ORSetBucketed``, ``RSeq``, ``ColumnarRSeq``, ``Gc`` and ``ColumnarGc`` are
+plain arrays; these functions take them as a dict
 of numpy arrays (``np.asarray`` of each field) and build the port's
 tensors, and give them back the same way, so both packages can be fed
 identical state and compared plane by plane.
@@ -17,6 +18,10 @@ from crdt_tpu_torch import default_device
 from crdt_tpu_torch.models.oplog import _FIELDS, KVState, OpLog
 from crdt_tpu_torch.models.oplog_columnar import ColumnarOpLog
 from crdt_tpu_torch.models.orset import ORSet, ORSetBitmap, ORSetBucketed
+from crdt_tpu_torch.models.rseq import RSeq
+from crdt_tpu_torch.models.rseq_columnar import ColumnarRSeq
+from crdt_tpu_torch.models.rseq_engine import ColumnarGc
+from crdt_tpu_torch.models.tomb_gc import Gc
 
 _COLUMNAR_PLANES = ("hi", "lo", "val", "pay")
 _KV_FIELDS = ("present", "is_num", "num", "num_count", "payload")
@@ -97,3 +102,57 @@ def bucketed_from_numpy(d: Mapping[str, np.ndarray], n_buckets: int,
 def bucketed_to_numpy(s: ORSetBucketed) -> dict:
     return {"keys": s.keys.cpu().numpy(), "removed": s.removed.cpu().numpy(),
             "n_buckets": s.n_buckets, "key_bits": s.key_bits}
+
+
+def rseq_from_numpy(d: Mapping[str, np.ndarray], device=None) -> RSeq:
+    """An RSeq (single [C, 4D] or batched [R, C, 4D]) from keys/elem/removed."""
+    device = default_device(device)
+    return RSeq(keys=_tensor(d["keys"], torch.int32, device),
+                elem=_tensor(d["elem"], torch.int32, device),
+                removed=_tensor(d["removed"], torch.bool, device))
+
+
+def rseq_to_numpy(s: RSeq) -> dict:
+    return {f: getattr(s, f).cpu().numpy() for f in ("keys", "elem", "removed")}
+
+
+def columnar_rseq_from_numpy(d: Mapping[str, np.ndarray], seq_bits: int,
+                             device=None) -> ColumnarRSeq:
+    """A ColumnarRSeq from its keys (3D, C, R), elem and removed (C, R)
+    planes plus the identity word's ``seq_bits``."""
+    device = default_device(device)
+    return ColumnarRSeq(**{f: _tensor(d[f], torch.int32, device)
+                           for f in ("keys", "elem", "removed")},
+                        seq_bits=int(seq_bits))
+
+
+def columnar_rseq_to_numpy(col: ColumnarRSeq) -> dict:
+    out = {f: getattr(col, f).cpu().numpy() for f in ("keys", "elem", "removed")}
+    out["seq_bits"] = col.seq_bits
+    return out
+
+
+def gc_from_numpy(d: Mapping[str, np.ndarray], inner_from_numpy, device=None) -> Gc:
+    """A Gc from ``{"inner": <inner's dict>, "floor": int32[..., W]}``;
+    ``inner_from_numpy`` builds the wrapped state (``rseq_from_numpy``,
+    ``orset_from_numpy``)."""
+    device = default_device(device)
+    return Gc(inner=inner_from_numpy(d["inner"], device=device),
+              floor=_tensor(d["floor"], torch.int32, device))
+
+
+def gc_to_numpy(g: Gc, inner_to_numpy) -> dict:
+    return {"inner": inner_to_numpy(g.inner), "floor": g.floor.cpu().numpy()}
+
+
+def columnar_gc_from_numpy(d: Mapping[str, np.ndarray], device=None) -> ColumnarGc:
+    """A ColumnarGc from ``{"col": <columnar_rseq dict with seq_bits>,
+    "floor": int32[W, R]}``."""
+    device = default_device(device)
+    return ColumnarGc(col=columnar_rseq_from_numpy(d["col"], d["col"]["seq_bits"],
+                                                   device=device),
+                      floor=_tensor(d["floor"], torch.int32, device))
+
+
+def columnar_gc_to_numpy(cg: ColumnarGc) -> dict:
+    return {"col": columnar_rseq_to_numpy(cg.col), "floor": cg.floor.cpu().numpy()}

@@ -1,12 +1,16 @@
-"""Columnar sorted-set unions and merge: the hand-written Hopper kernels and
+"""Columnar sorted-set unions and merges: the hand-written Hopper kernels and
 their plain PyTorch twins.
 
 Counterpart of ``crdt_tpu.ops.pallas_union``.  Two CUDA sources:
 
-* ``csrc/lexn_union.cu`` — the fused lexN union
-  (``sorted_union_columnar_fused_lexn`` / ``_lex2``, the OpLog swarm's
-  merge), duplicates OR-combined into the kept copy
-  (OR-combine-then-keep-first);
+* ``csrc/lexn_union.cu`` — the lexN family over N-word lexicographic keys:
+  the fused union (``sorted_union_columnar_fused_lexn`` / ``_lex2``, the
+  OpLog and RSeq swarm merges), the merge alone (``lexn_merge_columnar``)
+  and the punch-and-compact alone (``lexn_compact_columnar``), duplicates
+  OR-combined into the kept copy (OR-combine-then-keep-first); the host
+  functions ``sorted_union_columnar_striped_lexn`` and
+  ``sorted_union_columnar_lexn_auto`` serve capacities whose fused union
+  does not fit a block's shared memory;
 * ``csrc/set_union.cu`` — the single-key OR-Set union
   (``sorted_union_columnar_fused``), its merge stage alone
   (``bitonic_merge_columnar``) and the bucket-local union
@@ -17,7 +21,10 @@ holding one replica's rows, per-lane sorted ascending over the key words,
 padding rows SENTINEL in every key word and 0 in every value plane; C is a
 power of two.  A union returns the smallest ``out_size`` rows of the union
 (SENTINEL / 0 past the unique count) and the pre-truncation ``n_unique``
-per lane.  A row whose key is SENTINEL is padding, value included.  Lane
+per lane.  The lexN family takes its operands' planes as sequences (or
+(P, C, L) tensors) and returns them as one contiguous (P, out, L) tensor a
+side, keys and values, so a caller that holds planes stacked needs no
+copy.  A row whose key is SENTINEL is padding, value included.  Lane
 counts need no multiple of 128: that tile was the TPU's.
 
 Dispatch: a CUDA tensor launches the kernel (or raises); a CPU tensor runs
@@ -35,10 +42,15 @@ from crdt_tpu_torch import _build
 from crdt_tpu_torch.ops.sorted_union import _sort_by_keys
 from crdt_tpu_torch.utils.constants import SENTINEL_PY
 
-LAUNCHES = {"lexn_union": 0, "set_union": 0, "merge": 0, "bucketed_union": 0}
+LAUNCHES = {"lexn_union": 0, "set_union": 0, "merge": 0, "bucketed_union": 0,
+            "lexn_merge": 0, "lexn_compact": 0}
 
-# instantiated (n_keys, n_vals) splits of the kernel template
-KERNEL_SPLITS = ((2, 2),)
+# key + value planes a side that one lexN launch takes (csrc/lexn_union.cu
+# kMaxPlanes): RSeq at depth 9 with its GC join's three value planes
+MAX_PLANES = 32
+# shared memory a block may opt in to on an H100 (sm_90); the CPU path
+# plans with it so that the tests see the card's dispatch
+HOPPER_SMEM_OPTIN = 232_448
 
 
 def _check_planes(planes: Sequence[torch.Tensor], shape, device) -> None:
@@ -65,32 +77,118 @@ def _route(name: str, device: torch.device) -> bool:
     return False
 
 
-def sorted_union_columnar_fused_lexn(
-    keys_a, vals_a, keys_b, vals_b, out_size: int | None = None,
-):
-    """Fused batched sorted-set union with an N-word lexicographic key.
-    Returns (keys_tuple, vals_tuple, n_unique[L]); n_unique is the
-    pre-truncation unique count, so overflow (n_unique > out_size) stays
-    detectable."""
-    keys_a, vals_a, keys_b, vals_b = map(tuple, (keys_a, vals_a, keys_b, vals_b))
+# ---- the lexN family: envelopes ----
+#
+# Each kernel's shared memory per block, by csrc/lexn_union.cu's layouts
+# (the launchers take these byte counts), against the card's opt-in limit.
+# Pure functions of the shape and the limit, so the CPU tests plan with
+# HOPPER_SMEM_OPTIN.
+
+
+def lexn_union_smem_bytes(n_keys: int, n_vals: int, c: int) -> int:
+    """The fused union: both operands' key words, the merged planes, the
+    scan's warp sums and one flag byte a merged row."""
+    return 4 * (2 * n_keys * c + (n_keys + n_vals) * 2 * c + 32) + 2 * c
+
+
+def lexn_merge_smem_bytes(n_keys: int, s: int) -> int:
+    """The merge: both operands' key words only."""
+    return 4 * 2 * n_keys * s
+
+
+def lexn_compact_smem_bytes(n_rows: int) -> int:
+    """The compaction: one flag byte a row and the scan's warp sums."""
+    return 4 * 32 + n_rows
+
+
+def lexn_fits(c: int, n_keys: int, n_vals: int, limit: int) -> bool:
+    """Whether one fused union at capacity ``c`` fits a block's ``limit``
+    bytes of shared memory."""
+    return lexn_union_smem_bytes(n_keys, n_vals, c) <= limit
+
+
+def lexn_compact_fits(n_rows: int, limit: int) -> bool:
+    """Whether one compaction over ``n_rows``-row planes (2C for a union
+    epilogue) fits ``limit`` bytes."""
+    return lexn_compact_smem_bytes(n_rows) <= limit
+
+
+def _lexn_stripe_for(c: int, n_keys: int, limit: int) -> int:
+    """The largest power-of-two stripe ``s <= c`` whose merge fits ``limit``
+    bytes (0 when not even one row does)."""
+    s = c
+    while s >= 1 and lexn_merge_smem_bytes(n_keys, s) > limit:
+        s //= 2
+    return s
+
+
+def lexn_plan(c: int, n_keys: int, n_vals: int, limit: int) -> int | None:
+    """The union's route on a card with ``limit`` bytes of shared memory a
+    block: None for the fused kernel, else the stripe of the striped path
+    (merge kernels, then one compaction over 2C rows).  Raises ValueError
+    with the figures when neither fits."""
+    if lexn_fits(c, n_keys, n_vals, limit):
+        return None
+    s = _lexn_stripe_for(c, n_keys, limit)
+    if s < 1 or not lexn_compact_fits(2 * c, limit):
+        raise ValueError(
+            f"lexN union at C={c} with {n_keys} key words does not fit {limit} B "
+            f"of shared memory a block: the merge needs "
+            f"{lexn_merge_smem_bytes(n_keys, 1)} B at a stripe of one row, the "
+            f"compaction {lexn_compact_smem_bytes(2 * c)} B over 2C rows"
+        )
+    return s
+
+
+def smem_limit(device: torch.device) -> int:
+    """Shared memory a block may opt in to on ``device``'s card; the H100's
+    for a CPU tensor, whose twins stand in for the kernels."""
+    if _route("lexn_union", device):
+        return HOPPER_SMEM_OPTIN
+    return torch.cuda.get_device_properties(device).shared_memory_per_block_optin
+
+
+# ---- the lexN family: entry points ----
+
+
+def _lexn_shape(keys_a, vals_a, keys_b=None, vals_b=None):
+    """(n_keys, n_vals, rows, lanes, device) of matching lexN operands,
+    validated; the B side is optional (the compaction has one operand)."""
+    keys_a, vals_a = tuple(keys_a), tuple(vals_a)
     n_keys, n_vals = len(keys_a), len(vals_a)
-    if n_keys < 1 or len(keys_b) != n_keys or len(vals_b) != n_vals:
+    if keys_b is not None and (len(keys_b) != n_keys or len(vals_b) != n_vals):
         raise ValueError(
             f"plane counts differ: keys {n_keys}/{len(keys_b)}, "
             f"vals {n_vals}/{len(vals_b)}"
         )
+    if n_keys < 1:
+        raise ValueError("a lexN key needs at least one word")
     first = keys_a[0]
     if first.dim() != 2:
         raise ValueError(f"planes must be (C, L), got shape {tuple(first.shape)}")
-    c, lanes = first.shape
-    if c < 1 or c & (c - 1):
-        raise ValueError(f"capacity {c} must be a power of two")
+    rows, lanes = first.shape
+    if rows < 1 or rows & (rows - 1):
+        raise ValueError(f"capacity {rows} must be a power of two")
+    planes = keys_a + vals_a
+    if keys_b is not None:
+        planes += tuple(keys_b) + tuple(vals_b)
+    _check_planes(planes, (rows, lanes), first.device)
+    return n_keys, n_vals, rows, lanes, first.device
+
+
+def sorted_union_columnar_fused_lexn(
+    keys_a, vals_a, keys_b, vals_b, out_size: int | None = None,
+):
+    """Fused batched sorted-set union with an N-word lexicographic key.
+    Returns (keys[n_keys, out, L], vals[n_vals, out, L], n_unique[L]);
+    n_unique is the pre-truncation unique count, so overflow (n_unique >
+    out_size) stays detectable."""
+    keys_a, vals_a, keys_b, vals_b = map(tuple, (keys_a, vals_a, keys_b, vals_b))
+    _, _, c, _, device = _lexn_shape(keys_a, vals_a, keys_b, vals_b)
     out = 2 * c if out_size is None else out_size
     if not 0 <= out <= 2 * c:
         raise ValueError(f"out_size {out} outside [0, 2C={2 * c}]")
-    _check_planes(keys_a + vals_a + keys_b + vals_b, (c, lanes), first.device)
-
-    if _route("lexn_union", first.device):
+    if _route("lexn_union", device):
         return _lexn_union_plain(keys_a, vals_a, keys_b, vals_b, out)
     return _lexn_union_cuda(keys_a, vals_a, keys_b, vals_b, out)
 
@@ -100,21 +198,132 @@ def sorted_union_columnar_fused_lex2(
 ):
     """The two-word special case — the OpLog swarm merge
     (``crdt_tpu_torch.models.oplog_columnar``).  Returns
-    ((hi, lo), vals_tuple, n_unique[L])."""
+    ((hi, lo), vals[n_vals, out, L], n_unique[L])."""
     keys, vals, nu = sorted_union_columnar_fused_lexn(
         keys_a, vals_a, keys_b, vals_b, out_size=out_size
     )
     return (keys[0], keys[1]), vals, nu
 
 
+def lexn_merge_columnar(keys_a, vals_a, keys_b, vals_b):
+    """Merge only (kernel #4): lane j of the (2S, L) output planes is the
+    sorted merge of lane j of both (S, L) operands — the exact multiset,
+    every value plane carried, padding rows sorted to the tail.  Of two
+    equal keys A's copy comes first (the TPU's bitonic network left that
+    order open).  Returns (keys[n_keys, 2S, L], vals[n_vals, 2S, L])."""
+    keys_a, vals_a, keys_b, vals_b = map(tuple, (keys_a, vals_a, keys_b, vals_b))
+    _, _, _, _, device = _lexn_shape(keys_a, vals_a, keys_b, vals_b)
+    if _route("lexn_merge", device):
+        return _lexn_merge_plain(keys_a, vals_a, keys_b, vals_b)
+    return _lexn_merge_cuda(keys_a, vals_a, keys_b, vals_b)
+
+
+def lexn_compact_columnar(keys, vals, out_size: int):
+    """Duplicate punch + compaction + truncation (kernel #5) over (n, L)
+    planes sorted per lane (n = 2C for a union epilogue): adjacent
+    duplicates OR their values into the first copy and the second becomes a
+    hole, the kept rows move to the head, ``out_size`` rows are kept.
+    Returns (keys[n_keys, out, L], vals[n_vals, out, L], n_unique[L]),
+    n_unique before truncation."""
+    keys, vals = tuple(keys), tuple(vals)
+    _, _, n, _, device = _lexn_shape(keys, vals)
+    if not 0 <= out_size <= n:
+        raise ValueError(f"out_size {out_size} outside [0, {n}]")
+    if _route("lexn_compact", device):
+        return _lexn_compact_plain(keys, vals, out_size)
+    return _lexn_compact_cuda(keys, vals, out_size)
+
+
+def sorted_union_columnar_striped_lexn(
+    keys_a, vals_a, keys_b, vals_b, out_size: int | None = None,
+    stripe: int | None = None,
+):
+    """Capacity-striped lexN union: the contract of
+    :func:`sorted_union_columnar_fused_lexn` at capacities whose fused
+    kernel does not fit a block's shared memory.
+
+    1. each operand's C sorted rows are M = C/S stripes of S rows, sorted
+       across stripe boundaries (the sorted-with-tail-padding invariant);
+    2. a block-level bitonic merge network over the 2M stripes — A's in
+       order, then B's in reverse order — with :func:`lexn_merge_columnar`
+       as the merge-split: M·log2(2M) merge launches.  The merge keeps the
+       exact multiset, so the scalar bitonic-merge theorem carries over;
+    3. the stripes are concatenated back into (2C, L) planes (one more pass
+       over them), then one :func:`lexn_compact_columnar`.
+
+    ``stripe`` defaults to the largest that the card's shared memory takes
+    (:func:`_lexn_stripe_for`).  Returns (keys[n_keys, out, L],
+    vals[n_vals, out, L], n_unique[L]), n_unique before truncation."""
+    keys_a, vals_a, keys_b, vals_b = map(tuple, (keys_a, vals_a, keys_b, vals_b))
+    n_keys, n_vals, c, _, device = _lexn_shape(keys_a, vals_a, keys_b, vals_b)
+    out = 2 * c if out_size is None else out_size
+    if not 0 <= out <= 2 * c:
+        raise ValueError(f"out_size {out} outside [0, 2C={2 * c}]")
+    s = stripe if stripe is not None else _lexn_stripe_for(c, n_keys, smem_limit(device))
+    if s < 1 or s & (s - 1) or c % s:
+        raise ValueError(f"stripe {s} must be a power-of-two divisor of capacity {c}")
+
+    def rows(planes, lo, hi):
+        return tuple(p[lo:hi] for p in planes)
+
+    m = c // s
+    blocks = (
+        [(rows(keys_a, i * s, (i + 1) * s), rows(vals_a, i * s, (i + 1) * s))
+         for i in range(m)]
+        + [(rows(keys_b, i * s, (i + 1) * s), rows(vals_b, i * s, (i + 1) * s))
+           for i in reversed(range(m))]
+    )
+
+    def merge_split(x, y):
+        ko, vo = lexn_merge_columnar(x[0], x[1], y[0], y[1])
+        return (rows(ko, 0, s), rows(vo, 0, s)), (rows(ko, s, 2 * s), rows(vo, s, 2 * s))
+
+    def bmerge(bs):
+        if len(bs) == 1:
+            return bs
+        half = len(bs) // 2
+        for i in range(half):
+            bs[i], bs[i + half] = merge_split(bs[i], bs[i + half])
+        return bmerge(bs[:half]) + bmerge(bs[half:])
+
+    blocks = bmerge(blocks)
+    keys = tuple(torch.cat([b[0][i] for b in blocks], dim=0) for i in range(n_keys))
+    vals = tuple(torch.cat([b[1][i] for b in blocks], dim=0) for i in range(n_vals))
+    return lexn_compact_columnar(keys, vals, out)
+
+
+def sorted_union_columnar_lexn_auto(
+    keys_a, vals_a, keys_b, vals_b, out_size: int | None = None,
+):
+    """The lexN union by the card's envelope (:func:`lexn_plan`): the fused
+    kernel where it fits a block's shared memory, the striped path with the
+    largest stripe that fits beyond it (RSeq's 18 key words at C = 1024).
+    A CPU tensor always takes the fused union's twin, as the JAX package's
+    interpret mode always takes the monolith; the results are the same."""
+    with torch.profiler.record_function("crdt.union_lexn"):
+        keys_a, vals_a = tuple(keys_a), tuple(vals_a)
+        n_keys, n_vals, c, _, device = _lexn_shape(keys_a, vals_a, keys_b, vals_b)
+        stripe = None
+        if not _route("lexn_union", device):
+            stripe = lexn_plan(c, n_keys, n_vals, smem_limit(device))
+        if stripe is None:
+            return sorted_union_columnar_fused_lexn(
+                keys_a, vals_a, keys_b, vals_b, out_size=out_size)
+        return sorted_union_columnar_striped_lexn(
+            keys_a, vals_a, keys_b, vals_b, out_size=out_size, stripe=stripe)
+
+
+# ---- the lexN family: launches ----
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_PP = ctypes.POINTER(_P)
 # the C entry points of each csrc/<name>.cu: (argtypes, restype)
 _SIGNATURES = {
     "lexn_union": {
-        "lexn_union": ([_I, _I, ctypes.POINTER(_P), ctypes.POINTER(_P),
-                        ctypes.POINTER(_P), _P, _I, _I, _I, _P], _I),
-        "lexn_union_smem_bytes": ([_I, _I, _I], ctypes.c_size_t),
+        "lexn_union": ([_I, _I, _PP, _PP, _PP, _P, _I, _I, _I, _I, _P], _I),
+        "lexn_merge": ([_I, _I, _PP, _PP, _PP, _I, _I, _I, _P], _I),
+        "lexn_compact": ([_I, _I, _PP, _PP, _P, _I, _I, _I, _I, _P], _I),
         "lexn_union_error_string": ([_I], ctypes.c_char_p),
     },
     "set_union": {
@@ -137,55 +346,98 @@ def _lib(name: str) -> ctypes.CDLL:
     return lib
 
 
+def _ptrs(ts):
+    return (ctypes.c_void_p * len(ts))(*(t.data_ptr() for t in ts))
+
+
+def _lexn_launch(name, n_keys, n_vals, rows_out, lanes, device, smem, launch):
+    """Allocate the outputs of one lexN launch as one (n_keys + n_vals,
+    rows_out, L) block, run ``launch(lib, outs, nu, smem, stream)`` with
+    ``smem`` bytes of shared memory a block and check its error code.
+    Returns (keys block, vals block, nu)."""
+    n_planes = n_keys + n_vals
+    if n_planes > MAX_PLANES:
+        raise ValueError(
+            f"{name}: {n_planes} key and value planes a side exceed the "
+            f"kernel's {MAX_PLANES} (csrc/lexn_union.cu kMaxPlanes)"
+        )
+    outs = torch.empty((n_planes, rows_out, lanes), dtype=torch.int32, device=device)
+    nu = torch.empty((lanes,), dtype=torch.int32, device=device)
+    if lanes > 0:
+        lib = _lib("lexn_union")
+        with torch.cuda.device(device):
+            err = launch(lib, outs, nu, smem, torch.cuda.current_stream(device).cuda_stream)
+        if err != 0:
+            # a shape whose shared memory passes the card's opt-in limit
+            # (227 KB on Hopper) fails here, at cudaFuncSetAttribute
+            raise RuntimeError(
+                f"{name} launch failed: {lib.lexn_union_error_string(err).decode()} "
+                f"(L={lanes}, {smem} B of shared memory per block, "
+                f"{smem_limit(device)} B allowed)"
+            )
+        LAUNCHES[name] += 1
+    return outs[:n_keys], outs[n_keys:], nu
+
+
 def _lexn_union_cuda(keys_a, vals_a, keys_b, vals_b, out):
     n_keys, n_vals = len(keys_a), len(vals_a)
-    if (n_keys, n_vals) not in KERNEL_SPLITS:
-        raise ValueError(
-            f"lexn_union kernel has no ({n_keys}, {n_vals}) instantiation; "
-            f"built splits: {KERNEL_SPLITS}"
-        )
-    device = keys_a[0].device
     c, lanes = keys_a[0].shape
-    outs = [torch.empty((out, lanes), dtype=torch.int32, device=device)
-            for _ in range(n_keys + n_vals)]
-    nu = torch.empty((lanes,), dtype=torch.int32, device=device)
-    if lanes == 0:
-        return tuple(outs[:n_keys]), tuple(outs[n_keys:]), nu
-
-    lib = _lib("lexn_union")
-
-    def ptrs(ts):
-        return (ctypes.c_void_p * len(ts))(*(t.data_ptr() for t in ts))
-
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.lexn_union(
-            n_keys, n_vals, ptrs(keys_a + vals_a), ptrs(keys_b + vals_b),
-            ptrs(outs), nu.data_ptr(), c, lanes, out, stream,
-        )
-    if err != 0:
-        # a capacity whose shared memory passes the card's opt-in limit
-        # (227 KB on Hopper: C <= 4096 at two key and two value planes)
-        # fails here, at cudaFuncSetAttribute
-        smem = lib.lexn_union_smem_bytes(n_keys, n_vals, c)
-        raise RuntimeError(
-            f"lexn_union launch failed: {lib.lexn_union_error_string(err).decode()} "
-            f"(C={c}, L={lanes}, {smem} B of shared memory per block)"
-        )
-    LAUNCHES["lexn_union"] += 1
-    return tuple(outs[:n_keys]), tuple(outs[n_keys:]), nu
+    return _lexn_launch(
+        "lexn_union", n_keys, n_vals, out, lanes, keys_a[0].device,
+        lexn_union_smem_bytes(n_keys, n_vals, c),
+        lambda lib, o, nu, smem, st: lib.lexn_union(
+            n_keys, n_vals, _ptrs(keys_a + vals_a), _ptrs(keys_b + vals_b),
+            _ptrs(o), nu.data_ptr(), c, lanes, out, smem, st))
 
 
-def _lexn_union_plain(keys_a, vals_a, keys_b, vals_b, out):
-    """The plain PyTorch twin: stable lexicographic sort of the 2C rows per
-    lane, duplicate punch (OR-combine-then-keep-first), compaction by a
-    stable sort of the hole flags, truncation to ``out`` rows."""
-    n_keys = len(keys_a)
-    # rows along the last dim: (L, 2C) views of the concatenated planes
+def _lexn_merge_cuda(keys_a, vals_a, keys_b, vals_b):
+    n_keys, n_vals = len(keys_a), len(vals_a)
+    s, lanes = keys_a[0].shape
+    keys, vals, _ = _lexn_launch(
+        "lexn_merge", n_keys, n_vals, 2 * s, lanes, keys_a[0].device,
+        lexn_merge_smem_bytes(n_keys, s),
+        lambda lib, o, nu, smem, st: lib.lexn_merge(
+            n_keys, n_vals, _ptrs(keys_a + vals_a), _ptrs(keys_b + vals_b),
+            _ptrs(o), s, lanes, smem, st))
+    return keys, vals
+
+
+def _lexn_compact_cuda(keys, vals, out):
+    n_keys, n_vals = len(keys), len(vals)
+    n, lanes = keys[0].shape
+    return _lexn_launch(
+        "lexn_compact", n_keys, n_vals, out, lanes, keys[0].device,
+        lexn_compact_smem_bytes(n),
+        lambda lib, o, nu, smem, st: lib.lexn_compact(
+            n_keys, n_vals, _ptrs(keys + vals), _ptrs(o), nu.data_ptr(), n,
+            lanes, out, smem, st))
+
+
+# ---- the lexN family: plain twins ----
+#
+# They work on (L, rows) views, rows along the last dimension.
+
+
+def _block(rows, like):
+    """(L, n) row tensors as one contiguous (P, n, L) block of planes (the
+    kernels' output layout); ``like`` shapes an empty block."""
+    if not rows:
+        return like.new_empty((0, like.shape[1], like.shape[0]))
+    return torch.stack([r.T for r in rows])
+
+
+def _merged_rows(keys_a, vals_a, keys_b, vals_b):
+    """Stable lexicographic sort of A's rows then B's, per lane: (keys,
+    vals) lists of (L, 2C) tensors, A's copy of an equal key first."""
     keys = [torch.cat([a, b], dim=0).T for a, b in zip(keys_a, keys_b)]
     vals = [torch.cat([a, b], dim=0).T for a, b in zip(vals_a, vals_b)]
-    keys, vals = _sort_by_keys(keys, vals, n_keys)
+    return _sort_by_keys(keys, vals, len(keys))
 
+
+def _compacted_rows(keys, vals, out):
+    """Duplicate punch (OR-combine-then-keep-first), compaction by a stable
+    sort of the hole flags and truncation to ``out`` rows, over (L, n)
+    rows; returns (keys, vals) blocks of (out, L) planes and n_unique."""
     dup = keys[0] != SENTINEL_PY
     for k in keys:
         prev = torch.cat([torch.full_like(k[:, :1], SENTINEL_PY), k[:, :-1]], dim=1)
@@ -200,11 +452,27 @@ def _lexn_union_plain(keys_a, vals_a, keys_b, vals_b, out):
     hole = hole.gather(1, order)
     keys = [k.gather(1, order).masked_fill(hole, SENTINEL_PY) for k in keys]
     vals = [v.gather(1, order).masked_fill(hole, 0) for v in vals]
-    return (
-        tuple(k[:, :out].T.contiguous() for k in keys),
-        tuple(v[:, :out].T.contiguous() for v in vals),
-        n_unique,
-    )
+    keys = [k[:, :out] for k in keys]
+    return _block(keys, keys[0]), _block([v[:, :out] for v in vals], keys[0]), n_unique
+
+
+def _lexn_union_plain(keys_a, vals_a, keys_b, vals_b, out):
+    """The fused union's plain twin: the merge twin, then the compaction
+    twin."""
+    return _compacted_rows(*_merged_rows(keys_a, vals_a, keys_b, vals_b), out)
+
+
+def _lexn_merge_plain(keys_a, vals_a, keys_b, vals_b):
+    """Kernel #4's plain twin: a stable lexicographic sort of the 2S rows
+    per lane, A's rows first."""
+    keys, vals = _merged_rows(keys_a, vals_a, keys_b, vals_b)
+    return _block(keys, keys[0]), _block(vals, keys[0])
+
+
+def _lexn_compact_plain(keys, vals, out):
+    """Kernel #5's plain twin: the punch and the stable sort of the hole
+    flags, over (n, L) planes."""
+    return _compacted_rows([k.T for k in keys], [v.T for v in vals], out)
 
 
 # ---- single-key OR-Set union, its merge stage, the bucket-local union ----

@@ -9,6 +9,9 @@ batched join, and full convergence is a log-depth tree reduction.
 Fault model (reference parity): an ``alive`` mask gates participation — a
 dead replica neither serves gossip (the puller skips it) nor pulls; a
 revived replica catches up in one round because gossip ships full state.
+
+Where the JAX package vmaps a single-replica function over the swarm
+(``compaction_round``'s callables), the port's take the batched state.
 """
 from __future__ import annotations
 
@@ -119,6 +122,44 @@ def converge(s: Swarm, join_batched: Callable, neutral: Any) -> Swarm:
     identity."""
     top = alive_lub(s.state, s.alive, join_batched, neutral)
     return dataclasses.replace(s, state=broadcast_where_alive(s.state, s.alive, top))
+
+
+def stable_frontier(received: torch.Tensor, alive: torch.Tensor,
+                    frontiers: torch.Tensor | None = None) -> torch.Tensor:
+    """The swarm's stable frontier: elementwise min over the *alive*
+    replicas' received version vectors (``received``: int32[R, W]).  Every
+    op at or under it is held by every alive replica.  Dead replicas'
+    knowledge is excluded (an op only they hold is above every alive
+    watermark for its writer).
+
+    ``frontiers`` (int32[R, W], every replica's current folded watermark,
+    dead included) enforces the chain rule: the new barrier must dominate
+    every existing fold, else the result is all -1 (fold nothing this
+    round).  With no alive replicas the frontier is likewise -1."""
+    masked = torch.where(alive[:, None], received, 2**31 - 1)
+    f = masked.amin(dim=0)
+    ok = alive.any()
+    if frontiers is not None:
+        ok &= (f >= frontiers.amax(dim=0)).all()
+    return torch.where(ok, f, -1).to(torch.int32)
+
+
+def compaction_round(s: Swarm, received_vv: Callable, compact: Callable,
+                     frontier_of: Callable) -> Swarm:
+    """One swarm-wide compaction barrier: agree on the stable frontier and
+    have every alive replica fold exactly that op set.
+
+    The callables take the batched state (leading axis = replicas):
+    ``received_vv`` -> int32[R, W]; ``compact(state, frontier[W])`` ->
+    state; ``frontier_of`` -> every replica's current int32[R, W] folded
+    watermark (the chain-rule input of :func:`stable_frontier`).  Dead
+    replicas keep their state (and their old frontier)."""
+    frontier = stable_frontier(received_vv(s.state), s.alive, frontier_of(s.state))
+    folded = compact(s.state, frontier)
+    state = tree_map(
+        lambda f, x: torch.where(_alive_mask(s.alive, f), f, x), folded, s.state
+    )
+    return dataclasses.replace(s, state=state)
 
 
 def n_diverged(s: Swarm, join_batched: Callable, neutral: Any) -> torch.Tensor:

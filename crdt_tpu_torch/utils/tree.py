@@ -2,8 +2,9 @@
 ``jax.tree.map`` does for the JAX package.
 
 A state is a tensor, a dict / list / tuple of states, or a dataclass whose
-tensor fields are the leaves (non-tensor fields such as
-``ColumnarOpLog.bits`` are static and are taken from the first state)."""
+tensor fields are leaves and whose dataclass or dict fields are states in
+turn (``Gc.inner``); its other fields, such as ``ColumnarOpLog.bits``, are
+static and are taken from the first state."""
 from __future__ import annotations
 
 import dataclasses
@@ -20,8 +21,9 @@ def tree_map(fn: Callable, state: Any, *rest: Any) -> Any:
         out = {}
         for f in dataclasses.fields(state):
             x = getattr(state, f.name)
-            if isinstance(x, torch.Tensor):
-                x = fn(x, *(getattr(r, f.name) for r in rest))
+            if isinstance(x, torch.Tensor) or dataclasses.is_dataclass(x) \
+                    or isinstance(x, dict):
+                x = tree_map(fn, x, *(getattr(r, f.name) for r in rest))
             out[f.name] = x
         return type(state)(**out)
     if isinstance(state, dict):

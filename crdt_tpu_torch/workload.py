@@ -1,5 +1,6 @@
 """Seeded workloads for driving the port: reference-shaped writes for the
-OpLog swarm, and the OR-Set swarm of BASELINE.json's configs[3].
+OpLog swarm, the OR-Set swarm of BASELINE.json's configs[3], and the RSeq
+swarm of a seeded collaborative-editing history.
 
 The reference's workload (its ``dummyInsertions``; the JAX package's
 ``harness/workload.py`` and ``utils/config.py`` defaults): single-key
@@ -10,8 +11,9 @@ stamp them with a millisecond ``ts`` that several writes share.  A share
 of the writes carries a non-numeric string, exercising the LWW payload
 path of the rebuild.
 
-The writes are drawn from a numpy generator seeded by the caller, the
-OR-Set swarm from a torch.Generator on the device it is built on.
+The writes and the editing history are drawn from numpy generators seeded
+by the caller, the OR-Set and RSeq swarms from a torch.Generator on the
+device they are built on.
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ import numpy as np
 import torch
 
 from crdt_tpu_torch import default_device
-from crdt_tpu_torch.models import oplog, orset
+from crdt_tpu_torch.models import oplog, orset, rseq
 from crdt_tpu_torch.utils.constants import SENTINEL_PY
 from crdt_tpu_torch.utils.intern import Interner, encode_value
 
@@ -274,3 +276,134 @@ def strided_columns(capacity: int, lanes: int, fill: int, space: int, seed: int,
     ks = torch.arange(capacity, dtype=torch.int32, device=device)[:, None] * stride + jitter
     live = torch.arange(capacity, device=device)[:, None] < fill
     return torch.where(live, ks, SENTINEL_PY), torch.where(live, ks & 1, 0)
+
+
+# ---- the RSeq swarm ----
+#
+# One shared document typed by 16 writers (rids 0-15, seqs contiguous from
+# 0) in rounds: at the start of a round each writer takes a snapshot of the
+# document, picks a seeded index of it and types a run of 1-32 elements
+# there (each key allocated after the previous one, as SeqWriter.insert_run
+# does).  Runs typed into one gap in the same round collide at their first
+# element and descend under the left neighbour, so concurrent editing
+# pushes keys to depth 2 and below.  The history stops at 1,000 elements
+# (the OpLog phase's 1,000 writes; under C = 1024).  A seeded 25% of the
+# elements are removable: their remove happened somewhere.  A replica
+# holds a seeded 40% of the elements and, of each removable element it
+# holds, has seen the remove with probability 1/2.
+SEQ_WRITERS = 16
+SEQ_RUN_MAX = 32
+SEQ_ELEMENTS = 1000
+SEQ_REMOVABLE = 0.25
+SEQ_HOLD = 0.4
+SEQ_SEEN_REMOVE = 0.5
+
+
+@dataclasses.dataclass
+class SeqPool:
+    """The elements every replica draws from, numpy rows sorted by key —
+    the table's own row order (the document order)."""
+
+    keys: np.ndarray       # int32[P, 4*D]  flattened path keys
+    elem: np.ndarray       # int32[P]       payload id (the creation index)
+    removable: np.ndarray  # bool[P]        the element's remove happened somewhere
+
+    def __len__(self) -> int:
+        return len(self.elem)
+
+    def depth_histogram(self) -> dict:
+        """{real depth: elements} over the pool."""
+        d = self.keys.shape[1] // 4
+        depths = [rseq.real_depth(rseq._triples(row, d)) for row in self.keys.tolist()]
+        return {k: depths.count(k) for k in sorted(set(depths))}
+
+
+@dataclasses.dataclass
+class SeqSwarm:
+    """A batched [R, C, 4D] RSeq and, per replica, which pool elements it
+    holds (``held[r, i]``) and which of those it has seen removed
+    (``seen``)."""
+
+    states: rseq.RSeq
+    held: torch.Tensor
+    seen: torch.Tensor
+
+
+def seq_pool(seed: int, depth: int = rseq.DEPTH,
+             n_elements: int = SEQ_ELEMENTS) -> SeqPool:
+    """The seeded editing history of ``n_elements`` elements, made on the
+    host with the port's own ``rseq.alloc_key``."""
+    rng = np.random.default_rng(seed)
+    doc: list = []                     # key rows, in document (= key) order
+    elem: dict = {}                    # key row -> creation index
+    next_seq = [0] * SEQ_WRITERS
+    while len(doc) < n_elements:
+        snapshot, typed = list(doc), []
+        for w in range(SEQ_WRITERS):
+            run = int(rng.integers(1, SEQ_RUN_MAX + 1))
+            at = int(rng.integers(0, len(snapshot) + 1))
+            run = min(run, n_elements - len(doc) - len(typed))
+            left = snapshot[at - 1] if at > 0 else None
+            right = snapshot[at] if at < len(snapshot) else None
+            for _ in range(run):
+                key = rseq.alloc_key(left, right, w, next_seq[w], depth)
+                next_seq[w] += 1
+                elem[key] = len(elem)
+                typed.append(key)
+                left = key
+        doc = sorted(doc + typed)
+    removable = np.zeros(len(doc), bool)
+    removable[rng.choice(len(doc), int(round(SEQ_REMOVABLE * len(doc))),
+                         replace=False)] = True
+    return SeqPool(keys=np.asarray(doc, np.int32),
+                   elem=np.asarray([elem[k] for k in doc], np.int32),
+                   removable=removable)
+
+
+def seq_swarm(pool: SeqPool, n_replicas: int, capacity: int, seed: int,
+              device=None) -> SeqSwarm:
+    """R replicas' RSeq tables drawn from ``pool`` with a torch.Generator on
+    ``device`` seeded by ``seed``, in bulk.  A replica that draws more than
+    ``capacity`` elements keeps its first ``capacity`` in key order;
+    ``held`` says which it kept."""
+    device = default_device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    p = len(pool)
+    removable = torch.as_tensor(pool.removable, device=device)
+    held = torch.rand((n_replicas, p), generator=gen, device=device) < SEQ_HOLD
+    row = torch.cumsum(held, dim=1, dtype=torch.int32) - 1
+    held &= row < capacity
+    seen = held & removable & (torch.rand((n_replicas, p), generator=gen, device=device)
+                               < SEQ_SEEN_REMOVE)
+    # each held element's pool index to its row in key order; the rest to a
+    # spare column that is cut off; an empty row points at the padding row
+    # appended to the pool, index p
+    dest = torch.where(held, row, capacity).long()
+    idx = torch.full((n_replicas, capacity + 1), p, dtype=torch.long, device=device)
+    idx.scatter_(1, dest, torch.arange(p, device=device).expand(n_replicas, p))
+    idx = idx[:, :capacity]
+    width = pool.keys.shape[1]
+    keys = torch.cat([torch.as_tensor(pool.keys, device=device),
+                      torch.full((1, width), SENTINEL_PY, dtype=torch.int32, device=device)])
+    elem = torch.cat([torch.as_tensor(pool.elem, device=device),
+                      torch.zeros(1, dtype=torch.int32, device=device)])
+    removed = torch.zeros((n_replicas, capacity + 1), dtype=torch.bool, device=device)
+    removed.scatter_(1, dest, seen)
+    return SeqSwarm(states=rseq.RSeq(keys=keys[idx], elem=elem[idx],
+                                     removed=removed[:, :capacity]),
+                    held=held, seen=seen)
+
+
+def seq_view(pool: SeqPool, held: np.ndarray, seen: np.ndarray):
+    """Plain fold over replicas of the RSeq join: ``held``/``seen`` are
+    bool[P] for one replica or bool[k, P] for k replicas to join.  Returns
+    ({(rid, seq): tombstoned}, [live elem in key order]) — an independent
+    check of the device path."""
+    held = np.atleast_2d(held).any(axis=0)
+    seen = np.atleast_2d(seen).any(axis=0)
+    tombs, live = {}, []
+    for i in np.nonzero(held)[0]:
+        tombs[(int(pool.keys[i, -2]), int(pool.keys[i, -1]))] = bool(seen[i])
+        if not seen[i]:
+            live.append(int(pool.elem[i]))
+    return tombs, live

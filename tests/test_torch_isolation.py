@@ -1,5 +1,5 @@
 """The PyTorch port stands alone: no file of crdt_tpu_torch/ (nor
-chip_smoke.py) imports jax, flax or crdt_tpu; constructors never quietly
+chip_smoke.py, nor tools/) imports jax, flax or crdt_tpu; constructors never quietly
 fall back to the CPU; the kernel entry point never reaches its plain twin
 for a non-CPU tensor."""
 import ast
@@ -10,12 +10,14 @@ import torch
 
 import crdt_tpu_torch
 from crdt_tpu_torch import convert, workload
-from crdt_tpu_torch.models import gset, oplog, oplog_columnar, orset
+from crdt_tpu_torch.models import gset, oplog, oplog_columnar, orset, rseq
+from crdt_tpu_torch.models import rseq_columnar, tomb_gc
 from crdt_tpu_torch.ops import hopper_union
 from crdt_tpu_torch.parallel import swarm
 
 ROOT = Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((ROOT / "crdt_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted((ROOT / "crdt_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+              + sorted((ROOT / "tools").glob("*.py")))
 FORBIDDEN = ("jax", "jaxlib", "flax", "crdt_tpu")
 
 
@@ -43,7 +45,9 @@ def test_scan_sees_the_whole_package():
     names = {p.name for p in PORT_FILES}
     assert {"hopper_union.py", "oplog_columnar.py", "oplog_engine.py",
             "swarm.py", "chip_smoke.py", "pack.py", "union_engine.py",
-            "orset.py", "gset.py"} <= names
+            "orset.py", "gset.py", "rseq.py", "rseq_columnar.py",
+            "rseq_engine.py", "tomb_gc.py", "convert.py", "workload.py",
+            "time_lexn_union.py"} <= names
 
 
 @pytest.mark.parametrize("make", [
@@ -61,10 +65,16 @@ def test_scan_sees_the_whole_package():
     lambda: convert.orset_from_numpy(convert.orset_to_numpy(orset.empty(4, device="cpu"))),
     lambda: workload.set_swarm(workload.set_pool(0), 2, 8, 0),
     lambda: workload.strided_columns(8, 2, 4, 64, 0),
+    lambda: rseq.empty(8),
+    lambda: rseq_columnar.empty(8, 2),
+    lambda: tomb_gc.wrap(rseq.empty(8, device="cpu"), 4),
+    lambda: workload.seq_swarm(workload.seq_pool(0, n_elements=8), 2, 8, 0),
+    lambda: convert.rseq_from_numpy(convert.rseq_to_numpy(rseq.empty(4, device="cpu"))),
 ], ids=["oplog.empty", "from_ops", "columnar.empty", "random_peers",
         "convert", "default_device", "orset.empty", "bitmap_empty",
         "bucketed_empty", "g_empty", "tp_empty", "convert.orset", "set_swarm",
-        "strided_columns"])
+        "strided_columns", "rseq.empty", "rseq_columnar.empty", "tomb_gc.wrap",
+        "seq_swarm", "convert.rseq"])
 def test_constructor_without_device_raises_when_no_card(make, monkeypatch):
     """device=None means the CUDA card; without one it raises rather than
     returning CPU tensors."""
@@ -102,6 +112,49 @@ def test_non_cpu_planes_never_reach_the_twin(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc"):
         hopper_union._lexn_union_cuda(cpu[:2], cpu[2:], cpu[:2], cpu[2:], 8)
     assert hopper_union.LAUNCHES["lexn_union"] == before
+
+
+@pytest.mark.parametrize("twin, call", [
+    ("_lexn_merge_plain", lambda p: hopper_union.lexn_merge_columnar(p[:2], p[2:], p[:2], p[2:])),
+    ("_lexn_compact_plain", lambda p: hopper_union.lexn_compact_columnar(p[:2], p[2:], 8)),
+    ("_lexn_union_plain", lambda p: hopper_union.sorted_union_columnar_lexn_auto(
+        p[:2], p[2:], p[:2], p[2:])),
+    ("_lexn_compact_plain", lambda p: hopper_union.sorted_union_columnar_striped_lexn(
+        p[:2], p[2:], p[:2], p[2:], stripe=4)),
+], ids=["lexn_merge", "lexn_compact", "lexn_auto", "striped"])
+def test_lexn_entry_points_never_reach_a_twin_off_the_cpu(twin, call, monkeypatch):
+    """The merge, compaction, auto and striped entry points on a device with
+    no kernel raise; none reaches its plain twin or counts a launch."""
+    def twin_called(*_a, **_k):
+        raise AssertionError("the plain twin was reached")
+
+    for name in ("_lexn_merge_plain", "_lexn_compact_plain", "_lexn_union_plain"):
+        monkeypatch.setattr(hopper_union, name, twin_called)
+    planes = [torch.full((8, 4), 2**31 - 1, dtype=torch.int32, device="meta")] * 4
+    before = dict(hopper_union.LAUNCHES)
+    with pytest.raises(ValueError, match="no lexn_[a-z]+ kernel"):
+        call(planes)
+    assert hopper_union.LAUNCHES == before
+
+
+@pytest.mark.parametrize("name", ["lexn_merge", "lexn_compact"])
+def test_lexn_kernels_without_a_toolkit_raise(name, monkeypatch, tmp_path):
+    """The CUDA launch path of the merge and the compaction with no nvcc
+    raises and counts no launch."""
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(hopper_union._build, "_nvcc", no_nvcc)
+    monkeypatch.setattr(hopper_union._build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(hopper_union._build, "_LIBS", {})
+    cpu = tuple(torch.full((8, 4), 2**31 - 1, dtype=torch.int32) for _ in range(2))
+    before = dict(hopper_union.LAUNCHES)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        if name == "lexn_merge":
+            hopper_union._lexn_merge_cuda(cpu[:1], cpu[1:], cpu[:1], cpu[1:])
+        else:
+            hopper_union._lexn_compact_cuda(cpu[:1], cpu[1:], 8)
+    assert hopper_union.LAUNCHES == before
 
 
 @pytest.mark.parametrize("name", ["set_union", "merge", "bucketed_union"])

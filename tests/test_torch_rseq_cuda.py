@@ -1,0 +1,102 @@
+"""The hand-written CUDA lexN merge, compaction and union at RSeq's width
+against their plain PyTorch twins, bit for bit, and the striped and auto
+paths on the card.  Needs a card (marked ``cuda``; skips without one) and
+imports no JAX, so it runs on a machine that has only PyTorch:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_rseq_cuda.py
+"""
+import pytest
+import torch
+
+from crdt_tpu_torch import workload
+from crdt_tpu_torch.models import rseq_columnar as rc
+from crdt_tpu_torch.ops import hopper_union as hu
+
+
+def need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the lexN kernels have no CPU mode")
+
+
+def operands(c, lanes, n_vals, seed):
+    """Two seq_swarm draws on the card at capacity c, stacked: (keys,
+    vals) of each side, 18 key words and n_vals value planes (the third
+    is the GC join's src marker)."""
+    pool = workload.seq_pool(seed, n_elements=min(1000, c))
+    sides = []
+    for k in (1, 2):
+        col = rc.stack(workload.seq_swarm(pool, lanes, c, seed + k, device="cuda").states)
+        vals = [col.elem, col.removed, (col.keys[0] != 2**31 - 1).to(torch.int32) * k]
+        sides += [tuple(col.keys), tuple(vals[:n_vals])]
+    return sides
+
+
+def same(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c, lanes, n_vals", [
+    (64, 1, 2), (64, 130, 3), (1024, 300, 2), (1024, 257, 3),
+])
+def test_merge_and_compact_match_their_twins(c, lanes, n_vals):
+    need_card()
+    ka, va, kb, vb = operands(c, lanes, n_vals, c + lanes)
+    before = dict(hu.LAUNCHES)
+    mk, mv = hu.lexn_merge_columnar(ka, va, kb, vb)
+    tk, tv = hu._lexn_merge_plain(ka, va, kb, vb)  # both put A's copy first
+    assert mk.shape == (18, 2 * c, lanes) and mv.shape == (n_vals, 2 * c, lanes)
+    same((*mk, *mv), (*tk, *tv))
+    for out in (c, 2 * c, c // 4):
+        got = hu.lexn_compact_columnar(mk, mv, out)
+        want = hu._lexn_compact_plain(mk, mv, out)
+        same((*got[0], *got[1], got[2]), (*want[0], *want[1], want[2]))
+    torch.cuda.synchronize()
+    assert hu.LAUNCHES["lexn_merge"] == before["lexn_merge"] + 1
+    assert hu.LAUNCHES["lexn_compact"] == before["lexn_compact"] + 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_vals", [2, 3])
+def test_fused_union_at_rseq_width_matches_its_twin(n_vals):
+    need_card()
+    ka, va, kb, vb = operands(512, 200, n_vals, 7)
+    for out in (512, None, 64):
+        got = hu.sorted_union_columnar_fused_lexn(ka, va, kb, vb, out_size=out)
+        want = hu._lexn_union_plain(ka, va, kb, vb, 1024 if out is None else out)
+        same((*got[0], *got[1], got[2]), (*want[0], *want[1], want[2]))
+
+
+@pytest.mark.cuda
+def test_striped_and_auto_match_the_fused_twin():
+    need_card()
+    ka, va, kb, vb = operands(1024, 100, 3, 11)
+    want = hu._lexn_union_plain(ka, va, kb, vb, 1024)
+    before = dict(hu.LAUNCHES)
+    got = hu.sorted_union_columnar_striped_lexn(ka, va, kb, vb, out_size=1024, stripe=256)
+    same((*got[0], *got[1], got[2]), (*want[0], *want[1], want[2]))
+    assert hu.LAUNCHES["lexn_merge"] - before["lexn_merge"] == 12  # M·log2(2M), M = 4
+    got = hu.sorted_union_columnar_lexn_auto(ka, va, kb, vb, out_size=1024)
+    same((*got[0], *got[1], got[2]), (*want[0], *want[1], want[2]))
+    assert hu.LAUNCHES["lexn_union"] == before["lexn_union"]  # C = 1024 stripes
+
+
+@pytest.mark.cuda
+def test_card_refuses_past_its_shared_memory_limit():
+    """The launchers take the envelope's byte counts: a shape past the
+    card's opt-in limit is refused with the figure and counted nowhere."""
+    need_card()
+    limit = hu.smem_limit(torch.device("cuda"))
+    s = 2048
+    planes = [torch.full((s, 2), 2**31 - 1, dtype=torch.int32, device="cuda")] * 20
+    before = dict(hu.LAUNCHES)
+    merge_bytes = hu.lexn_merge_smem_bytes(18, s)
+    if merge_bytes > limit:
+        with pytest.raises(RuntimeError, match=f"{merge_bytes} B of shared memory"):
+            hu.lexn_merge_columnar(planes[:18], planes[18:], planes[:18], planes[18:])
+    union_bytes = hu.lexn_union_smem_bytes(18, 2, s)
+    with pytest.raises(RuntimeError, match=f"{union_bytes} B of shared memory"):
+        hu.sorted_union_columnar_fused_lexn(planes[:18], planes[18:], planes[:18], planes[18:])
+    assert hu.LAUNCHES == before
