@@ -1,5 +1,6 @@
-"""Drive the PyTorch port's OpLog, OR-Set and RSeq swarm paths on a CUDA
-card and check them.
+"""Drive the PyTorch port's OpLog, OR-Set and RSeq swarm paths, the OR-Set
+union floors and the counter and register family on a CUDA card and check
+them.
 
     python3 chip_smoke.py
 
@@ -49,7 +50,19 @@ Phases (any failure exits non-zero and prints no result):
     collected, live lists unchanged; then the dead replica revived by one
     GC-aware pull (``rseq_engine.gc_merge_checked``);
 12. RSeq times (gossip, converge, GC converge, each kernel with its twin
-    and bound) and one profiled gossip round and converge.
+    and bound) and one profiled gossip round and converge;
+13. the OR-Set floors (kernels 7 and 8) at benches/orset_floor.py's shape,
+    C=1024, L=131,072, B=64 on its draw: one launch of each through its
+    entry point, both against their twins (also out=C/2, B=2 and 128,
+    full-range int32, C=64 and 2048, ragged lanes), then their times
+    beside set_union's and bucketed_union's as one JSON line;
+    ``floor_union`` also runs at L=2^20 on phase 7's OR-Set planes;
+14. the counters and registers at BASELINE's sizes (plain torch joins):
+    G-Counter 2^20 x 8 against 16 peers and the 8-slot pair, PN-Counter
+    1,024 and 2^20 x 64, LWW 100,352 and 2^25 (and the packed join),
+    EW/DW flags and the MV-register at 2^20 x 8 through seeded op
+    scripts — each == a numpy fold or the port's CPU run, with
+    replica-merges/s and p50/p99 beside the bytes bound.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -63,6 +76,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 SEED = 20240
@@ -292,7 +306,7 @@ def kernel_row(name, source, replaces, launches, err, ms, plain_ms, n_bytes, n_o
     library = "—" if library_ms is None else f"{library_ms:.4f} ms"
     log(f"{name}: {ms:.4f} ms/launch, plain twin {plain_ms:.4f} ms, library "
         f"{library}, bound {bound_ms:.4f} ms by {bound_by} "
-        f"({n_bytes / 1e9:.3f} GB at 3.35 TB/s; {n_ops / 1e9:.3f} G int32 compares "
+        f"({n_bytes / 1e9:.3f} GB at 3.35 TB/s; {n_ops / 1e9:.3f} G int32 operations "
         f"at {INT32_OPS_PER_S / 1e12:.1f} T/s) [{card}]")
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -526,9 +540,11 @@ def run_set_slice(pool) -> tuple:
     return (pa, ra, pb, rb), launches, err
 
 
-def set_times_full(planes, card: str) -> dict:
+def set_times_full(planes, card: str) -> tuple:
     """Phase 7 times at R=2^20: set_union, its twin, the library sort and
-    the whole columnar_join; then one profiled columnar_join."""
+    the whole columnar_join, and the full-width floor beside set_union
+    (phase 13); then one profiled columnar_join.  Returns set_union's table
+    row and the floor's time and error."""
     from crdt_tpu_torch.models import orset
     from crdt_tpu_torch.ops import hopper_union as hu
 
@@ -550,6 +566,7 @@ def set_times_full(planes, card: str) -> dict:
     del both
     log("set_union plain twin: summed over 8 lane blocks of 131,072; library "
         "yardstick: one torch.sort of the 2C keys per lane (sorts, no dedupe)")
+    floor_full = floor_full_width(planes, ms, card)
     real = int((pa != SENTINEL).sum()) + int((pb != SENTINEL).sum())
     # bytes: 4 planes read, 2 planes + n_unique written; operations: one
     # binary search (log2 C compares) for each live row of either side
@@ -559,7 +576,7 @@ def set_times_full(planes, card: str) -> dict:
                      real * math.ceil(math.log2(SET_C)), library_ms, card)
     profile(f"OR-Set columnar_join at R={SET_R}",
             lambda: orset.columnar_join(pa, ra, pb, rb))
-    return row
+    return row, floor_full
 
 
 def run_set_engines(draw, strided) -> tuple:
@@ -667,16 +684,17 @@ def set_times_engines(draw, strided, card: str) -> tuple:
     return merge, bucketed
 
 
-def set_phases(card: str) -> list:
+def set_phases(card: str) -> tuple:
     """Phases 6-8: the OR-Set swarm path.  Returns the table rows of
-    set_union, merge and bucketed_union."""
+    set_union, merge and bucketed_union, and the full-width floor's time and
+    error (phase 13)."""
     from crdt_tpu_torch import workload
 
     pool = workload.set_pool(SEED)
     err, draw, strided = check_set_kernels(pool)
 
     planes, launches, slice_err = run_set_slice(pool)
-    set_union = set_times_full(planes, card)
+    set_union, floor_full = set_times_full(planes, card)
     set_union.update(launches=launches["set_union"],
                      max_abs_err=max(err["set_union"], slice_err))
     del planes
@@ -688,7 +706,7 @@ def set_phases(card: str) -> list:
             set_times_engines(draw, strided, card):
         rows.append(kernel_row(name, source, replaces, engine_launches[name], err[name],
                                ms, plain_ms, n_bytes, n_ops, library_ms, card))
-    return rows
+    return rows, floor_full
 
 
 # ---- the RSeq slice ----
@@ -1096,6 +1114,435 @@ def rseq_phases(card: str) -> list:
     return rows
 
 
+# ---- the OR-Set union floors (kernels 7 and 8) ----
+#
+# benches/orset_floor.py's shape and draw: C=1024, L=131,072, each column
+# sorted uniform [0, 2^30) with the first C/2 rows real and the rest
+# SENTINEL, vals = the draw & 1, and the dispatcher's max(2, C//16) = 64
+# buckets.
+
+FLOOR_C, FLOOR_L = 1024, 131_072
+FLOOR_BUCKETS = max(2, FLOOR_C // 16)
+
+
+def floor_draw(c: int, lanes: int, seed: int) -> list:
+    """(keys_a, vals_a, keys_b, vals_b) on the card: the bits from numpy,
+    each column sorted on the card."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(2):
+        kk = torch.from_numpy(rng.integers(0, 1 << 30, (c, lanes), dtype=np.int32)).cuda()
+        kk = torch.sort(kk, dim=0).values
+        real = torch.arange(c, device="cuda")[:, None] < c // 2
+        out += [torch.where(real, kk, SENTINEL).contiguous(), kk & 1]
+    return out
+
+
+def full_range_draw(c: int, lanes: int, seed: int) -> list:
+    """Full-range int32 keys with a fifth of the rows SENTINEL and values
+    past 2^15, on the card: the sums wrap and ``<< 16`` drops bits."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(2):
+        keys = rng.integers(-2**31, 2**31, (c, lanes), dtype=np.int32)
+        keys[rng.random((c, lanes)) < 0.2] = SENTINEL
+        out += [torch.from_numpy(keys).cuda(),
+                torch.from_numpy(rng.integers(-2**31, 2**31, (c, lanes), dtype=np.int32)).cuda()]
+    return out
+
+
+def floor_work(c: int, lanes: int, seg: int, out_rows: int) -> tuple:
+    """(bytes, int32 operations) of one floor: 4 planes read, 2 planes of
+    ``out_rows`` rows and nu written; per lane of n = 2C rows, 2 planes x
+    log2(2·seg) butterfly stages x n, 3 punch passes, the mask and prefix,
+    disp's shift and OR, the two suffix scans (9 n), one shift a kept row."""
+    n = 2 * c
+    stages = (2 * seg).bit_length() - 1
+    return (4 * (4 * c * lanes + 2 * out_rows * lanes + lanes),
+            lanes * (2 * stages * n + 9 * n + out_rows))
+
+
+def floor_twin(name: str, planes, arg: int):
+    """The plain twin of floor ``name`` (``arg``: out_size, or n_buckets),
+    B reversed per segment as the entry point reverses it."""
+    from crdt_tpu_torch.ops import orset_floor as of
+
+    c = planes[0].shape[0]
+    seg = c if name == "floor_union" else c // arg
+    return of._floor_plain(*planes[:2], of._flip_buckets(planes[2], c // seg),
+                           of._flip_buckets(planes[3], c // seg), seg,
+                           arg if name == "floor_union" else seg)
+
+
+def floor_check(name, planes, arg, label, err) -> None:
+    """Kernel and twin on the same planes, bit-equal on every output."""
+    from crdt_tpu_torch.ops import orset_floor as of
+
+    fn = of.floor_union if name == "floor_union" else of.bucketed_floor_union
+    err[name] = max(err[name], same(f"{name} {label}", fn(*planes, arg),
+                                    floor_twin(name, planes, arg)))
+
+
+def floor_full_width(planes, set_union_ms: float, card: str) -> dict:
+    """Phase 13 at full width, inside phase 7: floor_union on the stacked
+    OR-Set planes at L=2^20 beside that phase's set_union, == its twin on
+    the first and last 65,536 lanes."""
+    from crdt_tpu_torch.ops import orset_floor as of
+
+    ms = time_ms(lambda: of.floor_union(*planes, SET_C), reps=5)
+    got = of.floor_union(*planes, SET_C)
+    err = {"floor_union": 0}
+    for sl in (slice(0, SLICE), slice(SET_R - SLICE, SET_R)):
+        want = floor_twin("floor_union", [x[:, sl].contiguous() for x in planes], SET_C)
+        err["floor_union"] = max(err["floor_union"], same(
+            f"floor_union lanes {sl.start}-{sl.stop}", [x[:, sl] for x in got], want))
+    del got
+    n_bytes, _ = floor_work(SET_C, SET_R, SET_C, SET_C)
+    log(f"floor_union at R={SET_R} on the OR-Set planes: {ms:.4f} ms beside set_union's "
+        f"{set_union_ms:.4f} ms (headroom {100 * (set_union_ms - ms) / set_union_ms:.1f}%), "
+        f"bytes bound {bound(n_bytes, 0)[0]:.4f} ms; == twin on lanes 0-{SLICE} and the "
+        f"last {SLICE} [{card}]")
+    return {"ms": ms, "set_union_ms": set_union_ms, "err": err["floor_union"]}
+
+
+def floor_phases(full: dict, card: str) -> list:
+    """Phase 13: the floors' path at orset_floor.py's shape (one launch of
+    each through its entry point), the kernels against their twins, then
+    the floor/fused times.  Returns the table rows of the two floors."""
+    from crdt_tpu_torch.ops import hopper_union as hu
+    from crdt_tpu_torch.ops import orset_floor as of
+
+    torch.cuda.empty_cache()
+    c, lanes, nb = FLOOR_C, FLOOR_L, FLOOR_BUCKETS
+    wb = c // nb
+    draw = floor_draw(c, lanes, SEED + 61)
+    torch.cuda.synchronize()
+    for name in hu.LAUNCHES:
+        hu.LAUNCHES[name] = 0
+    floor = of.floor_union(*draw, c)
+    bucketed = of.bucketed_floor_union(*draw, nb)
+    torch.cuda.synchronize()
+    launches = dict(hu.LAUNCHES)
+    log(f"floor path at C={c} L={lanes} B={nb}: floor_union + bucketed_floor_union, "
+        f"launches {launches}")
+    if launches["floor_union"] != 1 or launches["bucketed_floor_union"] != 1:
+        raise AssertionError(f"the floors launched {launches}, expected one each")
+    err = {"floor_union": max(full["err"], same(
+               "floor_union OR-Set floor draw", floor, floor_twin("floor_union", draw, c))),
+           "bucketed_floor_union": same(
+               "bucketed_floor_union OR-Set floor draw", bucketed,
+               floor_twin("bucketed_floor_union", draw, nb))}
+    del floor, bucketed
+
+    floor_check("floor_union", draw, c // 2, "out=C/2", err)
+    for b in (2, 128):
+        floor_check("bucketed_floor_union", draw, b, f"B={b}", err)
+    wide = full_range_draw(c, 10_000, SEED + 62)
+    floor_check("floor_union", wide, c, "full-range int32, L=10,000", err)
+    floor_check("bucketed_floor_union", wide, nb, "full-range int32, L=10,000", err)
+    for cc, n in ((64, lanes), (2048, 16_384)):
+        other = full_range_draw(cc, n, SEED + 63)
+        floor_check("floor_union", other, cc, f"C={cc} L={n}", err)
+        floor_check("bucketed_floor_union", other, max(2, cc // 16), f"C={cc} L={n}", err)
+    for n in (1, 1000):
+        ragged = floor_draw(c, n, SEED + 64)
+        floor_check("floor_union", ragged, c, f"ragged L={n}", err)
+        floor_check("bucketed_floor_union", ragged, nb, f"ragged L={n}", err)
+    del wide, other, ragged
+    log(f"floors vs twins: bit-exact on the OR-Set floor draw (out=C and C/2, B={nb}, 2 "
+        f"and 128), full-range int32, C=64 and 2048, ragged L=1/1000; max |err| {err}")
+
+    floor_ms = time_ms(lambda: of.floor_union(*draw, c), reps=20)
+    fused_ms = time_ms(lambda: hu.sorted_union_columnar_fused(*draw, out_size=c), reps=20)
+    bfloor_ms = time_ms(lambda: of.bucketed_floor_union(*draw, nb), reps=20)
+    bfused_ms = time_ms(lambda: hu.bucketed_union_columnar(*draw, nb, out_bucket_rows=wb),
+                        reps=20)
+    floor_plain = time_ms(lambda: floor_twin("floor_union", draw, c), reps=3, warmup=1)
+    bfloor_plain = time_ms(lambda: floor_twin("bucketed_floor_union", draw, nb), reps=3,
+                           warmup=1)
+    work = floor_work(c, lanes, c, c)
+    bwork = floor_work(c, lanes, wb, c)
+    log(json.dumps({
+        "capacity": c, "lanes": lanes, "n_buckets": nb,
+        "floor_ms": floor_ms, "fused_ms": fused_ms,
+        "headroom_pct": 100 * (fused_ms - floor_ms) / fused_ms,
+        "bucketed_floor_ms": bfloor_ms, "bucketed_fused_ms": bfused_ms,
+        "bucketed_headroom_pct": 100 * (bfused_ms - bfloor_ms) / bfused_ms,
+        "floor_vs_floor": floor_ms / bfloor_ms,
+        "floor_bytes_bound_ms": bound(work[0], 0)[0],
+        "bucketed_floor_bytes_bound_ms": bound(bwork[0], 0)[0],
+        "fused_bytes_bound_ms": bound(4 * (6 * c * lanes + lanes), 0)[0],
+        "bucketed_fused_bytes_bound_ms": bound(4 * (6 * c * lanes + 2 * lanes), 0)[0],
+        "card": card,
+    }))
+    rows = []
+    for name, replaces, ms, plain_ms, (n_bytes, n_ops) in (
+            ("floor_union", "benches/orset_floor.py:37", floor_ms, floor_plain, work),
+            ("bucketed_floor_union", "benches/orset_floor.py:86", bfloor_ms, bfloor_plain,
+             bwork)):
+        rows.append(kernel_row(name, "crdt_tpu_torch/csrc/set_floor.cu", replaces,
+                               launches[name], err[name], ms, plain_ms, n_bytes, n_ops,
+                               None, card))
+    log("floor library yardstick: none — no PyTorch call does a butterfly network plus "
+        "the scans")
+    del draw
+    torch.cuda.empty_cache()
+    return rows
+
+
+# ---- the counter and register family (BASELINE.json configs 0-2) ----
+
+GC_R, GC_NODES, GC_BANK = 1 << 20, 8, 16      # bench.py
+PN_NODES, PN_BANK = 64, 4                      # bench_baseline.py
+LWW_SMALL, LWW_BIG, LWW_BANK = 100_352, 1 << 25, 4
+LWW_RID_BITS = 7                               # rids span [0, 64)
+REG_R, REG_W, REG_OPS, REG_SLICE = 1 << 20, 8, 16, 65_536
+JOIN_SAMPLES = 128
+
+
+def quantile(xs, q: float) -> float:
+    """Nearest-rank quantile of the samples."""
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, max(0, round(q * (len(xs) - 1))))]
+
+
+def per_call_ms(step, n: int, warmup: int = 8) -> list:
+    """``n`` calls of ``step(i)`` queued back to back with a CUDA event
+    between each two: the device time of every call."""
+    for i in range(warmup):
+        step(i)
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
+    events[0].record()
+    for i in range(n):
+        step(i)
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    return [events[i].elapsed_time(events[i + 1]) for i in range(n)]
+
+
+def report_rate(label: str, replicas: int, times: list, state_bytes: int, card: str,
+                note: str = "") -> None:
+    """Replica-merges/s and p50/p99 over the per-join samples, beside the
+    bytes bound of a join (read the state and the peer, write the state)."""
+    p50, p99 = quantile(times, 0.5), quantile(times, 0.99)
+    bound_ms = 3 * state_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"{label}: {replicas / (p50 / 1e3):.4e} replica-merges/s (median of {len(times)} "
+        f"joins), p50 {p50 * 1e3:.2f} us, p99 {p99 * 1e3:.2f} us; bound "
+        f"{3 * state_bytes / 1e9:.4f} GB a join, {bound_ms * 1e3:.2f} us, "
+        f"{replicas / (bound_ms / 1e3):.4e} merges/s{note} [{card}]")
+
+
+def check_chain(label, join, state_np, bank_np, fold, from_numpy, value, k: int) -> None:
+    """k chained joins with the bank's peers in turn, on the card and in the
+    port's CPU run, against a numpy fold of the same sequence: every plane
+    and the value bit-equal."""
+    from crdt_tpu_torch.utils.tree import leaves
+
+    def chain(device):
+        x = from_numpy(state_np, device=device)
+        peers = [from_numpy({f: v[i] for f, v in bank_np.items()}, device=device)
+                 for i in range(min(k, len(next(iter(bank_np.values())))))]
+        for i in range(k):
+            x = join(x, peers[i % len(peers)])
+        return x
+
+    card_state, cpu_state = chain("cuda"), chain("cpu")
+    want = dict(state_np)
+    n_bank = len(next(iter(bank_np.values())))
+    for i in range(k):
+        want = fold(want, {f: v[i % n_bank] for f, v in bank_np.items()})
+    want_state = from_numpy(want, device="cpu")
+    got = [x.cpu() for x in leaves(card_state)]
+    same(f"{label} card vs numpy fold", got, leaves(want_state))
+    same(f"{label} card vs the port on the CPU", got, leaves(cpu_state))
+    same(f"{label} value", [value(card_state).cpu()], [value(want_state)])
+
+
+def np_max_fold(a: dict, b: dict) -> dict:
+    return {f: np.maximum(a[f], b[f]) for f in a}
+
+
+def np_lww_fold(a: dict, b: dict) -> dict:
+    newer = (b["ts"] > a["ts"]) | ((b["ts"] == a["ts"]) & (b["rid"] > a["rid"]))
+    return {f: np.where(newer, b[f], a[f]) for f in a}
+
+
+def counter_phases(card: str) -> None:
+    """Phase 14: the counters and registers at BASELINE's sizes — chained
+    joins against a bank of peers, checked against a numpy fold and the
+    port's CPU run, then merges/s and p50/p99 beside the bytes bound."""
+    from crdt_tpu_torch import convert, workload
+    from crdt_tpu_torch.models import gcounter, lww, pncounter
+    from crdt_tpu_torch.utils.tree import leaves
+
+    torch.cuda.empty_cache()
+    # -- G-Counter: 1M replicas x 8 nodes against 16 distinct peers (bench.py) --
+    a = {"counts": workload.counter_bank(SEED + 71, (GC_R, GC_NODES))}
+    bank = {"counts": workload.counter_bank(SEED + 72, (GC_BANK, GC_R, GC_NODES))}
+    check_chain("G-Counter chain", gcounter.join, a, bank, np_max_fold,
+                convert.gcounter_from_numpy, gcounter.value, GC_BANK)
+    x = convert.gcounter_from_numpy(a, device="cuda")
+    peers = [gcounter.GCounter(counts=c) for c in torch.from_numpy(bank["counts"]).cuda()]
+
+    def gc_step(i):
+        nonlocal x
+        x = gcounter.join(x, peers[i % GC_BANK])
+
+    times = per_call_ms(gc_step, JOIN_SAMPLES)
+    report_rate(f"G-Counter join R={GC_R} x {GC_NODES} nodes, {GC_BANK} peers", GC_R, times,
+                GC_R * GC_NODES * 4, card,
+                " (the 33.5 MB state fits the 50 MB L2: a rate past the bound means the "
+                "running state stayed in L2; every peer streams from HBM)")
+    del x, peers, bank
+
+    # -- G-Counter pair: increment + join of two 8-slot counters (config 0) --
+    pa = convert.gcounter_from_numpy({"counts": workload.counter_bank(SEED + 73, (GC_NODES,))},
+                                     device="cuda")
+    pb = convert.gcounter_from_numpy({"counts": workload.counter_bank(SEED + 74, (GC_NODES,))},
+                                     device="cuda")
+    start = pa
+
+    def pair_step(i):
+        nonlocal pa
+        pa = gcounter.join(gcounter.increment(pa, i % GC_NODES, 1), pb)
+
+    n = JOIN_SAMPLES * 2
+    times = per_call_ms(pair_step, n, warmup=0)
+    want, peer = start.counts.cpu().numpy(), pb.counts.cpu().numpy()
+    for i in range(n):
+        want[i % GC_NODES] += 1
+        want = np.maximum(want, peer)
+    if not np.array_equal(pa.counts.cpu().numpy(), want):
+        raise AssertionError("G-Counter pair: increments + joins != the numpy count")
+    log(f"G-Counter pair (8 slots, increment + join, {n} samples): p50 "
+        f"{quantile(times, 0.5) * 1e3:.2f} us, p99 {quantile(times, 0.99) * 1e3:.2f} us a "
+        f"step, == numpy; launch-bound: 64 B of state [{card}]")
+
+    # -- PN-Counter: 1,024 and 2^20 replicas x 64 nodes, 4 peers (bench_baseline.py) --
+    for r in (1024, GC_R):
+        st = {"pos": workload.counter_bank(SEED + 75, (r, PN_NODES)),
+              "neg": workload.counter_bank(SEED + 76, (r, PN_NODES))}
+        bk = {"pos": workload.counter_bank(SEED + 77, (PN_BANK, r, PN_NODES)),
+              "neg": workload.counter_bank(SEED + 78, (PN_BANK, r, PN_NODES))}
+        check_chain(f"PN-Counter chain R={r}", pncounter.join, st, bk, np_max_fold,
+                    convert.pncounter_from_numpy, pncounter.value, PN_BANK)
+        x = convert.pncounter_from_numpy(st, device="cuda")
+        bpos, bneg = (torch.from_numpy(bk[f]).cuda() for f in ("pos", "neg"))
+
+        def pn_step(i):
+            nonlocal x
+            x = pncounter.join(x, pncounter.PNCounter(pos=bpos[i % PN_BANK],
+                                                      neg=bneg[i % PN_BANK]))
+
+        times = per_call_ms(pn_step, JOIN_SAMPLES)
+        report_rate(f"PN-Counter join R={r} x {PN_NODES} nodes, {PN_BANK} peers", r, times,
+                    2 * r * PN_NODES * 4, card)
+        del x, bpos, bneg, st, bk
+
+    # -- LWW: 100,352 registers and 2^25 as (262,144, 128) planes, 4 peers --
+    for shape in ((LWW_SMALL,), (LWW_BIG // 128, 128)):
+        r = math.prod(shape)
+        st = workload.lww_bank(SEED + 79, shape)
+        bk = workload.lww_bank(SEED + 80, (LWW_BANK, *shape))
+        check_chain(f"LWW chain R={r}", lww.join, st, bk, np_lww_fold,
+                    convert.lww_from_numpy, lww.value, LWW_BANK)
+        x = convert.lww_from_numpy(st, device="cuda")
+        peers = {f: torch.from_numpy(v).cuda() for f, v in bk.items()}
+
+        def lww_step(i):
+            nonlocal x
+            x = lww.join(x, lww.LWWRegister(**{f: v[i % LWW_BANK] for f, v in peers.items()}))
+
+        times = per_call_ms(lww_step, JOIN_SAMPLES)
+        report_rate(f"LWW join R={r} {shape}, {LWW_BANK} peers", r, times, 3 * r * 4, card)
+        if r == LWW_BIG:
+            a = convert.lww_from_numpy(st, device="cuda")
+            b = lww.LWWRegister(**{f: v[0] for f, v in peers.items()})
+            ok = [bool(lww.pack_budget_ok(s_, LWW_RID_BITS)) for s_ in (a, b)]
+            if not all(ok):
+                raise AssertionError("the LWW draw does not fit the pack budget")
+            packed = lww.join_packed(lww.pack(a, LWW_RID_BITS), lww.pack(b, LWW_RID_BITS))
+            same("LWW unpack(join_packed) vs join", leaves(lww.unpack(packed)),
+                 leaves(lww.join(a, b)))
+            px = lww.pack(a, LWW_RID_BITS)
+            pkeys = [lww.pack(lww.LWWRegister(**{f: v[i] for f, v in peers.items()}),
+                              LWW_RID_BITS) for i in range(LWW_BANK)]
+
+            def packed_step(i):
+                nonlocal px
+                px = lww.join_packed(px, pkeys[i % LWW_BANK])
+
+            times = per_call_ms(packed_step, JOIN_SAMPLES)
+            report_rate(f"LWW join_packed R={r} (rid_bits {LWW_RID_BITS}, pack budget "
+                        "checked on the host)", r, times, 2 * r * 4, card)
+            del a, b, packed, px, pkeys
+        del x, peers, st, bk
+    torch.cuda.empty_cache()
+    register_phase(card)
+
+
+def register_phase(card: str) -> None:
+    """Phase 14, last part: EW/DW flags and the MV-register at 2^20
+    replicas x 8 writers through two seeded op scripts (sides A and B), then
+    their joins; the card == the port's CPU run on the first 65,536
+    replicas, and the join times."""
+    from crdt_tpu_torch import workload
+    from crdt_tpu_torch.models import flags, mvregister
+    from crdt_tpu_torch.utils.tree import leaves, tree_map
+
+    def select(mask, new, old):
+        def pick(x, y):
+            return torch.where(mask.reshape(mask.shape + (1,) * (x.dim() - 1)), x, y)
+        return tree_map(pick, new, old)
+
+    def run(script, r, device):
+        ew = flags.ew_zero(REG_W, (r,), device=device)
+        dw = flags.dw_zero(REG_W, (r,), device=device)
+        mv = mvregister.zero(REG_W, (r,), device=device)
+        for op in script:
+            m = torch.from_numpy(op["mask"][:r]).to(device)
+            w = op["writer"]
+            if op["enable"]:
+                ew = select(m, flags.ew_enable(ew, w), ew)
+                dw = select(m, flags.dw_enable(dw, w), dw)
+            else:
+                ew = select(m, flags.ew_disable(ew, w), ew)
+                dw = select(m, flags.dw_disable(dw, w), dw)
+            mv = select(m, mvregister.write(mv, w, op["ts"], op["payload"]), mv)
+        return ew, dw, mv
+
+    scripts = [workload.register_script(SEED + 81 + k, REG_OPS, REG_R, REG_W) for k in (0, 1)]
+    sides = [run(s_, REG_R, "cuda") for s_ in scripts]
+    joins = (flags.ew_join, flags.dw_join, mvregister.join)
+    joined = [j(x, y) for j, x, y in zip(joins, *sides)]
+    cpu_sides = [run(s_, REG_SLICE, "cpu") for s_ in scripts]
+    cpu_joined = [j(x, y) for j, x, y in zip(joins, *cpu_sides)]
+    for label, got, want in (("side A", sides[0], cpu_sides[0]),
+                             ("side B", sides[1], cpu_sides[1]),
+                             ("joined", joined, cpu_joined)):
+        same(f"flags + MV-register {label}: card vs the port on the CPU",
+             [x[:REG_SLICE].cpu() for x in leaves(got)], leaves(want))
+    values = [flags.ew_value(joined[0]), flags.dw_value(joined[1]),
+              mvregister.n_siblings(joined[2])]
+    cpu_values = [flags.ew_value(cpu_joined[0]), flags.dw_value(cpu_joined[1]),
+                  mvregister.n_siblings(cpu_joined[2])]
+    same("flag values and sibling counts", [v[:REG_SLICE].cpu() for v in values], cpu_values)
+    log(f"EW/DW flags + MV-register at R={REG_R} x {REG_W} writers, {REG_OPS} ops a side: "
+        f"card == the port's CPU run on {REG_SLICE} replicas; EW true on "
+        f"{int(values[0].sum())}, DW true on {int(values[1].sum())}, mean siblings "
+        f"{float(values[2].float().mean()):.3f}")
+    # a replica's bytes: tok + obs words (and DW's touched byte); seq, ts,
+    # payload + obs words
+    flag_bytes = 4 * (REG_W + REG_W * REG_W)
+    per_replica = (flag_bytes, flag_bytes + 1, 4 * (3 * REG_W + REG_W * REG_W))
+    for k, (label, join) in enumerate((("EW-Flag", flags.ew_join), ("DW-Flag", flags.dw_join),
+                                       ("MV-register", mvregister.join))):
+        x, y = sides[0][k], sides[1][k]
+        times = per_call_ms(lambda i, j=join, a=x, b=y: j(a, b), JOIN_SAMPLES)
+        report_rate(f"{label} join R={REG_R} x {REG_W} writers", REG_R, times,
+                    REG_R * per_replica[k], card)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1117,8 +1564,11 @@ def main() -> int:
                 log(f"  ptxas [{name}]: {line.strip()}")
 
     rows = [oplog_phases(card)]
-    rows += set_phases(card)
+    set_rows, floor_full = set_phases(card)
+    rows += set_rows
     rows += rseq_phases(card)
+    rows += floor_phases(floor_full, card)
+    counter_phases(card)
 
     print(card, flush=True)
     log(json.dumps({"kernels": rows}))

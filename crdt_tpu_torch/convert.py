@@ -1,8 +1,10 @@
 """State carried across from the JAX package, as numpy.
 
 The JAX package's ``OpLog``, ``ColumnarOpLog``, ``ORSet``, ``ORSetBitmap``,
-``ORSetBucketed``, ``RSeq``, ``ColumnarRSeq``, ``Gc`` and ``ColumnarGc`` are
-plain arrays; these functions take them as a dict
+``ORSetBucketed``, ``RSeq``, ``ColumnarRSeq``, ``Gc``, ``ColumnarGc``, the
+counters (``GCounter``, ``PNCounter``) and the registers and flags
+(``LWWRegister``, ``PackedLWW``, ``TokenPlane``, ``EWFlag``, ``DWFlag``,
+``MVRegister``) are plain arrays; these functions take them as a dict
 of numpy arrays (``np.asarray`` of each field) and build the port's
 tensors, and give them back the same way, so both packages can be fed
 identical state and compared plane by plane.
@@ -15,9 +17,14 @@ import numpy as np
 import torch
 
 from crdt_tpu_torch import default_device
+from crdt_tpu_torch.models.flags import DWFlag, EWFlag, TokenPlane
+from crdt_tpu_torch.models.gcounter import GCounter
+from crdt_tpu_torch.models.lww import LWWRegister, PackedLWW
+from crdt_tpu_torch.models.mvregister import MVRegister
 from crdt_tpu_torch.models.oplog import _FIELDS, KVState, OpLog
 from crdt_tpu_torch.models.oplog_columnar import ColumnarOpLog
 from crdt_tpu_torch.models.orset import ORSet, ORSetBitmap, ORSetBucketed
+from crdt_tpu_torch.models.pncounter import PNCounter
 from crdt_tpu_torch.models.rseq import RSeq
 from crdt_tpu_torch.models.rseq_columnar import ColumnarRSeq
 from crdt_tpu_torch.models.rseq_engine import ColumnarGc
@@ -156,3 +163,90 @@ def columnar_gc_from_numpy(d: Mapping[str, np.ndarray], device=None) -> Columnar
 
 def columnar_gc_to_numpy(cg: ColumnarGc) -> dict:
     return {"col": columnar_rseq_to_numpy(cg.col), "floor": cg.floor.cpu().numpy()}
+
+
+# ---- counters, registers and flags ----
+
+
+def _planes_from(cls, d, fields, device, **static):
+    device = default_device(device)
+    return cls(**{f: _tensor(d[f], torch.int32, device) for f in fields}, **static)
+
+
+def _planes_to(x, fields) -> dict:
+    return {f: getattr(x, f).cpu().numpy() for f in fields}
+
+
+def gcounter_from_numpy(d: Mapping[str, np.ndarray], device=None) -> GCounter:
+    """A GCounter from its ``counts`` plane."""
+    return _planes_from(GCounter, d, ("counts",), device)
+
+
+def gcounter_to_numpy(c: GCounter) -> dict:
+    return _planes_to(c, ("counts",))
+
+
+def pncounter_from_numpy(d: Mapping[str, np.ndarray], device=None) -> PNCounter:
+    """A PNCounter from its ``pos``/``neg`` planes."""
+    return _planes_from(PNCounter, d, ("pos", "neg"), device)
+
+
+def pncounter_to_numpy(c: PNCounter) -> dict:
+    return _planes_to(c, ("pos", "neg"))
+
+
+def lww_from_numpy(d: Mapping[str, np.ndarray], device=None) -> LWWRegister:
+    """An LWWRegister from its ``ts``/``rid``/``payload`` planes."""
+    return _planes_from(LWWRegister, d, ("ts", "rid", "payload"), device)
+
+
+def lww_to_numpy(r: LWWRegister) -> dict:
+    return _planes_to(r, ("ts", "rid", "payload"))
+
+
+def packed_lww_from_numpy(d: Mapping[str, np.ndarray], device=None) -> PackedLWW:
+    """A PackedLWW from its ``key``/``payload`` planes plus the static
+    ``rid_bits``."""
+    return _planes_from(PackedLWW, d, ("key", "payload"), device, rid_bits=int(d["rid_bits"]))
+
+
+def packed_lww_to_numpy(p: PackedLWW) -> dict:
+    return {**_planes_to(p, ("key", "payload")), "rid_bits": p.rid_bits}
+
+
+def token_plane_from_numpy(d: Mapping[str, np.ndarray], device=None) -> TokenPlane:
+    """A TokenPlane from its ``tok``/``obs`` planes."""
+    return _planes_from(TokenPlane, d, ("tok", "obs"), device)
+
+
+def token_plane_to_numpy(p: TokenPlane) -> dict:
+    return _planes_to(p, ("tok", "obs"))
+
+
+def ewflag_from_numpy(d: Mapping[str, np.ndarray], device=None) -> EWFlag:
+    """An EWFlag from ``{"plane": <token plane dict>}``."""
+    return EWFlag(plane=token_plane_from_numpy(d["plane"], device=device))
+
+
+def ewflag_to_numpy(f: EWFlag) -> dict:
+    return {"plane": token_plane_to_numpy(f.plane)}
+
+
+def dwflag_from_numpy(d: Mapping[str, np.ndarray], device=None) -> DWFlag:
+    """A DWFlag from ``{"plane": <token plane dict>, "touched": bool[...]}``."""
+    device = default_device(device)
+    return DWFlag(plane=token_plane_from_numpy(d["plane"], device=device),
+                  touched=_tensor(d["touched"], torch.bool, device))
+
+
+def dwflag_to_numpy(f: DWFlag) -> dict:
+    return {"plane": token_plane_to_numpy(f.plane), "touched": f.touched.cpu().numpy()}
+
+
+def mvregister_from_numpy(d: Mapping[str, np.ndarray], device=None) -> MVRegister:
+    """An MVRegister from its ``seq``/``ts``/``payload``/``obs`` planes."""
+    return _planes_from(MVRegister, d, ("seq", "ts", "payload", "obs"), device)
+
+
+def mvregister_to_numpy(r: MVRegister) -> dict:
+    return _planes_to(r, ("seq", "ts", "payload", "obs"))

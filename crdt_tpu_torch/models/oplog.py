@@ -212,6 +212,17 @@ def _scatter_slots(idx: torch.Tensor, n_slots: int) -> torch.Tensor:
     return (slot + rows.reshape(idx.shape[:-1] + (1,)) * (n_slots + 1)).reshape(-1)
 
 
+def at_slot(index, n_slots: int) -> int | None:
+    """The entry that ``x.at[..., index]`` of a JAX array with ``n_slots``
+    entries on its last axis updates, for one scalar ``index``: the rules of
+    :func:`_scatter_slots` on the host, no tensor op.  None when JAX drops
+    the update."""
+    slot = int(index)
+    if slot < 0:
+        slot += n_slots
+    return slot if 0 <= slot < n_slots else None
+
+
 def rebuild(log: OpLog, n_keys: int) -> KVState:
     """Rebuild the materialized view from the log as two scatters:
 

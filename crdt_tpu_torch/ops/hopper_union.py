@@ -43,7 +43,8 @@ from crdt_tpu_torch.ops.sorted_union import _sort_by_keys
 from crdt_tpu_torch.utils.constants import SENTINEL_PY
 
 LAUNCHES = {"lexn_union": 0, "set_union": 0, "merge": 0, "bucketed_union": 0,
-            "lexn_merge": 0, "lexn_compact": 0}
+            "lexn_merge": 0, "lexn_compact": 0, "floor_union": 0,
+            "bucketed_floor_union": 0}
 
 # key + value planes a side that one lexN launch takes (csrc/lexn_union.cu
 # kMaxPlanes): RSeq at depth 9 with its GC join's three value planes
@@ -331,6 +332,13 @@ _SIGNATURES = {
         "set_union_smem_bytes": ([_I, _I], ctypes.c_size_t),
         "set_union_lane_tile": ([_I, _I], _I),
         "set_union_error_string": ([_I], ctypes.c_char_p),
+    },
+    "set_floor": {
+        "floor_union": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
+        "bucketed_floor_union": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
+        "set_floor_smem_bytes": ([_I], ctypes.c_size_t),
+        "set_floor_lane_tile": ([_I], _I),
+        "set_floor_error_string": ([_I], ctypes.c_char_p),
     },
 }
 

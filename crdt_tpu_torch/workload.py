@@ -1,6 +1,7 @@
 """Seeded workloads for driving the port: reference-shaped writes for the
-OpLog swarm, the OR-Set swarm of BASELINE.json's configs[3], and the RSeq
-swarm of a seeded collaborative-editing history.
+OpLog swarm, the OR-Set swarm of BASELINE.json's configs[3], the RSeq
+swarm of a seeded collaborative-editing history, and the counter and
+register banks of BASELINE.json's configs 0-2.
 
 The reference's workload (its ``dummyInsertions``; the JAX package's
 ``harness/workload.py`` and ``utils/config.py`` defaults): single-key
@@ -11,9 +12,9 @@ stamp them with a millisecond ``ts`` that several writes share.  A share
 of the writes carries a non-numeric string, exercising the LWW payload
 path of the rebuild.
 
-The writes and the editing history are drawn from numpy generators seeded
-by the caller, the OR-Set and RSeq swarms from a torch.Generator on the
-device they are built on.
+The writes, the editing history and the counter and register banks are
+drawn from numpy generators seeded by the caller, the OR-Set and RSeq
+swarms from a torch.Generator on the device they are built on.
 """
 from __future__ import annotations
 
@@ -407,3 +408,43 @@ def seq_view(pool: SeqPool, held: np.ndarray, seen: np.ndarray):
         if not seen[i]:
             live.append(int(pool.elem[i]))
     return tombs, live
+
+
+# ---- the counter and register banks ----
+#
+# BASELINE.json's configs 0-2 as the JAX package's bench.py and
+# benches/bench_baseline.py draw them: every counter slot, timestamp and
+# payload uniform in [0, 2^20), LWW writer ids uniform in [0, 64).  The bits
+# are numpy's, not jax.random's.
+COUNTER_HIGH = 1 << 20
+LWW_RIDS = 64
+# the flag and MV-register op script: the share of replicas that applies
+# each op
+SCRIPT_SHARE = 0.25
+
+
+def counter_bank(seed: int, shape: tuple) -> np.ndarray:
+    """int32 counter planes uniform in [0, 2^20): a state, or a bank of
+    peer states with the bank on the leading axis."""
+    return np.random.default_rng(seed).integers(0, COUNTER_HIGH, shape, dtype=np.int32)
+
+
+def lww_bank(seed: int, shape: tuple) -> dict:
+    """LWW register planes ``{ts, rid, payload}``: ts and payload uniform in
+    [0, 2^20), rid uniform in [0, 64)."""
+    rng = np.random.default_rng(seed)
+    return {"ts": rng.integers(0, COUNTER_HIGH, shape, dtype=np.int32),
+            "rid": rng.integers(0, LWW_RIDS, shape, dtype=np.int32),
+            "payload": rng.integers(0, COUNTER_HIGH, shape, dtype=np.int32)}
+
+
+def register_script(seed: int, n_ops: int, n_replicas: int, n_writers: int) -> list:
+    """A seeded op script for the flags and the MV-register: op i is made by
+    ``writer`` at timestamp i on the replicas where ``mask`` holds (a seeded
+    quarter of them); it enables or disables the flags (``enable``) and
+    writes ``payload`` to the register.  Returns a list of dicts."""
+    rng = np.random.default_rng(seed)
+    return [{"writer": int(rng.integers(0, n_writers)), "ts": i,
+             "payload": int(rng.integers(0, COUNTER_HIGH)),
+             "enable": bool(rng.integers(0, 2)),
+             "mask": rng.random(n_replicas) < SCRIPT_SHARE} for i in range(n_ops)]

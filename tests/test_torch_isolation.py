@@ -10,15 +10,16 @@ import torch
 
 import crdt_tpu_torch
 from crdt_tpu_torch import convert, workload
-from crdt_tpu_torch.models import gset, oplog, oplog_columnar, orset, rseq
+from crdt_tpu_torch.models import flags, gcounter, gset, lww, mvregister, oplog
+from crdt_tpu_torch.models import oplog_columnar, orset, pncounter, rseq
 from crdt_tpu_torch.models import rseq_columnar, tomb_gc
-from crdt_tpu_torch.ops import hopper_union
+from crdt_tpu_torch.ops import hopper_union, orset_floor
 from crdt_tpu_torch.parallel import swarm
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = (sorted((ROOT / "crdt_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
               + sorted((ROOT / "tools").glob("*.py")))
-FORBIDDEN = ("jax", "jaxlib", "flax", "crdt_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "crdt_tpu", "benches")
 
 
 def _imported_modules(path: Path):
@@ -47,7 +48,8 @@ def test_scan_sees_the_whole_package():
             "swarm.py", "chip_smoke.py", "pack.py", "union_engine.py",
             "orset.py", "gset.py", "rseq.py", "rseq_columnar.py",
             "rseq_engine.py", "tomb_gc.py", "convert.py", "workload.py",
-            "time_lexn_union.py"} <= names
+            "time_lexn_union.py", "orset_floor.py", "gcounter.py", "pncounter.py",
+            "lww.py", "flags.py", "mvregister.py"} <= names
 
 
 @pytest.mark.parametrize("make", [
@@ -70,11 +72,20 @@ def test_scan_sees_the_whole_package():
     lambda: tomb_gc.wrap(rseq.empty(8, device="cpu"), 4),
     lambda: workload.seq_swarm(workload.seq_pool(0, n_elements=8), 2, 8, 0),
     lambda: convert.rseq_from_numpy(convert.rseq_to_numpy(rseq.empty(4, device="cpu"))),
+    lambda: gcounter.zero(8),
+    lambda: pncounter.zero(8),
+    lambda: lww.zero((4,)),
+    lambda: flags.ew_zero(4),
+    lambda: flags.dw_zero(4),
+    lambda: mvregister.zero(4),
+    lambda: convert.mvregister_from_numpy(
+        convert.mvregister_to_numpy(mvregister.zero(4, device="cpu"))),
 ], ids=["oplog.empty", "from_ops", "columnar.empty", "random_peers",
         "convert", "default_device", "orset.empty", "bitmap_empty",
         "bucketed_empty", "g_empty", "tp_empty", "convert.orset", "set_swarm",
         "strided_columns", "rseq.empty", "rseq_columnar.empty", "tomb_gc.wrap",
-        "seq_swarm", "convert.rseq"])
+        "seq_swarm", "convert.rseq", "gcounter.zero", "pncounter.zero", "lww.zero",
+        "ew_zero", "dw_zero", "mvregister.zero", "convert.mvregister"])
 def test_constructor_without_device_raises_when_no_card(make, monkeypatch):
     """device=None means the CUDA card; without one it raises rather than
     returning CPU tensors."""
@@ -87,6 +98,12 @@ def test_kernel_entry_has_no_try_fallback():
     """No `try` anywhere in the wrapper module: a failed build or launch
     raises, it cannot fall through to the twin."""
     tree = ast.parse(Path(hopper_union.__file__).read_text())
+    assert not any(isinstance(n, ast.Try) for n in ast.walk(tree))
+
+
+def test_floor_entry_has_no_try_fallback():
+    """Nor in the floors' wrapper module."""
+    tree = ast.parse(Path(orset_floor.__file__).read_text())
     assert not any(isinstance(n, ast.Try) for n in ast.walk(tree))
 
 
