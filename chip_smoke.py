@@ -38,7 +38,11 @@ Phases (any failure exits non-zero and prints no result):
    L=10,240 on a ``workload.seq_swarm`` draw at 18 key words with 2 and 3
    value planes, lexn_union at those splits at C=512, the striped path at
    a forced stripe of 256 and ``auto`` at C=2048 against the fused twin,
-   overflow, ragged lanes, and the shared-memory refusals;
+   overflow, lane counts that split a tile or cluster of 8 lanes, planes
+   off 16 B alignment, 32 planes, all-padding lanes and B inside A
+   (``workload.lexn_pair``), the merge's resident clusters, ``auto`` at
+   C=1024 handing the merge's blocks straight to the compaction, and the
+   shared-memory refusals;
 10. RSeq end to end at R=10,240 replicas x C=1024 rows x depth 6:
     ``rseq_columnar.plan`` (must pick the columnar engine) → 3
     ``gossip_round``s with one replica dead → ``converge_checked`` →
@@ -816,14 +820,18 @@ def check_rseq_kernels(pool) -> dict:
     log("striped (stripe 256: 12 merges + 1 compaction) and auto at C=2048 on 2,048 "
         "lanes (stripe 1024: 4 merges + 1 compaction) == the fused twin")
 
-    for n in (1, 127, 130):
+    for n in (1, 7, 9, 127, 130, 257):
         ra, rb = seq_columnar(pool, n, SEQ_C, SEED + 47), seq_columnar(pool, n, SEQ_C, SEED + 48)
         mk, mv = merge(lexn_sides(ra, rb, True), f"ragged L={n}")
-        compact(mk, mv, SEQ_C, f"ragged L={n}")
+        for out in (SEQ_C // 4, SEQ_C, 2 * SEQ_C):
+            compact(mk, mv, out, f"ragged L={n} out={out}")
         ra, rb = (seq_columnar(pool, n, SEQ_C // 2, SEED + 49),
                   seq_columnar(pool, n, SEQ_C // 2, SEED + 50))
         union(lexn_sides(ra, rb, False), SEQ_C // 2, f"ragged L={n}")
-    log("ragged L=1/127/130: bit-exact")
+    log("ragged L=1/7/9/127/130/257 (tiles and clusters of 8 lanes split): bit-exact, "
+        "out=C/4, C, 2C")
+    check_lexn_layouts(pool, merge, compact)
+    check_stripe_c_hands_over(pool)
 
     limit = hu.smem_limit(torch.device("cuda"))
     big = [torch.full((2 * SEQ_C, 2), SENTINEL, dtype=torch.int32, device="cuda")] * 20
@@ -855,6 +863,104 @@ def check_rseq_kernels(pool) -> dict:
     torch.cuda.synchronize()
     log(f"shared-memory refusals with the figure, limit {limit} B: " + "; ".join(refusals))
     return err
+
+
+def check_lexn_layouts(pool, merge, compact) -> None:
+    """Phase 9, the tile and cluster layouts of kernels 4 and 5 at full
+    width: planes that start a row into a block with an odd lane count (no
+    16 B alignment, as stripe views of such swarms are), the 32-plane cap
+    with keys equal but for their last words, and lanes that are all
+    padding beside lanes whose B rows all duplicate A's."""
+    from crdt_tpu_torch import workload
+    from crdt_tpu_torch.ops import hopper_union as hu
+
+    n = R - 1
+    sides = []
+    for planes in lexn_sides(seq_columnar(pool, n, SEQ_C, SEED + 51),
+                             seq_columnar(pool, n, SEQ_C, SEED + 52), True):
+        block = torch.zeros((len(planes), SEQ_C + 1, n), dtype=torch.int32, device="cuda")
+        block[:, 1:] = torch.stack(planes)
+        sides.append(tuple(block[:, 1:]))
+    if sides[0][0].data_ptr() % 16 == 0:
+        raise AssertionError("the row-sliced planes are 16 B aligned")
+    mk, mv = merge(tuple(sides), f"row-sliced, L={n}")
+    merged = torch.zeros((mk.shape[0] + mv.shape[0], 2 * SEQ_C + 1, n), dtype=torch.int32,
+                         device="cuda")
+    merged[:, 1:] = torch.cat([mk, mv])
+    views = tuple(merged[:, 1:])
+    for out in (SEQ_C // 4, SEQ_C, 2 * SEQ_C):
+        compact(views[:N_KEYS_SEQ], views[N_KEYS_SEQ:], out, f"row-sliced, L={n} out={out}")
+    del sides, merged, views, mk, mv
+    # 29 key words take S <= 512 (lexn_plan's stripe at C = 1024)
+    for label, c, pair in (
+        ("32 planes (29, 3)", SEQ_C // 2,
+         workload.lexn_pair(29, 3, SEQ_C // 2, R, SEED + 53, device="cuda")),
+        ("B inside A, all-padding lanes", SEQ_C, workload.lexn_pair(
+            N_KEYS_SEQ, 3, SEQ_C, R, SEED + 54, b_inside_a=True,
+            empty_lanes=(0, 7, 8, R // 2, R - 1), device="cuda")),
+    ):
+        mk, mv = merge(pair, f"{label}, S={c} L={R}")
+        for out in (c // 4, c, 2 * c):
+            compact(mk, mv, out, f"{label} out={out}")
+        del pair, mk, mv
+    pair = workload.lexn_pair(29, 3, SEQ_C, R, SEED + 53, device="cuda")
+    before = dict(hu.LAUNCHES)
+    got = hu.sorted_union_columnar_lexn_auto(*pair, out_size=SEQ_C)
+    want = hu._lexn_union_plain(*pair, SEQ_C)
+    same("auto, 32 planes at C=1024", (*got[0], *got[1], got[2]), (*want[0], *want[1], want[2]))
+    merges = hu.LAUNCHES["lexn_merge"] - before["lexn_merge"]
+    if merges != 4:
+        raise AssertionError(f"auto at 29 key words, C=1024 ran {merges} merges, expected 4 "
+                             "(stripe 512)")
+    del pair, got, want
+    limit = hu.smem_limit(torch.device("cuda"))
+    for nk, s in ((N_KEYS_SEQ, SEQ_C), (29, SEQ_C // 2)):
+        clusters = hu.lexn_merge_clusters(nk, s)
+        if clusters < 1:
+            raise AssertionError(f"the card places no lexn_merge cluster at {nk} key words")
+        log(f"lexn_merge clusters: {clusters} clusters of 8 CTAs resident at once at "
+            f"{hu.lexn_merge_smem_bytes(nk, s)} B a CTA ({nk} key words, S={s}; "
+            f"cudaOccupancyMaxActiveClusters); L={R} takes {-(-R // 8)}")
+    for rows in (SEQ_C, 2 * SEQ_C):
+        lt = hu.lexn_compact_tile(rows, limit)
+        log(f"lexn_compact tile over {rows} rows: {lt} lanes a CTA, "
+            f"{hu.lexn_compact_smem_bytes(rows, lt)} B")
+    log("row-sliced unaligned planes, 32 planes (and auto at C=1024: stripe 512, 4 merges), "
+        "B inside A and all-padding lanes: bit-exact at out=C/4, C, 2C")
+
+
+def check_stripe_c_hands_over(pool) -> None:
+    """At stripe = C the striped union is one merge whose (P, 2C, L) blocks
+    are the compaction's input, no concatenation between them: the
+    compaction receives the merge's own tensors."""
+    from crdt_tpu_torch.ops import hopper_union as hu
+
+    seen = {}
+    merge, compact = hu.lexn_merge_columnar, hu.lexn_compact_columnar
+
+    def spy_merge(*args):
+        seen["merge"] = merge(*args)
+        return seen["merge"]
+
+    def spy_compact(keys, vals, out):
+        seen["compact"] = (keys, vals)
+        return compact(keys, vals, out)
+
+    sides = lexn_sides(seq_columnar(pool, R, SEQ_C, SEED + 55),
+                       seq_columnar(pool, R, SEQ_C, SEED + 56), False)
+    hu.lexn_merge_columnar, hu.lexn_compact_columnar = spy_merge, spy_compact
+    try:
+        got = hu.sorted_union_columnar_lexn_auto(*sides, out_size=SEQ_C)
+    finally:
+        hu.lexn_merge_columnar, hu.lexn_compact_columnar = merge, compact
+    if (seen["compact"][0] is not seen["merge"][0]
+            or seen["compact"][1] is not seen["merge"][1]):
+        raise AssertionError("at stripe = C the compaction did not take the merge's blocks")
+    want = hu._lexn_union_plain(*sides, SEQ_C)
+    same("auto at C=1024 (one merge, one compaction)", (*got[0], *got[1], got[2]),
+         (*want[0], *want[1], want[2]))
+    log("auto at C=1024: one merge, its blocks straight into the compaction (no "
+        "concatenation), == the fused twin")
 
 
 def run_rseq_slice(pool) -> dict:

@@ -32,39 +32,41 @@
 // TPU kernels' on every plane.  The raw merge is not: of two equal keys it
 // always puts A's copy first, where the TPU's bitonic network puts either.
 //
-// Design (a simple, correct first version, one CTA per lane):
+// Design.  lexn_union is the first version, one CTA per lane:
 //   * merge by rank: the lane's key words of A and B go to shared memory,
 //     A[i] lands at i + #(B < A[i]), B[j] at j + #(A <= B[j]) — a binary
 //     search each, no bitonic network and no per-stage barrier, B read in
 //     its own ascending order (the TPU wrapper's flip of B is a Mosaic
 //     artefact);
-//   * lexn_union keeps the merged planes in dynamic shared memory:
+//   * it keeps the merged planes in dynamic shared memory:
 //     2·n_keys·C + 2C·(n_keys+n_vals) words plus 2C flag bytes — 50.3 KB
 //     at C=1024 for (2, 2), 156,800 B at C=512 for RSeq's (18, 2); past the
 //     card's 227 KB opt-in the host code stripes the union instead;
-//   * lexn_merge stages only the key words (2·n_keys·S words: 147,456 B at
-//     S=1024, n_keys=18) and writes every plane of a row straight to its
-//     merged row in device memory;
-//   * lexn_compact keeps only one flag byte a row and the scan in shared
-//     memory (2C + 128 B), reading keys and values from device memory, so
-//     it has no capacity ceiling below 2C = 232,320 rows;
 //   * compaction is one block-wide exclusive scan of the keep flags (each
-//     thread owns a run of consecutive rows) and a scatter straight to
-//     device memory — the TPU's log-step shift network is not needed.
+//     thread owns a run of consecutive rows) and a scatter — the TPU's
+//     log-step shift network is not needed;
 //   * the key and value counts are run-time arguments (under kMaxPlanes
 //     planes a side), so every split — the OpLog's (2, 2), RSeq's at any
 //     depth up to 9 — runs one instantiation.
+// lexn_merge and lexn_compact (designs above their kernels) work on tiles
+// of 8 adjacent lanes, so that every load and store of a row moves a whole
+// 32 B sector: the merge as a cluster of 8 CTAs that trade the key words
+// through distributed shared memory, the compaction as one CTA a tile that
+// keeps only flags and a gather map.  Both put the lane-divergent side of
+// the move on gathers that the L1 serves and store whole rows of the tile.
 //
 // What bounds them on this card: bytes.  At C=1024, L=10,240 the OpLog
 // union reads 8 planes x C x L x 4 B = 335.5 MB and writes 167.8 MB: 0.150
 // ms at 3.35 TB/s, against ~(C log C) integer compares a lane, which the
 // card does far faster.  RSeq's 20-plane merge moves 3.36 GB (1.00 ms) and
-// its compaction 2.52 GB (0.75 ms).  These versions read each lane's column
-// strided by L, so a warp's load touches 32 sectors and uses 4 B of each
-// 32 B sector; neighbouring lanes run on neighbouring CTAs and mostly hit
-// in L2, but the access pattern is not coalesced.  The fix (lane tiles with
-// coalesced transposed loads, or TMA tiles) is left to a later change.
+// its compaction 2.52 GB (0.75 ms).  The merge reads each key word from
+// device memory once (its move takes them from the owners' shared memory);
+// the compaction reads them twice (the flags, then the move), 1.51 GB more
+// at 18 words.  lexn_union reads each lane's column strided by L, so a
+// warp's load uses 4 B of each 32 B sector; neighbouring lanes run on
+// neighbouring CTAs and mostly hit in L2, but the access is not coalesced.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -223,82 +225,335 @@ lexn_union_kernel(Params p) {
   if (threadIdx.x == 0) p.n_unique[lane] = total;
 }
 
-// Merge only: lane j of the (2S, L) output planes is the sorted merge of
-// A's and B's S rows, every plane carried, A's copy of an equal key first.
-__global__ void __launch_bounds__(kThreads)
-lexn_merge_kernel(Params p) {
-  const int nk = p.n_keys, np = p.n_keys + p.n_vals;
-  extern __shared__ int32_t smem[];
-  const int s = p.c;
-  const size_t lanes = (size_t)p.lanes;
-  const size_t lane = blockIdx.x;
-  int32_t* sa = smem;         // nk x S   A's key words
-  int32_t* sb = sa + nk * s;  // nk x S   B's key words
+// ---- lexn_merge: a cluster of 8 CTAs a tile of 8 adjacent lanes ----
+//
+// CTA `me` of a cluster owns lane l0 + me: its shared memory holds that
+// lane's key words of A and B row by row (S rows of KP = n_keys rounded up
+// to 4 words, the pad words 0) and the lane's merge map (2S words: output
+// row -> A row i, or S + B row j).
+//   1. stage: the cluster's CTAs split the rows; a thread reads four key
+//      words of one row for its lane (8 threads read a row of the tile, one
+//      32 B sector) and stores them as one 16 B store into the owner's
+//      shared memory through distributed shared memory;
+//   2. rank (local to the owner), by merge path: thread t finds by binary
+//      search how many of the first t·K merged rows are A's (equal keys put
+//      A's copy first), then merges its K = 4 rows in order — 2S/K searches
+//      and 2S row compares a lane where a rank a row would take 2S
+//      searches; a compare reads 16 B at a time;
+//   3. move: the CTAs split the output rows; for each row of the tile the
+//      8 lanes' sources come from the owners' maps; the key words come from
+//      the owner's shared memory (16 B distributed loads, no second read of
+//      them from device memory), the value planes from device memory (a
+//      gather that the L1 serves, since neighbouring lanes read the same
+//      sectors a few rows apart); every plane is stored as whole rows of the
+//      tile.
 
-  stage_keys(p, sa, sb);
-  __syncthreads();
+constexpr int kTile = 8;             // lanes of a merge cluster or compaction tile
+constexpr int kMergeThreads = 1024;  // 128 groups of 8 threads
+constexpr int kGroups = kMergeThreads / kTile;
+constexpr int kRankRows = 4;        // merged rows a thread ranks after its search
 
-  for (int i = threadIdx.x; i < s; i += blockDim.x) {
-    const size_t pa = i + rank_in<true>(sb, s, sa, i, nk);
-    const size_t pb = i + rank_in<false>(sa, s, sb, i, nk);
-    for (int k = 0; k < nk; ++k) {
-      p.out[k][pa * lanes + lane] = sa[k * s + i];
-      p.out[k][pb * lanes + lane] = sb[k * s + i];
-    }
-    for (int v = nk; v < np; ++v) {
-      p.out[v][pa * lanes + lane] = p.a[v][i * lanes + lane];
-      p.out[v][pb * lanes + lane] = p.b[v][i * lanes + lane];
-    }
+// the key-word stride of a staged row: n_keys rounded up to 16 B
+__host__ __device__ __forceinline__ int key_stride(int nk) { return (nk + 3) & ~3; }
+
+// x < y over two staged rows of kp words (pad words equal)
+__device__ __forceinline__ bool row_less(const int32_t* x, const int32_t* y, int kp) {
+  for (int k = 0; k < kp; k += 4) {
+    const int4 u = *reinterpret_cast<const int4*>(x + k);
+    const int4 v = *reinterpret_cast<const int4*>(y + k);
+    if (u.x != v.x) return u.x < v.x;
+    if (u.y != v.y) return u.y < v.y;
+    if (u.z != v.z) return u.z < v.z;
+    if (u.w != v.w) return u.w < v.w;
   }
+  return false;
 }
 
-// Duplicate punch + compaction + truncation over sorted (n, L) planes
-// (p.a, n = p.c rows) into (out_size, L) planes and n_unique (L).
-__global__ void __launch_bounds__(kThreads)
-lexn_compact_kernel(Params p) {
-  const int nk = p.n_keys, np = p.n_keys + p.n_vals;
+__global__ void __launch_bounds__(kMergeThreads)
+lexn_merge_kernel(Params p) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int nk = p.n_keys, np = p.n_keys + p.n_vals, kp = key_stride(nk);
+  const int s = p.c, n = 2 * s;
+  const size_t lanes = (size_t)p.lanes;
+  const int me = (int)cluster.block_rank();
+  const size_t l0 = (size_t)(blockIdx.x - me);  // the tile's first lane
   extern __shared__ int32_t smem[];
+  int32_t* sa = smem;           // S x KP  A's key words of lane l0 + me
+  int32_t* sb = sa + s * kp;    // S x KP  B's key words
+  int32_t* map = sb + s * kp;   // 2S      output row -> source row
+
+  const int l = threadIdx.x % kTile, g = threadIdx.x / kTile;
+  const size_t lane = l0 + l;
+  const bool lane_ok = lane < lanes;
+
+  // 1. stage rows [r0, r0 + nr) of both operands: item (side, quad, row),
+  // rows fastest, so a warp reads 4 rows x 8 lanes of one word.
+  {
+    int32_t* to_a = cluster.map_shared_rank(sa, l);
+    int32_t* to_b = cluster.map_shared_rank(sb, l);
+    const int per = (s + kTile - 1) / kTile;
+    const int r0 = min(s, me * per), nr = min(s, r0 + per) - r0;
+    const int quads = kp / 4;
+    const int items = 2 * quads * nr;
+    for (int w = g; lane_ok && w < items; w += kGroups) {
+      const int r = r0 + w % nr, q = (w / nr) % quads, side = w / (nr * quads);
+      int32_t x[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int k = 4 * q + u;
+        x[u] = k < nk ? __ldg((side ? p.b[k] : p.a[k]) + (size_t)r * lanes + lane) : 0;
+      }
+      *reinterpret_cast<int4*>((side ? to_b : to_a) + r * kp + 4 * q) =
+          make_int4(x[0], x[1], x[2], x[3]);
+    }
+  }
+  cluster.sync();
+
+  // 2. rank this CTA's own lane by merge path.
+  if (l0 + me < lanes) {
+    const int k_rows = max(kRankRows, (n + blockDim.x - 1) / blockDim.x);
+    const int d0 = threadIdx.x * k_rows;
+    if (d0 < n) {
+      int lo = max(0, d0 - s), hi = min(d0, s);
+      while (lo < hi) {  // A's rows among the first d0: A[mid] first iff !(B < A)
+        const int mid = (lo + hi) >> 1;
+        if (!row_less(sb + (d0 - mid - 1) * kp, sa + mid * kp, kp)) lo = mid + 1;
+        else hi = mid;
+      }
+      int ia = lo, ib = d0 - lo;
+      for (int d = d0; d < min(n, d0 + k_rows); ++d) {
+        const bool take_a = ia < s && (ib >= s || !row_less(sb + ib * kp, sa + ia * kp, kp));
+        map[d] = take_a ? ia++ : s + ib++;
+      }
+    }
+  }
+  cluster.sync();
+
+  // 3. move: CTA `me` writes output rows [o0, o1) of the 8 lanes.
+  {
+    const int32_t* from = cluster.map_shared_rank(map, l);
+    const int32_t* keys_a = cluster.map_shared_rank(sa, l);
+    const int per = (n + kTile - 1) / kTile;
+    const int o0 = min(n, me * per), o1 = min(n, o0 + per);
+    for (int o = o0 + g; lane_ok && o < o1; o += kGroups) {
+      const int src = from[o];
+      const size_t to = (size_t)o * lanes + lane;
+      // keys: the owner's staged row (sb follows sa, so one base serves)
+      const int32_t* row = keys_a + src * kp;
+      for (int k = 0; k < nk; k += 4) {
+        const int4 v = *reinterpret_cast<const int4*>(row + k);
+        p.out[k][to] = v.x;
+        if (k + 1 < nk) p.out[k + 1][to] = v.y;
+        if (k + 2 < nk) p.out[k + 2][to] = v.z;
+        if (k + 3 < nk) p.out[k + 3][to] = v.w;
+      }
+      const size_t from_row = (size_t)(src < s ? src : src - s) * lanes + lane;
+      int32_t x[kMaxPlanes];
+#pragma unroll
+      for (int v = 0; v < kMaxPlanes; ++v) {
+        if (v >= nk && v < np) x[v] = __ldg((src < s ? p.a[v] : p.b[v]) + from_row);
+      }
+#pragma unroll
+      for (int v = 0; v < kMaxPlanes; ++v) {
+        if (v >= nk && v < np) p.out[v][to] = x[v];
+      }
+    }
+  }
+  // no CTA may leave while another still reads its shared memory
+  cluster.sync();
+}
+
+// ---- lexn_compact: one CTA a tile of LT adjacent lanes ----
+//
+// LT (8, or 4, 2, 1 for columns too long for 8) is the host's choice by
+// shared memory (hopper_union.lexn_compact_tile).  Shared memory holds one
+// flag byte a row a lane, the per-lane scan and a window of the gather map;
+// keys and values stay in device memory.
+//   1. flags: warp w walks its own run of rows, 32/LT rows x LT lanes a
+//      step, so each warp load is whole sectors — 16 B a thread (4 lanes)
+//      where the tile is 8 lanes, L a multiple of 4 and the key planes 16 B
+//      aligned, else 4 B; the row above comes from the neighbouring thread
+//      by a shuffle (a reload from L1 for the step's first row), so each key
+//      word is read from device memory once;
+//   2. scan: one exclusive scan of the keep flags per lane, segmented over
+//      the tile, each thread owning a run of consecutive rows;
+//   3. move, in windows of output rows: each thread walks its run and writes
+//      the source row of each kept row (bit 31: the next row is a duplicate
+//      whose values OR in) into the window; then each thread gathers every
+//      plane of its rows from device memory, all planes of a row in flight
+//      together (the L1 serves the lanes' neighbouring sources), and the
+//      warps store whole rows of the tile; rows at or past a lane's
+//      n_unique are SENTINEL/0.
+
+constexpr int kCompactThreads = 256;
+constexpr int kCompactWarps = kCompactThreads / 32;
+constexpr int kWindowWords = 8192;  // gather map entries (rows x LT) a window
+constexpr int kKeyBatch = 8;        // key words loaded together in the flag pass
+
+__global__ void __launch_bounds__(kCompactThreads)
+lexn_compact_kernel(Params p, int lt) {
+  const int nk = p.n_keys, np = p.n_keys + p.n_vals;
   const int n = p.c;
   const size_t lanes = (size_t)p.lanes;
-  const size_t lane = blockIdx.x;
-  int* warp_sums = smem;                                                    // 32
-  unsigned char* flag = reinterpret_cast<unsigned char*>(warp_sums + 32);  // n
+  const size_t l0 = (size_t)blockIdx.x * lt;
+  extern __shared__ int32_t smem[];
+  int* warp_sums = smem;                                  // kCompactWarps x kTile
+  int32_t* window = warp_sums + kCompactWarps * kTile;    // kWindowWords
+  unsigned char* flag = reinterpret_cast<unsigned char*>(window + kWindowWords);  // n x LT
 
-  // flag bit 0: a duplicate of the row above; bit 1: padding (key word 0
-  // is SENTINEL).  A row is kept when its flag is 0.
-  for (int r = threadIdx.x; r < n; r += blockDim.x) {
-    const size_t row = (size_t)r * lanes + lane;
-    const bool pad = p.a[0][row] == kSentinel;
-    bool d = r > 0 && !pad;
-    for (int k = 0; d && k < nk; ++k) d = p.a[k][row] == p.a[k][row - lanes];
-    flag[r] = (d ? 1 : 0) | (pad ? 2 : 0);
+  const int t = threadIdx.x, wid = t / 32, wl = t % 32;
+  const int l = t % lt;
+  const size_t lane = l0 + l;
+  const bool lane_ok = lane < lanes;
+
+  // 1. flags.  bit 0: a duplicate of the row above; bit 1: padding (key
+  // word 0 is SENTINEL, or a lane past the last).  Kept when 0.
+  bool vec = lt == kTile && lanes % 4 == 0;
+  for (int k = 0; k < nk; ++k) vec = vec && (reinterpret_cast<uintptr_t>(p.a[k]) & 15) == 0;
+  const int per_warp = (n + kCompactWarps - 1) / kCompactWarps;
+  const int w0 = min(n, wid * per_warp), w1 = min(n, w0 + per_warp);
+  if (vec) {
+    // 16 B a thread: two threads a row of the tile, 16 rows a warp step
+    const int i = wl / 2, h = wl % 2;
+    const size_t lane4 = l0 + 4 * h;
+    const bool ok4 = lane4 < lanes;
+    for (int base = w0; base < w1; base += 16) {
+      const int r = base + i;
+      const bool ok = ok4 && r < w1;
+      const size_t row = (size_t)r * lanes + lane4;
+      bool e0 = r > 0, e1 = e0, e2 = e0, e3 = e0;
+      int4 first = make_int4(kSentinel, kSentinel, kSentinel, kSentinel);
+      for (int k0 = 0; k0 < nk; k0 += 4) {
+        int4 v[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          v[u] = ok && k0 + u < nk ? __ldg(reinterpret_cast<const int4*>(p.a[k0 + u] + row))
+                                   : make_int4(0, 0, 0, 0);
+        }
+        if (k0 == 0) first = v[0];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          int4 up;
+          up.x = __shfl_up_sync(0xffffffffu, v[u].x, 2);
+          up.y = __shfl_up_sync(0xffffffffu, v[u].y, 2);
+          up.z = __shfl_up_sync(0xffffffffu, v[u].z, 2);
+          up.w = __shfl_up_sync(0xffffffffu, v[u].w, 2);
+          if (i == 0 && ok && r > 0 && k0 + u < nk) {
+            up = __ldg(reinterpret_cast<const int4*>(p.a[k0 + u] + row - lanes));
+          }
+          e0 = e0 && v[u].x == up.x;
+          e1 = e1 && v[u].y == up.y;
+          e2 = e2 && v[u].z == up.z;
+          e3 = e3 && v[u].w == up.w;
+        }
+      }
+      if (r < w1) {
+        uint32_t f = 0x02020202u;
+        if (ok) {
+          const bool p0 = first.x == kSentinel, p1 = first.y == kSentinel,
+                     p2 = first.z == kSentinel, p3 = first.w == kSentinel;
+          f = ((e0 && !p0) | (p0 << 1)) | (((e1 && !p1) | (p1 << 1)) << 8) |
+              (((e2 && !p2) | (p2 << 1)) << 16) | (((e3 && !p3) | (p3 << 1)) << 24);
+        }
+        *reinterpret_cast<uint32_t*>(flag + r * lt + 4 * h) = f;
+      }
+    }
+  } else {
+    const int rows_per_step = 32 / lt, i = wl / lt;
+    for (int base = w0; base < w1; base += rows_per_step) {
+      const int r = base + i;
+      const bool ok = lane_ok && r < w1;
+      const size_t row = (size_t)r * lanes + lane;
+      bool eq = r > 0;
+      int32_t w0v = kSentinel;
+      for (int k0 = 0; k0 < nk; k0 += kKeyBatch) {
+        int32_t v[kKeyBatch];
+#pragma unroll
+        for (int u = 0; u < kKeyBatch; ++u) {
+          v[u] = ok && k0 + u < nk ? __ldg(p.a[k0 + u] + row) : 0;
+        }
+        if (k0 == 0) w0v = v[0];
+#pragma unroll
+        for (int u = 0; u < kKeyBatch; ++u) {
+          int32_t up = __shfl_up_sync(0xffffffffu, v[u], lt);
+          if (i == 0 && ok && r > 0 && k0 + u < nk) up = __ldg(p.a[k0 + u] + row - lanes);
+          eq = eq && (k0 + u >= nk || v[u] == up);
+        }
+      }
+      if (ok) {
+        const bool pad = w0v == kSentinel;
+        flag[r * lt + l] = (eq && !pad ? 1 : 0) | (pad ? 2 : 0);
+      } else if (r < w1) {
+        flag[r * lt + l] = 2;
+      }
+    }
   }
   __syncthreads();
 
-  const int per = (n + blockDim.x - 1) / blockDim.x;
-  const int r0 = threadIdx.x * per;
-  const int r1 = min(r0 + per, n);
+  // 2. scan.  Thread t runs rows [c·per, (c+1)·per) of lane l, c = t / lt;
+  // threads of one lane are lt apart, so the warp scan steps by lt.
+  const int chunks = kCompactThreads / lt, c = t / lt;
+  const int per = (n + chunks - 1) / chunks;
+  const int r0 = min(n, c * per), r1 = min(n, r0 + per);
   int cnt = 0;
-  for (int r = r0; r < r1; ++r) cnt += flag[r] == 0;
-  int total;
-  int dst = block_exclusive_scan(cnt, warp_sums, &total);
+  for (int r = r0; r < r1; ++r) cnt += flag[r * lt + l] == 0;
+  int incl = cnt;
+  for (int o = lt; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, incl, o);
+    if (wl >= o) incl += y;
+  }
+  if (wl >= 32 - lt) warp_sums[wid * kTile + l] = incl;
+  __syncthreads();
+  int dst = incl - cnt, total = 0;
+  for (int w = 0; w < kCompactWarps; ++w) {
+    const int x = warp_sums[w * kTile + l];
+    if (w < wid) dst += x;
+    total += x;
+  }
+  if (c == 0 && lane_ok) p.n_unique[lane] = total;
 
-  for (int r = r0; r < r1 && dst < p.out_size; ++r) {
-    if (flag[r] != 0) continue;
-    const size_t row = (size_t)r * lanes + lane;
-    const bool next_dup = r + 1 < n && (flag[r + 1] & 1);
-    const size_t to = (size_t)dst * lanes + lane;
-    for (int k = 0; k < nk; ++k) p.out[k][to] = p.a[k][row];
-    for (int v = nk; v < np; ++v) {
-      p.out[v][to] = next_dup ? p.a[v][row] | p.a[v][row + lanes] : p.a[v][row];
+  // 3. move, window by window of output rows; thread t moves rows
+  // o0 + c, o0 + c + chunks, ... of lane l (a warp: whole rows of the
+  // tile), every plane of a row loaded before any is stored.
+  const int win_rows = kWindowWords / lt;
+  int pos = r0;
+  for (int o0 = 0; o0 < p.out_size; o0 += win_rows) {
+    const int o1 = min(p.out_size, o0 + win_rows);
+    for (; pos < r1; ++pos) {
+      if (flag[pos * lt + l] != 0) continue;
+      if (dst >= o1) break;
+      const bool next_dup = pos + 1 < n && (flag[(pos + 1) * lt + l] & 1);
+      window[(dst - o0) * lt + l] = pos | (next_dup ? (int32_t)0x80000000 : 0);
+      ++dst;
     }
-    ++dst;
+    __syncthreads();
+    for (int o = o0 + c; lane_ok && o < o1; o += chunks) {
+      const size_t to = (size_t)o * lanes + lane;
+      if (o >= total) {
+        for (int v = 0; v < np; ++v) p.out[v][to] = v < nk ? kSentinel : 0;
+        continue;
+      }
+      const int32_t sw = window[(o - o0) * lt + l];
+      const size_t src = (size_t)(sw & 0x7fffffff) * lanes + lane;
+      int32_t x[kMaxPlanes];
+#pragma unroll
+      for (int v = 0; v < kMaxPlanes; ++v) {
+        if (v < np) x[v] = __ldg(p.a[v] + src);
+      }
+      if (sw < 0) {
+#pragma unroll
+        for (int v = 0; v < kMaxPlanes; ++v) {
+          if (v >= nk && v < np) x[v] |= __ldg(p.a[v] + src + lanes);
+        }
+      }
+#pragma unroll
+      for (int v = 0; v < kMaxPlanes; ++v) {
+        if (v < np) p.out[v][to] = x[v];
+      }
+    }
+    __syncthreads();
   }
-  for (int r = total + threadIdx.x; r < p.out_size; r += blockDim.x) {
-    const size_t to = (size_t)r * lanes + lane;
-    for (int v = 0; v < np; ++v) p.out[v][to] = v < nk ? kSentinel : 0;
-  }
-  if (threadIdx.x == 0) p.n_unique[lane] = total;
 }
 
 template <typename Kernel>
@@ -332,6 +587,28 @@ bool fill_params(Params* p, int n_keys, int n_vals, const void* const* a,
   return true;
 }
 
+// The merge's launch: ceil(lanes / 8) clusters of 8 CTAs, `smem` bytes a
+// CTA; *clusters gets how many clusters the card can hold at once.
+cudaError_t merge_config(int lanes, int smem, cudaStream_t stream,
+                         cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
+                         int* clusters) {
+  cudaError_t err = cudaFuncSetAttribute(
+      lexn_merge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3((lanes + kTile - 1) / kTile * kTile);
+  cfg->blockDim = dim3(kMergeThreads);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = kTile;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaOccupancyMaxActiveClusters(clusters, (void*)lexn_merge_kernel, cfg);
+}
+
 }  // namespace
 
 extern "C" {
@@ -355,7 +632,9 @@ int lexn_union(int n_keys, int n_vals, const void* const* a,
   return launch(lexn_union_kernel, p, smem, static_cast<cudaStream_t>(stream));
 }
 
-// The merge: inputs (s, lanes), outputs (2s, lanes).
+// The merge: inputs (s, lanes), outputs (2s, lanes); clusters of 8 CTAs.
+// cudaErrorLaunchOutOfResources when the card cannot place one cluster at
+// `smem` bytes a CTA.
 int lexn_merge(int n_keys, int n_vals, const void* const* a,
                const void* const* b, void* const* out, int s, int lanes,
                int smem, void* stream) {
@@ -363,20 +642,46 @@ int lexn_merge(int n_keys, int n_vals, const void* const* a,
   if (!fill_params(&p, n_keys, n_vals, a, b, out, nullptr, s, lanes, 2 * s)) {
     return cudaErrorInvalidValue;
   }
-  return launch(lexn_merge_kernel, p, smem, static_cast<cudaStream_t>(stream));
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  int clusters = 0;
+  cudaError_t err = merge_config(p.lanes, smem, static_cast<cudaStream_t>(stream),
+                                 &cfg, &attr, &clusters);
+  if (err != cudaSuccess) return err;
+  if (clusters < 1) return cudaErrorLaunchOutOfResources;
+  err = cudaLaunchKernelEx(&cfg, lexn_merge_kernel, p);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// Clusters of the merge that the card can hold at once at `smem` bytes a
+// CTA (cudaOccupancyMaxActiveClusters), or minus the error code.
+int lexn_merge_clusters(int smem) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  int clusters = 0;
+  cudaError_t err = merge_config(kTile, smem, nullptr, &cfg, &attr, &clusters);
+  return err != cudaSuccess ? -static_cast<int>(err) : clusters;
 }
 
 // The compaction: inputs (n, lanes) sorted per lane, outputs (out_size,
-// lanes), n_unique (lanes,).
+// lanes), n_unique (lanes,); `lane_tile` lanes a CTA (8, 4, 2 or 1).
 int lexn_compact(int n_keys, int n_vals, const void* const* planes,
                  void* const* out, void* n_unique, int n, int lanes,
-                 int out_size, int smem, void* stream) {
+                 int out_size, int lane_tile, int smem, void* stream) {
   Params p;
   if (!fill_params(&p, n_keys, n_vals, planes, nullptr, out, n_unique, n, lanes,
-                   out_size)) {
+                   out_size) ||
+      lane_tile < 1 || lane_tile > kTile || (lane_tile & (lane_tile - 1))) {
     return cudaErrorInvalidValue;
   }
-  return launch(lexn_compact_kernel, p, smem, static_cast<cudaStream_t>(stream));
+  cudaError_t err = cudaFuncSetAttribute(
+      lexn_compact_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int grid = (lanes + lane_tile - 1) / lane_tile;
+  lexn_compact_kernel<<<grid, kCompactThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      p, lane_tile);
+  return cudaGetLastError();
 }
 
 const char* lexn_union_error_string(int err) {

@@ -93,13 +93,32 @@ def lexn_union_smem_bytes(n_keys: int, n_vals: int, c: int) -> int:
 
 
 def lexn_merge_smem_bytes(n_keys: int, s: int) -> int:
-    """The merge: both operands' key words only."""
-    return 4 * 2 * n_keys * s
+    """The merge, per CTA of its 8-CTA cluster: the CTA's lane's key words
+    of both operands, row by row at a stride of ``n_keys`` rounded up to 4
+    words, and its merge map (one word an output row)."""
+    return 4 * (2 * s * ((n_keys + 3) & ~3) + 2 * s)
 
 
-def lexn_compact_smem_bytes(n_rows: int) -> int:
-    """The compaction: one flag byte a row and the scan's warp sums."""
-    return 4 * 32 + n_rows
+# the compaction's gather-map window (csrc/lexn_union.cu kWindowWords) and
+# scan sums (kCompactWarps x kTile), in words
+_COMPACT_FIXED_WORDS = 8192 + 64
+# lanes a compaction CTA takes, widest first: 8 fill a 32 B sector a row
+COMPACT_LANE_TILES = (8, 4, 2, 1)
+
+
+def lexn_compact_smem_bytes(n_rows: int, lane_tile: int) -> int:
+    """The compaction, per CTA of ``lane_tile`` lanes: one flag byte a row
+    a lane, the gather-map window and the scan's sums."""
+    return 4 * _COMPACT_FIXED_WORDS + lane_tile * n_rows
+
+
+def lexn_compact_tile(n_rows: int, limit: int) -> int:
+    """The widest lane tile whose compaction over ``n_rows``-row planes
+    fits ``limit`` bytes (0 when not even one lane does)."""
+    for lt in COMPACT_LANE_TILES:
+        if lexn_compact_smem_bytes(n_rows, lt) <= limit:
+            return lt
+    return 0
 
 
 def lexn_fits(c: int, n_keys: int, n_vals: int, limit: int) -> bool:
@@ -110,8 +129,8 @@ def lexn_fits(c: int, n_keys: int, n_vals: int, limit: int) -> bool:
 
 def lexn_compact_fits(n_rows: int, limit: int) -> bool:
     """Whether one compaction over ``n_rows``-row planes (2C for a union
-    epilogue) fits ``limit`` bytes."""
-    return lexn_compact_smem_bytes(n_rows) <= limit
+    epilogue) fits ``limit`` bytes, at any lane tile."""
+    return lexn_compact_tile(n_rows, limit) > 0
 
 
 def _lexn_stripe_for(c: int, n_keys: int, limit: int) -> int:
@@ -136,7 +155,8 @@ def lexn_plan(c: int, n_keys: int, n_vals: int, limit: int) -> int | None:
             f"lexN union at C={c} with {n_keys} key words does not fit {limit} B "
             f"of shared memory a block: the merge needs "
             f"{lexn_merge_smem_bytes(n_keys, 1)} B at a stripe of one row, the "
-            f"compaction {lexn_compact_smem_bytes(2 * c)} B over 2C rows"
+            f"compaction {lexn_compact_smem_bytes(2 * c, 1)} B over 2C rows at one lane "
+            f"a block"
         )
     return s
 
@@ -250,7 +270,8 @@ def sorted_union_columnar_striped_lexn(
        as the merge-split: M·log2(2M) merge launches.  The merge keeps the
        exact multiset, so the scalar bitonic-merge theorem carries over;
     3. the stripes are concatenated back into (2C, L) planes (one more pass
-       over them), then one :func:`lexn_compact_columnar`.
+       over them; at M = 1 the merge's own output goes on), then one
+       :func:`lexn_compact_columnar`.
 
     ``stripe`` defaults to the largest that the card's shared memory takes
     (:func:`_lexn_stripe_for`).  Returns (keys[n_keys, out, L],
@@ -263,11 +284,14 @@ def sorted_union_columnar_striped_lexn(
     s = stripe if stripe is not None else _lexn_stripe_for(c, n_keys, smem_limit(device))
     if s < 1 or s & (s - 1) or c % s:
         raise ValueError(f"stripe {s} must be a power-of-two divisor of capacity {c}")
+    m = c // s
+    if m == 1:  # one merge: its (P, 2C, L) blocks are the compaction's input
+        keys, vals = lexn_merge_columnar(keys_a, vals_a, keys_b, vals_b)
+        return lexn_compact_columnar(keys, vals, out)
 
     def rows(planes, lo, hi):
         return tuple(p[lo:hi] for p in planes)
 
-    m = c // s
     blocks = (
         [(rows(keys_a, i * s, (i + 1) * s), rows(vals_a, i * s, (i + 1) * s))
          for i in range(m)]
@@ -324,7 +348,8 @@ _SIGNATURES = {
     "lexn_union": {
         "lexn_union": ([_I, _I, _PP, _PP, _PP, _P, _I, _I, _I, _I, _P], _I),
         "lexn_merge": ([_I, _I, _PP, _PP, _PP, _I, _I, _I, _P], _I),
-        "lexn_compact": ([_I, _I, _PP, _PP, _P, _I, _I, _I, _I, _P], _I),
+        "lexn_compact": ([_I, _I, _PP, _PP, _P, _I, _I, _I, _I, _I, _P], _I),
+        "lexn_merge_clusters": ([_I], _I),
         "lexn_union_error_string": ([_I], ctypes.c_char_p),
     },
     "set_union": {
@@ -377,7 +402,8 @@ def _lexn_launch(name, n_keys, n_vals, rows_out, lanes, device, smem, launch):
             err = launch(lib, outs, nu, smem, torch.cuda.current_stream(device).cuda_stream)
         if err != 0:
             # a shape whose shared memory passes the card's opt-in limit
-            # (227 KB on Hopper) fails here, at cudaFuncSetAttribute
+            # (227 KB on Hopper) fails here, at cudaFuncSetAttribute; a
+            # merge cluster the card cannot place, at the occupancy query
             raise RuntimeError(
                 f"{name} launch failed: {lib.lexn_union_error_string(err).decode()} "
                 f"(L={lanes}, {smem} B of shared memory per block, "
@@ -413,12 +439,26 @@ def _lexn_merge_cuda(keys_a, vals_a, keys_b, vals_b):
 def _lexn_compact_cuda(keys, vals, out):
     n_keys, n_vals = len(keys), len(vals)
     n, lanes = keys[0].shape
+    device = keys[0].device
+    lt = lexn_compact_tile(n, smem_limit(device)) or 1
     return _lexn_launch(
-        "lexn_compact", n_keys, n_vals, out, lanes, keys[0].device,
-        lexn_compact_smem_bytes(n),
+        "lexn_compact", n_keys, n_vals, out, lanes, device,
+        lexn_compact_smem_bytes(n, lt),
         lambda lib, o, nu, smem, st: lib.lexn_compact(
             n_keys, n_vals, _ptrs(keys + vals), _ptrs(o), nu.data_ptr(), n,
-            lanes, out, smem, st))
+            lanes, out, lt, smem, st))
+
+
+def lexn_merge_clusters(n_keys: int, s: int) -> int:
+    """How many of the merge's 8-CTA clusters the current card holds at
+    once at stripe ``s`` (``cudaOccupancyMaxActiveClusters``); 0 means the
+    card cannot place one and the merge's launch raises."""
+    lib = _lib("lexn_union")
+    got = lib.lexn_merge_clusters(lexn_merge_smem_bytes(n_keys, s))
+    if got < 0:
+        raise RuntimeError(f"lexn_merge cluster query failed: "
+                           f"{lib.lexn_union_error_string(-got).decode()}")
+    return got
 
 
 # ---- the lexN family: plain twins ----

@@ -448,3 +448,53 @@ def register_script(seed: int, n_ops: int, n_replicas: int, n_writers: int) -> l
              "payload": int(rng.integers(0, COUNTER_HIGH)),
              "enable": bool(rng.integers(0, 2)),
              "mask": rng.random(n_replicas) < SCRIPT_SHARE} for i in range(n_ops)]
+
+
+def lexn_pair(n_keys: int, n_vals: int, capacity: int, lanes: int, seed: int, *,
+              deep: int = 11, fill: float = 0.4, b_inside_a: bool = False,
+              empty_lanes=(), device=None):
+    """Two lexN operands for the kernel checks: (keys_a, vals_a, keys_b,
+    vals_b), each a (P, capacity, lanes) int32 block, rows sorted per lane
+    over the ``n_keys`` key words, SENTINEL/0 padded.  Each lane holds a
+    seeded subset of one universe of 2·capacity distinct keys, whose words
+    but the last ``deep`` are all equal (so every compare reads deep into
+    the key; the last word is drawn wide, so the keys are distinct); with ``b_inside_a`` every row of B is also a row of A; the
+    lanes of ``empty_lanes`` are all padding on both sides.  Value words are
+    uniform int32 ≥ 0, drawn apart for the two sides, so that equal keys
+    carry different values.  The universe comes from numpy seeded by
+    ``seed``, the subsets from a torch.Generator on ``device``."""
+    device = default_device(device)
+    rng = np.random.default_rng(seed)
+    u = 2 * capacity
+    varied = min(deep, n_keys)
+    words = np.full((8 * u, n_keys), 7, np.int64)
+    words[:, n_keys - varied:] = rng.integers(0, 4, (8 * u, varied))
+    words[:, -1] = rng.integers(0, 1 << 20, 8 * u)  # distinct at any width
+    universe = np.unique(words, axis=0)
+    universe = universe[np.sort(rng.choice(len(universe), min(u, len(universe)),
+                                           replace=False))]
+    universe = torch.as_tensor(universe.T.astype(np.int32), device=device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    n_u = universe.shape[1]
+
+    def draw():
+        return torch.rand((n_u, lanes), generator=gen, device=device) < fill
+
+    def cut(held):  # a lane keeps its first `capacity` keys
+        held[:, list(empty_lanes)] = False
+        return held & (torch.cumsum(held, dim=0) <= capacity)
+
+    held_a = cut(draw())
+    held_b = cut(held_a & draw() if b_inside_a else draw())
+
+    def side(held):
+        row = torch.cumsum(held, dim=0) - 1
+        src, lane = held.nonzero(as_tuple=True)
+        keys = torch.full((n_keys, capacity, lanes), SENTINEL_PY, dtype=torch.int32,
+                          device=device)
+        keys[:, row[src, lane], lane] = universe[:, src]
+        vals = torch.randint(0, 2**31 - 1, (n_vals, capacity, lanes), generator=gen,
+                             dtype=torch.int32, device=device)
+        return keys, vals.masked_fill(keys[0] == SENTINEL_PY, 0)
+
+    return (*side(held_a), *side(held_b))

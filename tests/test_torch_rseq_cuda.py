@@ -100,3 +100,73 @@ def test_card_refuses_past_its_shared_memory_limit():
     with pytest.raises(RuntimeError, match=f"{union_bytes} B of shared memory"):
         hu.sorted_union_columnar_fused_lexn(planes[:18], planes[18:], planes[:18], planes[18:])
     assert hu.LAUNCHES == before
+
+
+def merge_then_compact(ka, va, kb, vb, outs):
+    """Both kernels against their twins on the same operands: the merge,
+    then the compaction of the merged planes at every ``outs``."""
+    mk, mv = hu.lexn_merge_columnar(ka, va, kb, vb)
+    tk, tv = hu._lexn_merge_plain(ka, va, kb, vb)
+    same((*mk, *mv), (*tk, *tv))
+    for out in outs:
+        got = hu.lexn_compact_columnar(mk, mv, out)
+        want = hu._lexn_compact_plain(mk, mv, out)
+        same((*got[0], *got[1], got[2]), (*want[0], *want[1], want[2]))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [1, 7, 9, 130, 257])
+def test_lane_counts_that_split_a_tile_or_a_cluster(lanes):
+    """Tiles and clusters of 8 lanes: a ragged last tile, a tile of one."""
+    need_card()
+    c = 256
+    merge_then_compact(*workload.lexn_pair(18, 3, c, lanes, lanes, device="cuda"),
+                       (c // 4, c, 2 * c))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [9, 257])
+def test_row_sliced_planes_off_16_byte_alignment(lanes):
+    """Stripe views: planes that start one row into a (C + 1, L) block,
+    so with an odd L neither the base nor the row stride is 16 B aligned."""
+    need_card()
+    c = 128
+    sides = []
+    for block in workload.lexn_pair(18, 2, c, lanes, 3, device="cuda"):
+        big = torch.zeros((block.shape[0], c + 1, lanes), dtype=torch.int32, device="cuda")
+        big[:, 1:] = block
+        sides.append(tuple(p[1:] for p in big))
+    assert sides[0][0].data_ptr() % 16 != 0
+    merge_then_compact(*sides, (c // 4, c, 2 * c))
+    merged = [torch.zeros((2 * c + 1, lanes), dtype=torch.int32, device="cuda")
+              for _ in range(20)]
+    mk, mv = hu.lexn_merge_columnar(*sides)
+    for dst, src in zip(merged, (*mk, *mv)):
+        dst[1:] = src
+    views = [m[1:] for m in merged]
+    got = hu.lexn_compact_columnar(views[:18], views[18:], c)
+    want = hu._lexn_compact_plain(views[:18], views[18:], c)
+    same((*got[0], *got[1], got[2]), (*want[0], *want[1], want[2]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_keys, n_vals", [(29, 3), (32, 0), (1, 31)])
+def test_the_plane_cap_of_32(n_keys, n_vals):
+    """kMaxPlanes planes a side; key words compared deep into the key."""
+    need_card()
+    c = 128
+    merge_then_compact(*workload.lexn_pair(n_keys, n_vals, c, 130, n_keys, device="cuda"),
+                       (c // 4, c, 2 * c))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b_inside_a", [False, True])
+def test_all_padding_lanes_and_b_inside_a(b_inside_a):
+    """Lanes that hold nothing on either side, beside lanes where every row
+    of B is also a row of A (each of its rows a duplicate to OR in)."""
+    need_card()
+    c = 256
+    pair = workload.lexn_pair(18, 3, c, 130, 5, b_inside_a=b_inside_a,
+                              empty_lanes=(0, 7, 8, 64, 129), device="cuda")
+    merge_then_compact(*pair, (c // 4, c, 2 * c))

@@ -158,7 +158,7 @@ def test_fused_union_bytes_at_rseq_width(c, n_vals, smem):
     (512, 18, 3, None),
     (1024, 18, 2, 1024),     # ... and stripes at C = 1024 with S = C:
     (1024, 18, 3, 1024),     # one merge launch and one compaction
-    (2048, 18, 2, 1024),     # S = 2048 would need 294,912 B
+    (2048, 18, 2, 1024),     # S = 2048 would need 344,064 B
     (4096, 24, 3, 1024),     # depth 8
 ])
 def test_lexn_plan_at_the_h100_limit(c, n_keys, n_vals, route):
@@ -170,14 +170,67 @@ def test_lexn_plan_at_the_h100_limit(c, n_keys, n_vals, route):
 
 
 def test_lexn_plan_raises_with_the_figures_past_the_limit():
-    assert hu.lexn_merge_smem_bytes(18, 1024) == 147_456
-    assert hu.lexn_compact_smem_bytes(2048) == 2_176
+    assert hu.lexn_merge_smem_bytes(18, 1024) == 172_032
+    assert hu.lexn_compact_smem_bytes(2048, 8) == 49_408
     assert hu.lexn_compact_fits(2 * 65_536, LIMIT)
-    with pytest.raises(ValueError, match="262272 B over 2C rows"):
+    with pytest.raises(ValueError, match="295168 B over 2C rows"):
         hu.lexn_plan(1 << 17, 18, 2, LIMIT)
     with pytest.raises(ValueError, match="does not fit 64 B"):
         hu.lexn_plan(1024, 18, 2, 64)
     assert hu._lexn_stripe_for(1024, 18, 64) == 0
+
+
+@pytest.mark.parametrize("n_rows, lane_tile", [
+    (2048, 8),               # RSeq's union epilogue at C = 1024: a sector a row
+    (24_928, 8),             # the widest column at 8 lanes a block ...
+    (24_929, 4),             # ... one row more takes 4
+    (131_072, 1),            # C = 65,536: one lane a block
+    (199_425, 0),            # past one lane's shared memory
+])
+def test_compaction_lane_tile_at_the_h100_limit(n_rows, lane_tile):
+    """The compaction's lane tile is the widest whose flags (a byte a row
+    a lane), gather window and scan sums fit the card's shared memory."""
+    assert hu.lexn_compact_tile(n_rows, LIMIT) == lane_tile
+    assert hu.lexn_compact_fits(n_rows, LIMIT) == (lane_tile > 0)
+    if lane_tile:
+        assert hu.lexn_compact_smem_bytes(n_rows, lane_tile) <= LIMIT
+
+
+def test_striped_union_at_one_stripe_hands_the_merge_blocks_to_the_compaction(
+        striped_case, monkeypatch):
+    """At stripe = C the block network is one merge: its (P, 2C, L) key and
+    value blocks go to the compaction as they are — no concatenation."""
+    (ka, va, kb, vb), _ = striped_case
+    merged, compacted = [], []
+    merge, compact = hu.lexn_merge_columnar, hu.lexn_compact_columnar
+
+    def spy_merge(*args):
+        merged.append(merge(*args))
+        return merged[-1]
+
+    def spy_compact(keys, vals, out):
+        compacted.append((keys, vals))
+        return compact(keys, vals, out)
+
+    monkeypatch.setattr(hu, "lexn_merge_columnar", spy_merge)
+    monkeypatch.setattr(hu, "lexn_compact_columnar", spy_compact)
+    hu.sorted_union_columnar_striped_lexn(tc(ka), tc(va), tc(kb), tc(vb), out_size=64,
+                                          stripe=64)
+    assert len(merged) == 1 and len(compacted) == 1
+    assert compacted[0][0] is merged[0][0] and compacted[0][1] is merged[0][1]
+
+
+@pytest.mark.parametrize("out_size", [16, 64, 128], ids=["overflow", "out=C", "out=2C"])
+def test_striped_union_at_one_stripe_matches_the_twin_and_pallas(striped_case, out_size):
+    """The striped union at stripe = C (one merge, then the compaction on
+    its blocks) equals the fused twin and the JAX fused union."""
+    (ka, va, kb, vb), (wk, wv, wnu) = striped_case
+    gk, gv, gnu = hu.sorted_union_columnar_striped_lexn(
+        tc(ka), tc(va), tc(kb), tc(vb), out_size=out_size, stripe=64)
+    tk, tv, tnu = hu._lexn_union_plain(tc(ka), tc(va), tc(kb), tc(vb), out_size)
+    assert_planes([p.numpy() for p in (*tk, *tv, tnu)], (*gk, *gv, gnu))
+    assert_planes([np.asarray(p)[:out_size] for p in (*wk, *wv)], (*gk, *gv))
+    np.testing.assert_array_equal(np.asarray(wnu), gnu.numpy())
 
 
 def test_plane_cap_raises_before_any_launch(monkeypatch):
@@ -194,3 +247,24 @@ def test_plane_cap_raises_before_any_launch(monkeypatch):
         hu._lexn_merge_cuda(planes, planes[:3], planes, planes[:3])
     with pytest.raises(ValueError, match="33 key and value planes"):
         hu._lexn_compact_cuda(planes, planes[:3], 8)
+
+
+def test_kernel_check_draw_at_32_planes_matches_pallas():
+    """workload.lexn_pair, the draw of the card's kernel checks: sorted
+    unique rows per lane, B inside A, all-padding lanes; at 29 key words and
+    3 value planes (kMaxPlanes) the merge and compaction twins equal the
+    JAX kernels in interpret mode."""
+    from crdt_tpu_torch import workload
+
+    ka, va, kb, vb = workload.lexn_pair(29, 3, 16, L, 4, b_inside_a=True,
+                                        empty_lanes=(0, 77), device="cpu")
+    for keys in (ka, kb):
+        for lane in keys.permute(2, 1, 0).tolist():
+            real = [tuple(r) for r in lane if r[0] != S]
+            assert real == sorted(set(real))
+    wk, wv = pu.lexn_merge_columnar(*map(jx, (ka, va, kb, vb)), interpret=True)
+    gk, gv = hu.lexn_merge_columnar(ka, va, kb, vb)
+    assert_planes(wk, gk)
+    wk, wv, wnu = pu.lexn_compact_columnar(jx(gk), jx(gv), 16, interpret=True)
+    ck, cv, cnu = hu.lexn_compact_columnar(gk, gv, 16)
+    assert_planes((*wk, *wv, wnu), (*ck, *cv, cnu))

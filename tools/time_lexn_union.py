@@ -1,18 +1,26 @@
-"""Time the lexN union kernel at the OpLog's split (2 key words, 2 value
-planes) on chip_smoke.py's OpLog timing input: C=1024 rows x L=10,240
-lanes, two seeded 40% subsets of the reference-shaped write pool.
+"""Time the lexN kernels on chip_smoke.py's inputs at C=1024 rows x
+L=10,240 lanes: the union at the OpLog's split (2 key words, 2 value
+planes; two seeded 40% subsets of the reference-shaped write pool), and
+the RSeq merge and compaction on phase 9's ``workload.seq_swarm`` draw
+(18 key words; 2 value planes, or 3 with the GC join's src marker).
 
-    python3 tools/time_lexn_union.py [--root CHECKOUT] [--reps N]
+    python3 tools/time_lexn_union.py [--root CHECKOUT] [--reps N] [--cases ...]
+
+Cases: ``oplog`` (lexn_union, out=C; the default), ``merge20`` and
+``merge21`` (lexn_merge at (18, 2) and (18, 3)), ``compact20`` (lexn_compact
+of the 20-plane merge, out=C) and ``compact21`` (of the 21-plane merge,
+out=2C, the GC join's shape).  Each compaction takes its checkout's own
+merge of the same draw.
 
 ``--root`` picks the checkout whose ``crdt_tpu_torch`` is imported and
 built (default: the one holding this script), so that two versions of the
 kernel compare on one card in one session: unpack the other version with
 ``git archive`` into a git-ignored directory and run the two alternately
-(parent, change, change, parent).  Prints one JSON line: the card's name
-and power limit, the median ms a call over ``--reps`` CUDA-event-timed
-calls after two warm-up calls, every call's time, and a checksum of the
-union's output, so that the versions can be seen to agree.  Exits 1
-without a card.
+(parent, change, change, parent).  Prints one JSON line a case: the
+card's name and power limit, the median ms a call over ``--reps``
+CUDA-event-timed calls after two warm-up calls, every call's time, and a
+checksum of the call's output, so that the versions can be seen to
+agree.  Exits 1 without a card.
 """
 from __future__ import annotations
 
@@ -28,22 +36,30 @@ import torch
 SEED = 20240           # chip_smoke.py's seed and shapes
 R, C = 10_240, 1024
 N_KEYS = 62
+SENTINEL = 2**31 - 1
+CASES = ("oplog", "merge20", "merge21", "compact20", "compact21")
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--root", default=str(Path(__file__).resolve().parent.parent))
-    ap.add_argument("--reps", type=int, default=50)
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("time_lexn_union: no CUDA device available", file=sys.stderr)
-        return 1
-    root = str(Path(args.root).resolve())
-    sys.path.insert(0, root)
-    from crdt_tpu_torch import workload
-    from crdt_tpu_torch.models import oplog_columnar as oc
-    from crdt_tpu_torch.ops import hopper_union as hu
+def checksum(planes) -> int:
+    return sum(int(p.long().sum()) * (i + 1) for i, p in enumerate(planes))
 
+
+def time_call(call, reps: int) -> list:
+    call()
+    call()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        call()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return times
+
+
+def oplog_call(workload, oc, hu):
     w = workload.reference_writes(C, R, SEED)
 
     def planes(seed):
@@ -57,24 +73,72 @@ def main() -> int:
         return hu.sorted_union_columnar_fused_lexn(a[:2], a[2:], b[:2], b[2:], out_size=C)
 
     keys, vals, nu = call()
-    checksum = sum(int(p.long().sum()) * (i + 1) for i, p in enumerate((*keys, *vals, nu)))
-    call()
-    times = []
-    for _ in range(args.reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        call()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
+    return call, checksum((*keys, *vals, nu))
+
+
+def rseq_sides(workload, rc, gc: bool):
+    """chip_smoke.py phase 9's operands: two seq_swarm draws, 18 key words
+    and (elem, removed), plus the GC join's src marker when ``gc``."""
+    pool = workload.seq_pool(SEED)
+    sides = []
+    for k, seed in ((1, SEED + 41), (2, SEED + 42)):
+        col = rc.stack(workload.seq_swarm(pool, R, C, seed, device="cuda").states)
+        vals = (col.elem, col.removed)
+        if gc:
+            vals += ((col.keys[0] != SENTINEL).to(torch.int32) * k,)
+        sides += [tuple(col.keys), vals]
+    return sides
+
+
+def rseq_call(case: str, workload, rc, hu):
+    sides = rseq_sides(workload, rc, case.endswith("21"))
+    if case.startswith("merge"):
+        def call():
+            return hu.lexn_merge_columnar(*sides)
+
+        keys, vals = call()
+        return call, checksum((*keys, *vals))
+    mk, mv = hu.lexn_merge_columnar(*sides)
+    out = 2 * C if case.endswith("21") else C
+    del sides
+
+    def call():
+        return hu.lexn_compact_columnar(mk, mv, out)
+
+    keys, vals, nu = call()
+    return call, checksum((*keys, *vals, nu))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=str(Path(__file__).resolve().parent.parent))
+    ap.add_argument("--reps", type=int, default=50)
+    ap.add_argument("--cases", nargs="+", choices=CASES, default=["oplog"])
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("time_lexn_union: no CUDA device available", file=sys.stderr)
+        return 1
+    root = str(Path(args.root).resolve())
+    sys.path.insert(0, root)
+    from crdt_tpu_torch import workload
+    from crdt_tpu_torch.models import oplog_columnar as oc, rseq_columnar as rc
+    from crdt_tpu_torch.ops import hopper_union as hu
+
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    print(json.dumps({"root": root, "card": card, "C": C, "L": R,
-                      "median_ms": statistics.median(times), "ms": times,
-                      "checksum": checksum}))
+    for case in args.cases:
+        if case == "oplog":
+            call, total = oplog_call(workload, oc, hu)
+        else:
+            call, total = rseq_call(case, workload, rc, hu)
+        times = time_call(call, args.reps)
+        print(json.dumps({"root": root, "card": card, "case": case, "C": C, "L": R,
+                          "median_ms": statistics.median(times), "ms": times,
+                          "checksum": total}), flush=True)
+        del call
+        torch.cuda.empty_cache()
     return 0
 
 
