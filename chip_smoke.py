@@ -11,7 +11,11 @@ Phases (any failure exits non-zero and prints no result):
    all started together);
 2. OpLog: the lexn_union kernel vs its plain twin on the card, bit-exact
    on every plane and n_unique: a mid-gossip swarm at C=1024, L=10,240, an
-   overflow case, and ragged lane counts;
+   overflow case, ragged lane counts, and the tile body's edges (lane
+   counts that split a tile of 8, the converge tree's narrow levels, planes
+   off 16 B alignment, all-padding lanes beside B inside A, full-range and
+   word-0-tied keys, out=C/2 and 2C; (18, 2) at C=512 on the one-lane
+   body);
 3. OpLog end to end at R=10,240 replicas x C=1024 log rows: ``plan``
    (must pick the columnar engine) → 3 ``gossip_round``s with one replica
    dead → ``converge_checked`` → ``rebuild`` → ``materialize``, checked
@@ -23,7 +27,10 @@ Phases (any failure exits non-zero and prints no result):
 6. OR-Set: the set_union, merge and bucketed_union kernels vs their plain
    twins at C=1024, L=131,072 (an OR-Set swarm draw, and the JAX
    package's strided three-arm draw in the bucketed layout), with overflow
-   cases and ragged lane counts, bit-exact on every output;
+   cases and ragged lane counts, and set_union's tile edges (lane counts
+   that split a tile of 8, planes off 16 B alignment, all-padding lanes
+   beside B inside A, full-range keys and values, out=C/2 and 2C),
+   bit-exact on every output;
 7. OR-Set end to end at BASELINE's R=1,048,576 replicas x C=1024 tag rows:
    ``stack_to_columnar`` of two seeded swarms → ``columnar_join`` (the
    sort engine: one set_union launch) → ``columnar_member_mask``, checked
@@ -186,6 +193,115 @@ def check_kernel(hu, c, lanes) -> int:
     return err
 
 
+def tile_pair(n_keys: int, n_vals: int, c: int, lanes: int, seed: int, *, ties=False,
+              b_inside_a=False, empty_lanes=()) -> list:
+    """Two operands on the card for the tile bodies' edge checks, as
+    [keys_a, vals_a, keys_b, vals_b] lists of (c, lanes) int32 planes: each
+    lane a seeded half of one universe of 2c distinct keys, ascending
+    lexicographically, SENTINEL/0 padded.  Key words are full-range int32
+    (negatives and INT32_MIN, never SENTINEL in word 0), or with ``ties``
+    word 0 takes 4 values, so that many keys tie on it and differ after;
+    values are full int32 words, bit 31 included.  With ``b_inside_a``
+    each lane of B draws from that lane of A; the lanes of
+    ``empty_lanes`` are all padding on both sides."""
+    rng = np.random.default_rng(seed)
+    words = rng.integers(-2**31, 2**31 - 1, (4 * c, n_keys))
+    if ties:
+        words[:, 0] = rng.integers(0, 4, 4 * c)
+    else:
+        words[: c // 4, 0] = -2**31
+    universe = np.unique(words, axis=0)
+    universe = universe[np.sort(rng.choice(len(universe), 2 * c, replace=False))]
+    universe = torch.as_tensor(universe.T.astype(np.int32), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def cut(held):  # a lane keeps its first c keys
+        held[:, list(empty_lanes)] = False
+        return held & (torch.cumsum(held, dim=0) <= c)
+
+    def draw():
+        return torch.rand((2 * c, lanes), generator=gen, device="cuda") < 0.5
+
+    held_a = cut(draw())
+    held_b = cut(held_a & draw() if b_inside_a else draw())
+
+    def side(held):
+        row = torch.cumsum(held, dim=0) - 1
+        src, lane = held.nonzero(as_tuple=True)
+        keys = torch.full((n_keys, c, lanes), SENTINEL, dtype=torch.int32, device="cuda")
+        keys[:, row[src, lane], lane] = universe[:, src]
+        vals = torch.randint(-2**31, 2**31 - 1, (n_vals, c, lanes), generator=gen,
+                             dtype=torch.int32, device="cuda")
+        return list(keys), list(vals.masked_fill(keys[0] == SENTINEL, 0))
+
+    return [*side(held_a), *side(held_b)]
+
+
+def off_alignment(planes: list) -> list:
+    """The same planes, each a contiguous view one int32 into its own
+    buffer, so that no plane is 16 B aligned."""
+    out = []
+    for p in planes:
+        buf = torch.empty(p.numel() + 1, dtype=torch.int32, device=p.device)
+        view = buf[1:].view(p.shape)
+        view.copy_(p)
+        out.append(view)
+    if out[0].data_ptr() % 16 == 0:
+        raise AssertionError("the offset planes are 16 B aligned")
+    return out
+
+
+def check_lexn_tile_edges(hu) -> int:
+    """Phase 2, the tile body's edges: lane counts that split a tile of 8
+    lanes, the converge tree's narrow levels, planes off 16 B alignment,
+    all-padding lanes beside lanes whose B rows all lie in A, full-range
+    keys, keys tied on word 0, out = C/2 and untruncated; and (18, 2) at
+    C=512, which takes the one-lane body, in the same process.  Returns
+    the largest |kernel - twin|."""
+    from crdt_tpu_torch import workload
+
+    limit = hu.smem_limit(torch.device("cuda"))
+    err = 0
+
+    def union(pair, n_keys, out, label, want_tile=True):
+        nonlocal err
+        ka, va, kb, vb = pair
+        c = ka[0].shape[0]
+        body = hu.lexn_union_body(n_keys, len(va), c, 2 * c if out is None else out, limit)
+        if (body[0] > 0) != want_tile:
+            raise AssertionError(f"lexn_union {label}: body {body}, tile expected {want_tile}")
+        got = hu.sorted_union_columnar_fused_lexn(ka, va, kb, vb, out_size=out)
+        want = hu._lexn_union_plain(ka, va, kb, vb, 2 * c if out is None else out)
+        err = max(err, same(f"lexn_union {label}", (*got[0], *got[1], got[2]),
+                            (*want[0], *want[1], want[2])))
+        return int(got[2].max())
+
+    for n in (1, 7, 9, 127, 130, 4097):
+        union(tile_pair(2, 2, C, n, SEED + 60 + n), 2, C, f"full-range L={n}")
+    union([off_alignment(x) for x in tile_pair(2, 2, C, 130, SEED + 61)], 2, C,
+          "unaligned L=130")
+    union(tile_pair(2, 2, C, 4097, SEED + 62, b_inside_a=True, empty_lanes=(0, 7, 8, 4096)),
+          2, None, "B inside A, all-padding lanes, untruncated")
+    ties = tile_pair(2, 2, C, 130, SEED + 63, ties=True)
+    if union(ties, 2, C // 2, "word-0 ties, out=C/2") <= C // 2:
+        raise AssertionError("the word-0 ties case did not overflow")
+    union(ties, 2, None, "word-0 ties, untruncated")
+    w = workload.reference_writes(C, 64, SEED)
+    wide_a = swarm_planes(w, C, 64, 0.4, SEED + 64)
+    wide_b = swarm_planes(w, C, 64, 0.4, SEED + 65)
+    for n in (1, 2, 3, 5, 10, 20, 40):
+        a, b = ([x[:, :n].contiguous() for x in side] for side in (wide_a, wide_b))
+        union([a[:2], a[2:], b[:2], b[2:]], 2, C, f"converge level L={n}")
+    union(tile_pair(18, 2, C // 2, 130, SEED + 66, ties=True), 18, C // 2,
+          "(18, 2) C=512 (one-lane body)", want_tile=False)
+    log(f"lexn_union tile edges vs twin: bit-exact at L=1/7/9/127/130/4097, unaligned, "
+        f"B inside A with all-padding lanes, full-range and word-0-tied keys, out=C/2 and "
+        f"2C, converge levels L=1-40; (18, 2) at C=512 on the one-lane body; tile plan at "
+        f"C={C}: {hu.lexn_union_body(2, 2, C, C, limit)}, "
+        f"{hu.lexn_union_smem_bytes(2, 2, C, C, limit)} B a CTA")
+    return err
+
+
 def kv_equal(x, y) -> bool:
     return all(torch.equal(getattr(x, f), getattr(y, f)) for f in KV_FIELDS)
 
@@ -324,7 +440,7 @@ def oplog_phases(card: str) -> dict:
     from crdt_tpu_torch.ops import hopper_union as hu
 
     # ---- 2. kernel vs plain twin ----
-    max_err = check_kernel(hu, C, R)
+    max_err = max(check_kernel(hu, C, R), check_lexn_tile_edges(hu))
 
     # ---- 3. the slice end to end ----
     col, alive, rounds, launches = run_slice("cuda", R, C, N_WRITES, DEAD, SEED)
@@ -462,9 +578,45 @@ def check_set_kernels(pool) -> tuple:
         merge(ra, rb, f"ragged L={n}")
         bucketed(to_bucketed(*strided_planes(n, SEED + 17)),
                  to_bucketed(*strided_planes(n, SEED + 18)), wb, f"ragged L={n}")
+    check_set_tile_edges(pool, union)
     log(f"set kernels vs twins: bit-exact at C={SET_C} L={SET_L} (OR-Set draw max "
         f"n_unique {nu}), overflow and ragged L=1/127/130; max |err| {err}")
     return err, (a, b), (sa, sb)
+
+
+def check_set_tile_edges(pool, union) -> None:
+    """Phase 6, set_union's tile body: lane counts that split a tile of 8
+    lanes, planes off 16 B alignment, all-padding lanes beside lanes whose
+    B keys all lie in A, full-range int32 keys and values (bit 31), out =
+    C/2 and untruncated; ``union(a, b, out, label)`` checks one case."""
+    from crdt_tpu_torch.ops import hopper_union as hu
+
+    def pair(*args, **kw):
+        ka, va, kb, vb = tile_pair(1, 1, *args, **kw)
+        return (ka[0], va[0]), (kb[0], vb[0])
+
+    for n in (7, 9, 4097):
+        union(set_planes(pool, n, SEED + 19), set_planes(pool, n, SEED + 20), SET_C,
+              f"OR-Set draw L={n}")
+    for n in (1, 9, 130, 4097):
+        a, b = pair(SET_C, n, SEED + 21 + n)
+        union(a, b, SET_C, f"full-range L={n}")
+        if union(a, b, SET_C // 2, f"full-range L={n}, out=C/2") <= SET_C // 2:
+            raise AssertionError("the full-range overflow case did not overflow")
+        union(a, b, None, f"full-range L={n}, untruncated")
+    a, b = pair(SET_C, 130, SEED + 22)
+    union(tuple(off_alignment(list(a))), tuple(off_alignment(list(b))), SET_C,
+          "full-range, unaligned L=130")
+    oa, ob = set_planes(pool, 130, SEED + 23), set_planes(pool, 130, SEED + 24)
+    union(tuple(off_alignment(list(oa))), tuple(off_alignment(list(ob))), SET_C,
+          "OR-Set draw, unaligned L=130")
+    a, b = pair(SET_C, 4097, SEED + 25, b_inside_a=True, empty_lanes=(0, 7, 8, 4096))
+    union(a, b, None, "B inside A, all-padding lanes, untruncated")
+    limit = hu.smem_limit(torch.device("cuda"))
+    log(f"set_union tile edges vs twin: bit-exact at L=1/7/9/130/4097, unaligned, B inside "
+        f"A with all-padding lanes, full-range keys and values, out=C/2 and 2C; plan at "
+        f"C={SET_C}, out=C: {hu.set_union_plan(SET_C, SET_C, limit)}, "
+        f"{hu.set_union_smem_bytes(SET_C, SET_C, limit)} B a CTA")
 
 
 def run_set_slice(pool) -> tuple:
@@ -1665,9 +1817,12 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.2f} s (nvcc, sm_90a, "
         f"{len(_build.SOURCES)} sources in parallel)")
     for name in _build.SOURCES:
+        func = ""  # the kernel (mangled) that ptxas's next lines describe
         for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas [{name}]: {line.strip()}")
+            if "Function properties for" in line:
+                func = line.split("Function properties for", 1)[1].strip()
+            elif "registers" in line or "spill" in line:
+                log(f"  ptxas [{name}] {func}: {line.strip()}")
 
     rows = [oplog_phases(card)]
     set_rows, floor_full = set_phases(card)

@@ -32,22 +32,25 @@
 // TPU kernels' on every plane.  The raw merge is not: of two equal keys it
 // always puts A's copy first, where the TPU's bitonic network puts either.
 //
-// Design.  lexn_union is the first version, one CTA per lane:
-//   * merge by rank: the lane's key words of A and B go to shared memory,
-//     A[i] lands at i + #(B < A[i]), B[j] at j + #(A <= B[j]) — a binary
-//     search each, no bitonic network and no per-stage barrier, B read in
-//     its own ascending order (the TPU wrapper's flip of B is a Mosaic
-//     artefact);
-//   * it keeps the merged planes in dynamic shared memory:
-//     2·n_keys·C + 2C·(n_keys+n_vals) words plus 2C flag bytes — 50.3 KB
-//     at C=1024 for (2, 2), 156,800 B at C=512 for RSeq's (18, 2); past the
-//     card's 227 KB opt-in the host code stripes the union instead;
-//   * compaction is one block-wide exclusive scan of the keep flags (each
-//     thread owns a run of consecutive rows) and a scatter — the TPU's
-//     log-step shift network is not needed;
-//   * the key and value counts are run-time arguments (under kMaxPlanes
-//     planes a side), so every split — the OpLog's (2, 2), RSeq's at any
-//     depth up to 9 — runs one instantiation.
+// Design.  lexn_union has two bodies; the host picks one by shared memory
+// (hopper_union.lexn_union_body) and passes its lane tile:
+//   * the tile body (tile_union.cuh, lane_tile 8) where 2 sides x n_keys x
+//     C rows x 8 lanes of key words fit a CTA — the OpLog's (2, 2) at
+//     C = 1024 (164,384 B at out = C): each row of a tile's key planes is
+//     one 32 B sector, loaded by cp.async 16 B a thread; merge-path ranks
+//     with the heads in registers; a per-lane scan and a map of output row
+//     -> source; the move gathers the value planes from device memory and
+//     stores whole rows; persistent CTAs, one an SM;
+//   * the one-lane body (lane_tile 0), the first version, for the wide
+//     splits: RSeq's (18, 2) / (18, 3) at C <= 512.  One CTA a lane; the
+//     lane's key words of A and B go to shared memory, A[i] lands at
+//     i + #(B < A[i]) and B[j] at j + #(A <= B[j]) (a binary search each);
+//     the merged planes stay in shared memory (2·n_keys·C + 2C·(n_keys +
+//     n_vals) words plus 2C flag bytes — 156,800 B at C=512 for (18, 2));
+//     past the card's 227 KB opt-in the host stripes the union instead; one
+//     block-wide exclusive scan of the keep flags and a scatter compact it.
+// Both take the key and value counts at run time (under kMaxPlanes planes a
+// side; the tile body under tile_union::kMaxKeys key words).
 // lexn_merge and lexn_compact (designs above their kernels) work on tiles
 // of 8 adjacent lanes, so that every load and store of a row moves a whole
 // 32 B sector: the merge as a cluster of 8 CTAs that trade the key words
@@ -62,13 +65,15 @@
 // its compaction 2.52 GB (0.75 ms).  The merge reads each key word from
 // device memory once (its move takes them from the owners' shared memory);
 // the compaction reads them twice (the flags, then the move), 1.51 GB more
-// at 18 words.  lexn_union reads each lane's column strided by L, so a
-// warp's load uses 4 B of each 32 B sector; neighbouring lanes run on
-// neighbouring CTAs and mostly hit in L2, but the access is not coalesced.
+// at 18 words.  The one-lane body reads a lane's column strided by L, so a
+// warp's load uses 4 B of each 32 B sector (it ran the OpLog union at 11.8x
+// its bound); the tile body loads and stores whole sectors.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tile_union.cuh"
 
 namespace {
 
@@ -622,14 +627,36 @@ extern "C" {
 // cudaErrorInvalidValue for a plane count past kMaxPlanes.
 
 // The union: inputs (c, lanes), outputs (out_size, lanes), n_unique (lanes,).
+// `lane_tile` 0 runs the one-lane body; 1, 2, 4 or 8 the tile body with
+// that many lanes a tile, `stages` key buffers (1 or 2) and the value
+// planes staged (`stage_vals` 1) or gathered from device memory (0).
 int lexn_union(int n_keys, int n_vals, const void* const* a,
                const void* const* b, void* const* out, void* n_unique, int c,
-               int lanes, int out_size, int smem, void* stream) {
+               int lanes, int out_size, int lane_tile, int stages,
+               int stage_vals, int smem, void* stream) {
   Params p;
   if (!fill_params(&p, n_keys, n_vals, a, b, out, n_unique, c, lanes, out_size)) {
     return cudaErrorInvalidValue;
   }
-  return launch(lexn_union_kernel, p, smem, static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (lane_tile == 0) return launch(lexn_union_kernel, p, smem, s);
+  tile_union::Args t = {};
+  for (int i = 0; i < n_keys + n_vals; ++i) {
+    t.a[i] = p.a[i];
+    t.b[i] = p.b[i];
+    t.out[i] = p.out[i];
+  }
+  t.n_unique = p.n_unique;
+  t.c = c;
+  t.lanes = lanes;
+  t.out_size = out_size;
+  t.n_keys = n_keys;
+  t.n_vals = n_vals;
+  t.lt = lane_tile;
+  t.stages = stages;
+  t.stage_vals = stage_vals;
+  if (n_keys == 2) return tile_union::launch<2>(t, smem, s);
+  return tile_union::launch<0>(t, smem, s);
 }
 
 // The merge: inputs (s, lanes), outputs (2s, lanes); clusters of 8 CTAs.

@@ -29,38 +29,45 @@
 // and so take values < 2^15 only).  MERGE equals the TPU merge wherever the
 // two copies of an equal key carry equal values.
 //
-// Design (a simple, correct first version):
-//   * a CTA takes a tile of LT adjacent lanes (LT in {1, 2, 4, 8}, the
-//     largest whose shared memory fits kTileBudget, so two CTAs share an SM)
-//     and loads the four input planes cooperatively, row-major: a warp's
-//     load covers 32/LT rows x LT lanes, so neighbouring threads read
-//     neighbouring addresses and every 32 B sector read is used for LT*4 B
-//     (the other lanes of a sector belong to the neighbouring CTA, which
-//     runs at the same time and finds them in L2);
-//   * the work items (lane, segment) go to the CTA's 8 warps.  A warp ranks
-//     each row of one side against the other side by a binary search in
-//     shared memory: merged position = i + #(B < A[i]) (A) or
-//     j + #(A <= B[j]) (B).  For the union it drops B rows whose key A also
-//     holds and shifts every row down by the number of such duplicates below
-//     it, counted with __ballot_sync/__popc as a running prefix — no bitonic
-//     network, no Hillis-Steele prefix and no log-step compaction, which
-//     were the TPU's way to keep everything in vector registers;
-//   * rows land in an output tile in shared memory, which the CTA then
-//     writes back row-major, as it loaded, so the stores are coalesced too.
+// Two bodies:
+//   * UNION with one segment (kernel 2, the OR-Set swarm join) runs the
+//     lane-tile union of tile_union.cuh at one key word and one value plane:
+//     persistent CTAs of 8-lane tiles, the next tile's key planes in flight
+//     by cp.async while this one ranks by merge path and moves, the value
+//     planes staged while it ranks, a map of output row -> source, whole
+//     rows stored.  Its lane tile, stage counts and shared memory are the
+//     host's (hopper_union.set_union_plan / set_union_smem_bytes); the host
+//     passes a lane tile for this launch only, and the C entry takes the
+//     tile body exactly when it is given one.
+//   * the bucketed UNION (kernel 3) and MERGE (kernel 6) run the first
+//     version's template below: a CTA takes a tile of LT adjacent lanes (LT
+//     in {1, 2, 4, 8}, the largest whose shared memory fits kTileBudget, so
+//     two CTAs share an SM), loads the four input planes cooperatively,
+//     row-major, then a warp per (lane, segment) ranks each row of one side
+//     against the other by a binary search in shared memory (merged position
+//     = i + #(B < A[i]) for A, j + #(A <= B[j]) for B), drops B rows whose
+//     key A also holds and shifts the rest down by the duplicates below them
+//     (__ballot_sync/__popc), and writes the output tile back row-major.
 //
-// What bounds it on this card: bytes.  The union at C = 1024 reads 4 planes
-// and writes 2 planes + n_unique: 24 KB per lane, 25.8 GB at 2^20 lanes,
-// 7.69 ms at 3.35 TB/s; the binary searches cost ~2C log2 C compares per
-// lane, which the card's integer units do several times faster.  Shared
-// memory per CTA (LT lanes): 4 input planes of C rows plus 2 output planes
-// of rows_out rows, each lane's column padded by 32/LT words so the tile's
-// row-major stores to shared memory hit 32 distinct banks.  It exceeds the
-// 48 KB default, so the launcher opts in with cudaFuncSetAttribute; past the
-// card's opt-in limit (227 KB, reached at LT = 1 when C = 16,384) that call
-// fails and the wrapper raises.
+// What bounds them on this card: bytes.  The union at C = 1024 reads 4
+// planes and writes 2 planes + n_unique: 24 KB per lane, 25.8 GB at 2^20
+// lanes, 7.69 ms at 3.35 TB/s.  The first version (now kernels 3 and 6
+// only) loads, ranks and stores in turn, with a thread's few 4 B loads in
+// flight only while it loads, its binary searches bank-conflicted and each
+// sector half used at LT = 4; it ran kernel 2 at 5.5x that bound.  The tile
+// body keeps loads in flight across the tiles, ranks with one shared load a
+// merged row and moves whole sectors; what holds it now is the count of
+// row requests at 2^20 lanes (tile_union.cuh).  The template's shared memory per
+// CTA (LT lanes): 4 input planes of C rows plus 2 output planes of rows_out
+// rows, each lane's column padded by 32/LT words so the tile's row-major
+// stores to shared memory hit 32 distinct banks.  Past the card's opt-in
+// limit (227 KB) cudaFuncSetAttribute refuses a launch and the wrapper
+// raises.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tile_union.cuh"
 
 namespace {
 
@@ -271,28 +278,53 @@ cudaError_t launch(const Params& p, size_t smem, cudaStream_t stream) {
 
 extern "C" {
 
-// Lanes per CTA and shared-memory bytes per CTA for a launch with `c` rows
-// per operand and `rows_out` output rows per lane.
-int set_union_lane_tile(int c, int rows_out) {
+// Lanes per CTA and shared-memory bytes per CTA of the template (kernels 3
+// and 6) for `c` rows per operand and `rows_out` output rows per lane.
+int segment_union_lane_tile(int c, int rows_out) {
   return 1 << lane_tile_shift(c, rows_out);
 }
 
-size_t set_union_smem_bytes(int c, int rows_out) {
-  return smem_bytes(c, rows_out, set_union_lane_tile(c, rows_out));
+size_t segment_union_smem_bytes(int c, int rows_out) {
+  return smem_bytes(c, rows_out, segment_union_lane_tile(c, rows_out));
 }
 
 // Launch on `stream`.  mode 0 = union of segments of `seg` rows, each cut
 // to `out_seg` rows (n_unique required, seg_max may be null); mode 1 =
 // merge (seg = c, out_seg = 2c, n_unique and seg_max unused).  Planes are
 // contiguous (c, lanes) int32, outputs (c / seg * out_seg, lanes).
-// Returns a cudaError_t.
+// `lane_tile` > 0 runs the tile body with the host's `lane_tile`, `stages`,
+// `stage_vals` and `smem` bytes a CTA; it takes the union of one segment
+// (seg = c) without seg_max only.  `lane_tile` 0 runs the template, which
+// ignores the other three.  Returns a cudaError_t.
 int set_union(int mode, const void* ka, const void* va, const void* kb,
               const void* vb, void* ko, void* vo, void* n_unique, void* seg_max,
-              int c, int lanes, int seg, int out_seg, void* stream) {
+              int c, int lanes, int seg, int out_seg, int lane_tile, int stages,
+              int stage_vals, int smem, void* stream) {
   if (lanes <= 0 || seg <= 0 || c % seg != 0 || out_seg < 0 ||
       out_seg > 2 * seg || (mode == kMerge && (seg != c || out_seg != 2 * c)) ||
       (mode == kUnion && n_unique == nullptr)) {
     return cudaErrorInvalidValue;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (lane_tile > 0) {
+    if (mode != kUnion || seg != c || seg_max != nullptr) return cudaErrorInvalidValue;
+    tile_union::Args t = {};
+    t.a[0] = static_cast<const int32_t*>(ka);
+    t.a[1] = static_cast<const int32_t*>(va);
+    t.b[0] = static_cast<const int32_t*>(kb);
+    t.b[1] = static_cast<const int32_t*>(vb);
+    t.out[0] = static_cast<int32_t*>(ko);
+    t.out[1] = static_cast<int32_t*>(vo);
+    t.n_unique = static_cast<int32_t*>(n_unique);
+    t.c = c;
+    t.lanes = lanes;
+    t.out_size = out_seg;
+    t.n_keys = 1;
+    t.n_vals = 1;
+    t.lt = lane_tile;
+    t.stages = stages;
+    t.stage_vals = stage_vals;
+    return tile_union::launch<1>(t, smem, s);
   }
   Params p = {};
   p.ka = static_cast<const int32_t*>(ka);
@@ -309,10 +341,9 @@ int set_union(int mode, const void* ka, const void* va, const void* kb,
   p.out_seg = out_seg;
   const int rows_out = c / seg * out_seg;
   p.lt_shift = lane_tile_shift(c, rows_out);
-  const size_t smem = smem_bytes(c, rows_out, 1 << p.lt_shift);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (mode == kUnion) return launch<kUnion>(p, smem, s);
-  if (mode == kMerge) return launch<kMerge>(p, smem, s);
+  const size_t bytes = smem_bytes(c, rows_out, 1 << p.lt_shift);
+  if (mode == kUnion) return launch<kUnion>(p, bytes, s);
+  if (mode == kMerge) return launch<kMerge>(p, bytes, s);
   return cudaErrorInvalidValue;
 }
 

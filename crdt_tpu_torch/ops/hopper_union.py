@@ -16,6 +16,12 @@ Counterpart of ``crdt_tpu.ops.pallas_union``.  Two CUDA sources:
   (``bitonic_merge_columnar``) and the bucket-local union
   (``bucketed_union_columnar``).
 
+The single-key union and the fused lexN union at narrow keys (the OpLog's
+(hi, lo)) share one body, the lane tile of ``csrc/tile_union.cuh``; its
+plan (lane tile, key stages, values staged) and shared memory are worked
+out here from the shape (``set_union_plan``, ``lexn_union_body``) and
+passed to the launch.
+
 The host contract is the JAX one: planes are ``(C, L)`` int32 with lane j
 holding one replica's rows, per-lane sorted ascending over the key words,
 padding rows SENTINEL in every key word and 0 in every value plane; C is a
@@ -86,10 +92,73 @@ def _route(name: str, device: torch.device) -> bool:
 # HOPPER_SMEM_OPTIN.
 
 
-def lexn_union_smem_bytes(n_keys: int, n_vals: int, c: int) -> int:
-    """The fused union: both operands' key words, the merged planes, the
-    scan's warp sums and one flag byte a merged row."""
+# the lane-tile union (csrc/tile_union.cuh), the body of kernel 2 and of
+# kernel 1 at narrow keys: threads a CTA, key words it takes, rows of an
+# operand whose source fits its map's 15 bits
+_TILE_THREADS = 512
+TILE_MAX_KEYS = 4
+TILE_MAX_ROWS = 16_384
+# lanes a tile, widest first: 8 make each row of a plane one 32 B sector
+TILE_LANES = (8, 4, 2, 1)
+
+
+def tile_union_smem_bytes(n_keys: int, n_vals: int, c: int, out: int,
+                          plan: tuple[int, int, int]) -> int:
+    """The tile body, per CTA, under ``plan`` = (lane tile, key stages,
+    values staged): the key-word buffers of both operands, one buffer of
+    their value planes when staged, the map (a word an output row a lane),
+    and the scan's warp sums and the lanes' totals."""
+    lt, stages, stage_vals = plan
+    return 4 * lt * (stages * 2 * n_keys * c + stage_vals * 2 * n_vals * c + out
+                     + _TILE_THREADS // 32 + 1)
+
+
+# the tile body's (key stages, values staged), best first: the next
+# tile's keys load while this one works, and the values stage as whole
+# sectors
+_TILE_STAGINGS = ((2, 1), (1, 1), (2, 0), (1, 0))
+
+
+def _tile_plan(n_keys: int, n_vals: int, c: int, out: int, lane_tiles,
+               limit: int) -> tuple[int, int, int] | None:
+    """The first (lane tile, stages, values staged) of ``lane_tiles`` x
+    ``_TILE_STAGINGS`` whose shared memory fits ``limit`` bytes."""
+    for lt in lane_tiles:
+        for stages, stage_vals in _TILE_STAGINGS:
+            plan = (lt, stages, stage_vals)
+            if tile_union_smem_bytes(n_keys, n_vals, c, out, plan) <= limit:
+                return plan
+    return None
+
+
+def lexn_union_lane_smem_bytes(n_keys: int, n_vals: int, c: int) -> int:
+    """The fused union's one-lane body: both operands' key words, the merged
+    planes, the scan's warp sums and one flag byte a merged row."""
     return 4 * (2 * n_keys * c + (n_keys + n_vals) * 2 * c + 32) + 2 * c
+
+
+def lexn_union_body(n_keys: int, n_vals: int, c: int, out: int,
+                    limit: int) -> tuple[int, int, int]:
+    """(lane tile, key stages, values staged) of the fused union: the tile
+    body at 8 lanes where it fits ``limit`` bytes, else (0, 0, 0), the
+    one-lane body."""
+    if n_keys <= TILE_MAX_KEYS and c <= TILE_MAX_ROWS:
+        plan = _tile_plan(n_keys, n_vals, c, out, (8,), limit)
+        if plan is not None:
+            return plan
+    return 0, 0, 0
+
+
+def lexn_union_smem_bytes(n_keys: int, n_vals: int, c: int, out: int | None = None,
+                          limit: int = HOPPER_SMEM_OPTIN) -> int:
+    """The fused union's shared memory a CTA in the body that the shape
+    takes on a card with ``limit`` bytes a block (``out`` defaults to
+    2C)."""
+    out = 2 * c if out is None else out
+    plan = lexn_union_body(n_keys, n_vals, c, out, limit)
+    if plan[0]:
+        return tile_union_smem_bytes(n_keys, n_vals, c, out, plan)
+    return lexn_union_lane_smem_bytes(n_keys, n_vals, c)
 
 
 def lexn_merge_smem_bytes(n_keys: int, s: int) -> int:
@@ -122,9 +191,9 @@ def lexn_compact_tile(n_rows: int, limit: int) -> int:
 
 
 def lexn_fits(c: int, n_keys: int, n_vals: int, limit: int) -> bool:
-    """Whether one fused union at capacity ``c`` fits a block's ``limit``
-    bytes of shared memory."""
-    return lexn_union_smem_bytes(n_keys, n_vals, c) <= limit
+    """Whether one fused union at capacity ``c`` (untruncated) fits a
+    block's ``limit`` bytes of shared memory in either body."""
+    return lexn_union_smem_bytes(n_keys, n_vals, c, limit=limit) <= limit
 
 
 def lexn_compact_fits(n_rows: int, limit: int) -> bool:
@@ -346,16 +415,17 @@ _PP = ctypes.POINTER(_P)
 # the C entry points of each csrc/<name>.cu: (argtypes, restype)
 _SIGNATURES = {
     "lexn_union": {
-        "lexn_union": ([_I, _I, _PP, _PP, _PP, _P, _I, _I, _I, _I, _P], _I),
+        "lexn_union": ([_I, _I, _PP, _PP, _PP, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),
         "lexn_merge": ([_I, _I, _PP, _PP, _PP, _I, _I, _I, _P], _I),
         "lexn_compact": ([_I, _I, _PP, _PP, _P, _I, _I, _I, _I, _I, _P], _I),
         "lexn_merge_clusters": ([_I], _I),
         "lexn_union_error_string": ([_I], ctypes.c_char_p),
     },
     "set_union": {
-        "set_union": ([_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
-        "set_union_smem_bytes": ([_I, _I], ctypes.c_size_t),
-        "set_union_lane_tile": ([_I, _I], _I),
+        "set_union": ([_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                       _I, _P], _I),
+        "segment_union_smem_bytes": ([_I, _I], ctypes.c_size_t),
+        "segment_union_lane_tile": ([_I, _I], _I),
         "set_union_error_string": ([_I], ctypes.c_char_p),
     },
     "set_floor": {
@@ -416,12 +486,15 @@ def _lexn_launch(name, n_keys, n_vals, rows_out, lanes, device, smem, launch):
 def _lexn_union_cuda(keys_a, vals_a, keys_b, vals_b, out):
     n_keys, n_vals = len(keys_a), len(vals_a)
     c, lanes = keys_a[0].shape
+    device = keys_a[0].device
+    limit = smem_limit(device)
+    plan = lexn_union_body(n_keys, n_vals, c, out, limit)
     return _lexn_launch(
-        "lexn_union", n_keys, n_vals, out, lanes, keys_a[0].device,
-        lexn_union_smem_bytes(n_keys, n_vals, c),
+        "lexn_union", n_keys, n_vals, out, lanes, device,
+        lexn_union_smem_bytes(n_keys, n_vals, c, out, limit),
         lambda lib, o, nu, smem, st: lib.lexn_union(
             n_keys, n_vals, _ptrs(keys_a + vals_a), _ptrs(keys_b + vals_b),
-            _ptrs(o), nu.data_ptr(), c, lanes, out, smem, st))
+            _ptrs(o), nu.data_ptr(), c, lanes, out, *plan, smem, st))
 
 
 def _lexn_merge_cuda(keys_a, vals_a, keys_b, vals_b):
@@ -553,6 +626,21 @@ def _out_rows(c: int, out_size) -> int:
     return out
 
 
+def set_union_plan(c: int, out: int, limit: int) -> tuple[int, int, int]:
+    """(lane tile, key stages, values staged) of kernel 2's tile body on a
+    card with ``limit`` bytes of shared memory a block: the widest tile,
+    then the best staging, that fits; (1, 1, 0) when nothing fits (the
+    launch is then refused with that figure)."""
+    plan = _tile_plan(1, 1, c, out, TILE_LANES, limit) if c <= TILE_MAX_ROWS else None
+    return plan or (1, 1, 0)
+
+
+def set_union_smem_bytes(c: int, out: int, limit: int = HOPPER_SMEM_OPTIN) -> int:
+    """Kernel 2's shared memory a CTA at capacity ``c`` and ``out`` output
+    rows, in the plan of :func:`set_union_plan`."""
+    return tile_union_smem_bytes(1, 1, c, out, set_union_plan(c, out, limit))
+
+
 def sorted_union_columnar_fused(keys_a, vals_a, keys_b, vals_b,
                                 out_size: int | None = None):
     """Batched single-key sorted-set union, values OR-combined on duplicate
@@ -641,6 +729,10 @@ def _set_union_cuda(name, keys_a, vals_a, keys_b, vals_b, seg, out_seg):
         return outs
 
     lib = _lib("set_union")
+    plan, smem = (0, 0, 0), 0
+    if name == "set_union":  # the tile body, by the host's plan
+        plan = set_union_plan(c, out_seg, smem_limit(device))
+        smem = tile_union_smem_bytes(1, 1, c, out_seg, plan)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.set_union(
@@ -648,15 +740,19 @@ def _set_union_cuda(name, keys_a, vals_a, keys_b, vals_b, seg, out_seg):
             vals_b.data_ptr(), ko.data_ptr(), vo.data_ptr(),
             None if nu is None else nu.data_ptr(),
             None if bmax is None else bmax.data_ptr(),
-            c, lanes, seg, out_seg, stream,
+            c, lanes, seg, out_seg, *plan, smem, stream,
         )
     if err != 0:
         # past the card's shared-memory opt-in (227 KB on Hopper: C = 16,384
         # at one lane per block) cudaFuncSetAttribute refuses the launch
+        lt = plan[0]
+        if name != "set_union":
+            smem = lib.segment_union_smem_bytes(c, rows_out)
+            lt = lib.segment_union_lane_tile(c, rows_out)
         raise RuntimeError(
             f"{name} launch failed: {lib.set_union_error_string(err).decode()} "
-            f"(C={c}, L={lanes}, {lib.set_union_smem_bytes(c, rows_out)} B of shared "
-            f"memory per block at {lib.set_union_lane_tile(c, rows_out)} lanes a block)"
+            f"(C={c}, L={lanes}, {smem} B of shared memory per block at {lt} lanes "
+            f"a block)"
         )
     LAUNCHES[name] += 1
     return outs

@@ -104,3 +104,64 @@ def test_set_kernels_refuse_capacity_past_shared_memory(fn):
     with pytest.raises(RuntimeError, match="shared memory"):
         fn(*planes)
     assert hu.LAUNCHES == before
+
+
+def _full_range(rng, c, lanes, empty=(), inside=None):
+    """(keys, vals) int32[C, L] over full-range int32 keys (negatives,
+    INT32_MIN; never SENTINEL), each lane half of a 2C-key universe, or of
+    ``inside``'s keys; values full int32 words (bit 31 included); lanes of
+    ``empty`` all padding."""
+    universe = np.unique(np.concatenate([
+        [-2**31], rng.integers(-2**31, 2**31 - 1, 4 * c)]))[: 2 * c]
+    keys = np.full((c, lanes), S, np.int32)
+    vals = np.zeros((c, lanes), np.int32)
+    for j in range(lanes):
+        pool = universe if inside is None else inside[:, j][inside[:, j] != S]
+        ks = np.sort(pool[rng.random(len(pool)) < 0.5])[:c]
+        if j in empty:
+            ks = ks[:0]
+        keys[: len(ks), j] = ks
+        vals[: len(ks), j] = rng.integers(-2**31, 2**31, len(ks))
+    return keys, vals
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c, lanes, out, case", [
+    (64, 1, 64, "uniform"), (64, 7, 32, "uniform"), (64, 9, None, "full-range"),
+    (64, 127, 64, "full-range"), (64, 130, 64, "unaligned"), (64, 4097, 32, "uniform"),
+    (1024, 1, 1024, "full-range"), (1024, 9, 512, "uniform"),
+    (1024, 130, 1024, "unaligned"), (1024, 4097, None, "full-range"),
+    (1024, 300, 1024, "inside, empty lanes"), (2048, 33, 2048, "uniform"),
+])
+def test_set_union_tile_edges_match_twin(c, lanes, out, case):
+    """Kernel 2's tile body at lane counts that split a tile of 8, planes
+    off 16 B alignment, all-padding lanes beside lanes whose B keys all lie
+    in A, full-range int32 keys and values, overflow (out = C/2) and
+    untruncated outputs: every output bit-equal to the twin."""
+    _need_card()
+    rng = np.random.default_rng(c + lanes + (out or 0))
+    if case == "uniform":
+        planes = [*_columns(rng, c, lanes, 3 * c // 2), *_columns(rng, c, lanes, 3 * c // 2)]
+    else:
+        empty = (0, 7, 8, lanes - 1) if case.startswith("inside") else ()
+        ka, va = _full_range(rng, c, lanes, empty)
+        kb, vb = _full_range(rng, c, lanes, empty, ka if case.startswith("inside") else None)
+        planes = [ka, va, kb, vb]
+    if case == "unaligned":
+        tensors = []
+        for p in planes:
+            buf = torch.empty(p.size + 1, dtype=torch.int32, device="cuda")
+            buf[1:] = torch.from_numpy(p).flatten().cuda()
+            tensors.append(buf[1:].view(p.shape))
+        assert tensors[0].data_ptr() % 16 != 0
+    else:
+        tensors = [torch.from_numpy(p).cuda() for p in planes]
+    before = hu.LAUNCHES["set_union"]
+    got = hu.sorted_union_columnar_fused(*tensors, out_size=out)
+    torch.cuda.synchronize()
+    assert hu.LAUNCHES["set_union"] == before + 1
+    want = hu.sorted_union_columnar_fused(*(torch.from_numpy(p) for p in planes), out_size=out)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    if out is not None and out < c:
+        assert int(want[2].max()) > out  # the overflow case overflows

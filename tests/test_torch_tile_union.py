@@ -1,0 +1,86 @@
+"""The host-side figures of the lane-tile union (csrc/tile_union.cuh), the
+body of kernel 2 (``sorted_union_columnar_fused``) and of kernel 1 at
+narrow keys (``sorted_union_columnar_fused_lexn``): the plans and shared
+memory a CTA that the launchers pass, at the H100's 232,448 B a block.
+Pure functions of the shapes, so they run without a card; the kernels
+themselves are held against their twins on the card by
+test_torch_hopper_kernel.py and test_torch_set_kernels.py."""
+import pytest
+
+from crdt_tpu_torch.ops import hopper_union as hu
+
+LIMIT = hu.HOPPER_SMEM_OPTIN
+
+
+def layout_bytes(n_keys, n_vals, c, out, lt, stages, stage_vals):
+    """The tile body's shared memory counted part by part, as
+    tile_union.cuh lays it out: key buffers, value buffer, map, scan."""
+    keys = stages * 2 * n_keys * c * lt * 4
+    vals = stage_vals * 2 * n_vals * c * lt * 4
+    gather_map = out * lt * 4
+    scan = (512 // 32) * lt * 4 + lt * 4
+    return keys + vals + gather_map + scan
+
+
+@pytest.mark.parametrize("c, out, plan, smem", [
+    (1024, 1024, (8, 2, 1), 229_920),  # the OR-Set join: 8 lanes, keys double-buffered, values staged
+    (1024, 2048, (8, 1, 1), 197_152),  # untruncated: one key buffer
+    (1024, 512, (8, 2, 1), 213_536),   # overflow at out = C/2
+    (2048, 2048, (8, 1, 0), 197_152),  # values gathered from device memory
+    (8192, 8192, (2, 1, 0), 196_744),
+    (64, 64, (8, 2, 1), 14_880),
+])
+def test_set_union_plan_at_the_h100_limit(c, out, plan, smem):
+    assert hu.set_union_plan(c, out, LIMIT) == plan
+    assert hu.set_union_smem_bytes(c, out) == smem == layout_bytes(1, 1, c, out, *plan)
+    assert smem <= LIMIT
+
+
+def test_set_union_plan_past_the_limit_keeps_the_smallest_figure():
+    """C = 16,384 untruncated fits no tile: the plan is one lane, one key
+    buffer, values gathered, and its figure (past the limit) is what the
+    refused launch reports."""
+    assert hu.set_union_plan(16_384, 32_768, LIMIT) == (1, 1, 0)
+    assert hu.set_union_smem_bytes(16_384, 32_768) == 262_212 > LIMIT
+
+
+@pytest.mark.parametrize("c, out", [(64, 32), (1024, 1024), (1024, 2048), (16_384, 32_768)])
+def test_set_union_plan_always_names_a_lane_tile(c, out):
+    """set_union.cu's C entry takes the tile body exactly when the host
+    passes a lane tile > 0: the host passes one for every one-segment
+    union (even past the limit, where the launch is refused) and 0 for the
+    bucketed union and the merge."""
+    assert hu.set_union_plan(c, out, LIMIT)[0] in hu.TILE_LANES
+
+
+@pytest.mark.parametrize("n_keys, n_vals, c, out, body, smem", [
+    (2, 2, 1024, 1024, (8, 1, 0), 164_384),   # the OpLog's (hi, lo) union: the tile body
+    (2, 2, 1024, 2048, (8, 1, 0), 197_152),
+    (2, 2, 512, 512, (8, 2, 1), 213_536),
+    (2, 2, 64, 64, (8, 2, 1), 27_168),
+    (1, 3, 256, 256, (8, 2, 1), 90_656),
+    (18, 2, 512, 512, (0, 0, 0), 156_800),    # RSeq's (18, 2): the one-lane body
+    (18, 3, 512, 1024, (0, 0, 0), 160_896),
+    (5, 2, 64, 64, (0, 0, 0), 4 * (2 * 5 * 64 + 7 * 128 + 32) + 128),  # past the tile's 4 key words
+    (2, 2, 2048, 2048, (0, 0, 0), 102_528),   # 8 lanes of keys do not fit
+    (2, 2, 8192, 16_384, (0, 0, 0), 409_728),  # refused by the card
+])
+def test_lexn_union_body_at_the_h100_limit(n_keys, n_vals, c, out, body, smem):
+    assert hu.lexn_union_body(n_keys, n_vals, c, out, LIMIT) == body
+    assert hu.lexn_union_smem_bytes(n_keys, n_vals, c, out) == smem
+    if body[0]:
+        assert smem == layout_bytes(n_keys, n_vals, c, out, *body)
+    else:
+        assert smem == hu.lexn_union_lane_smem_bytes(n_keys, n_vals, c)
+
+
+@pytest.mark.parametrize("c, n_keys, n_vals", [
+    (256, 2, 2), (1024, 2, 2), (2048, 2, 2), (4096, 2, 2), (512, 18, 2), (512, 18, 3),
+])
+def test_fused_routes_are_unchanged_by_the_tile_body(c, n_keys, n_vals):
+    """The union's route (fused or striped) depends only on whether some
+    body fits: the OpLog's split stays fused up to C = 4096 and RSeq's
+    (18, .) at C = 512, as before the tile body."""
+    assert hu.lexn_plan(c, n_keys, n_vals, LIMIT) is None
+    assert hu.lexn_fits(c, n_keys, n_vals, LIMIT)
+    assert hu.lexn_union_lane_smem_bytes(n_keys, n_vals, c) <= LIMIT

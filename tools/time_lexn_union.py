@@ -1,16 +1,20 @@
-"""Time the lexN kernels on chip_smoke.py's inputs at C=1024 rows x
-L=10,240 lanes: the union at the OpLog's split (2 key words, 2 value
-planes; two seeded 40% subsets of the reference-shaped write pool), and
+"""Time the union kernels on chip_smoke.py's inputs: at C=1024 rows x
+L=10,240 lanes the union at the OpLog's split (2 key words, 2 value
+planes; two seeded 40% subsets of the reference-shaped write pool) and
 the RSeq merge and compaction on phase 9's ``workload.seq_swarm`` draw
-(18 key words; 2 value planes, or 3 with the GC join's src marker).
+(18 key words; 2 value planes, or 3 with the GC join's src marker); at
+C=1024 x L=2^20 the single-key OR-Set union.
 
     python3 tools/time_lexn_union.py [--root CHECKOUT] [--reps N] [--cases ...]
 
 Cases: ``oplog`` (lexn_union, out=C; the default), ``merge20`` and
 ``merge21`` (lexn_merge at (18, 2) and (18, 3)), ``compact20`` (lexn_compact
-of the 20-plane merge, out=C) and ``compact21`` (of the 21-plane merge,
-out=2C, the GC join's shape).  Each compaction takes its checkout's own
-merge of the same draw.
+of the 20-plane merge, out=C), ``compact21`` (of the 21-plane merge,
+out=2C, the GC join's shape) and ``set2m`` (set_union through
+``sorted_union_columnar_fused`` at out=C on L=2^20 lanes: one 131,072-lane
+``workload.set_swarm`` draw a side, as chip_smoke.py phase 6 draws it,
+repeated 8 times along the lane axis).  Each compaction takes its
+checkout's own merge of the same draw.
 
 ``--root`` picks the checkout whose ``crdt_tpu_torch`` is imported and
 built (default: the one holding this script), so that two versions of the
@@ -37,11 +41,19 @@ SEED = 20240           # chip_smoke.py's seed and shapes
 R, C = 10_240, 1024
 N_KEYS = 62
 SENTINEL = 2**31 - 1
-CASES = ("oplog", "merge20", "merge21", "compact20", "compact21")
+SET_L, SET_REPEAT = 131_072, 8   # the OR-Set draw's lanes, and its copies
+CASES = ("oplog", "merge20", "merge21", "compact20", "compact21", "set2m")
 
 
 def checksum(planes) -> int:
-    return sum(int(p.long().sum()) * (i + 1) for i, p in enumerate(planes))
+    """Sum over the planes of (index + 1) x the plane's sum in int64, taken
+    in row blocks so that a 2^20-lane plane needs no int64 copy."""
+    total = 0
+    for i, p in enumerate(planes):
+        rows = max(1, (1 << 26) // max(1, p[0].numel()))
+        total += (i + 1) * sum(int(p[r:r + rows].long().sum())
+                               for r in range(0, p.shape[0], rows))
+    return total
 
 
 def time_call(call, reps: int) -> list:
@@ -109,6 +121,24 @@ def rseq_call(case: str, workload, rc, hu):
     return call, checksum((*keys, *vals, nu))
 
 
+def set_call(workload, orset, hu):
+    """Kernel 2 at L=2^20: two set_swarm draws (chip_smoke.py phase 6's
+    seeds) at 131,072 lanes, each repeated 8 times along the lanes."""
+    pool = workload.set_pool(SEED)
+    sides = []
+    for seed in (SEED + 11, SEED + 12):
+        planes = orset.stack_to_columnar(
+            workload.set_swarm(pool, SET_L, C, seed, device="cuda").sets)
+        sides += [torch.cat([p] * SET_REPEAT, dim=1) for p in planes]
+        del planes
+    torch.cuda.empty_cache()
+
+    def call():
+        return hu.sorted_union_columnar_fused(*sides, out_size=C)
+
+    return call, checksum(call())
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parent.parent))
@@ -121,7 +151,7 @@ def main() -> int:
     root = str(Path(args.root).resolve())
     sys.path.insert(0, root)
     from crdt_tpu_torch import workload
-    from crdt_tpu_torch.models import oplog_columnar as oc, rseq_columnar as rc
+    from crdt_tpu_torch.models import oplog_columnar as oc, orset, rseq_columnar as rc
     from crdt_tpu_torch.ops import hopper_union as hu
 
     card = subprocess.run(
@@ -131,10 +161,13 @@ def main() -> int:
     for case in args.cases:
         if case == "oplog":
             call, total = oplog_call(workload, oc, hu)
+        elif case == "set2m":
+            call, total = set_call(workload, orset, hu)
         else:
             call, total = rseq_call(case, workload, rc, hu)
         times = time_call(call, args.reps)
-        print(json.dumps({"root": root, "card": card, "case": case, "C": C, "L": R,
+        lanes = SET_L * SET_REPEAT if case == "set2m" else R
+        print(json.dumps({"root": root, "card": card, "case": case, "C": C, "L": lanes,
                           "median_ms": statistics.median(times), "ms": times,
                           "checksum": total}), flush=True)
         del call
