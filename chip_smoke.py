@@ -27,9 +27,12 @@ Phases (any failure exits non-zero and prints no result):
 6. OR-Set: the set_union, merge and bucketed_union kernels vs their plain
    twins at C=1024, L=131,072 (an OR-Set swarm draw, and the JAX
    package's strided three-arm draw in the bucketed layout), with overflow
-   cases and ragged lane counts, and set_union's tile edges (lane counts
+   cases and ragged lane counts, set_union's tile edges (lane counts
    that split a tile of 8, planes off 16 B alignment, all-padding lanes
-   beside B inside A, full-range keys and values, out=C/2 and 2C),
+   beside B inside A, full-range keys and values, out=C/2 and 2C), and the
+   same edges for bucketed_union's segment body (out_r=0, odd, Wb and 2Wb,
+   C=48 with 3 buckets, Wb=1 and 256, 16 lanes a CTA, flagged padding)
+   and the merge's keep-all tile (C=8, 1024 and 4096, flagged padding),
    bit-exact on every output;
 7. OR-Set end to end at BASELINE's R=1,048,576 replicas x C=1024 tag rows:
    ``stack_to_columnar`` of two seeded swarms → ``columnar_join`` (the
@@ -40,7 +43,9 @@ Phases (any failure exits non-zero and prints no result):
 8. OR-Set engines at L=131,072: the ``auto`` plan's bucket fallback, the
    three engines bit-identical on the strided draw, the bucket-resident
    chain and the unfused union (merge kernel + epilogue) against the sort
-   path; then the merge, bucketed_union and auto-dispatch times;
+   path; then the merge, bucketed_union (out_r=Wb and 2Wb) and
+   auto-dispatch times, and the bucket and unfused engines' times beside
+   their kernels';
 9. RSeq: the lexn_merge and lexn_compact kernels vs their twins at C=1024,
    L=10,240 on a ``workload.seq_swarm`` draw at 18 key words with 2 and 3
    value planes, lexn_union at those splits at C=512, the striped path at
@@ -546,11 +551,11 @@ def check_set_kernels(pool) -> tuple:
         err["merge"] = max(err["merge"], same(
             f"merge {label}", hu.bitonic_merge_columnar(*a, *b), hu._merge_plain(*a, *b)))
 
-    def bucketed(a, b, out_r, label):
-        got = hu.bucketed_union_columnar(*a, *b, n_buckets=N_BUCKETS, out_bucket_rows=out_r)
+    def bucketed(a, b, out_r, label, n_buckets=N_BUCKETS):
+        got = hu.bucketed_union_columnar(*a, *b, n_buckets=n_buckets, out_bucket_rows=out_r)
         err["bucketed_union"] = max(err["bucketed_union"], same(
             f"bucketed_union {label}", got,
-            hu._bucketed_union_plain(*a, *b, N_BUCKETS, out_r)))
+            hu._bucketed_union_plain(*a, *b, n_buckets, out_r)))
         return int(got[3].max())
 
     def to_bucketed(keys, vals):
@@ -579,6 +584,7 @@ def check_set_kernels(pool) -> tuple:
         bucketed(to_bucketed(*strided_planes(n, SEED + 17)),
                  to_bucketed(*strided_planes(n, SEED + 18)), wb, f"ragged L={n}")
     check_set_tile_edges(pool, union)
+    check_segment_and_merge_edges(pool, bucketed, merge, to_bucketed)
     log(f"set kernels vs twins: bit-exact at C={SET_C} L={SET_L} (OR-Set draw max "
         f"n_unique {nu}), overflow and ragged L=1/127/130; max |err| {err}")
     return err, (a, b), (sa, sb)
@@ -617,6 +623,81 @@ def check_set_tile_edges(pool, union) -> None:
         f"A with all-padding lanes, full-range keys and values, out=C/2 and 2C; plan at "
         f"C={SET_C}, out=C: {hu.set_union_plan(SET_C, SET_C, limit)}, "
         f"{hu.set_union_smem_bytes(SET_C, SET_C, limit)} B a CTA")
+
+
+def bucket_pair(c: int, n_buckets: int, lanes: int, seed: int, **kw) -> tuple:
+    """Two operands on the card in the bucketed layout, ((keys, vals),
+    (keys, vals)): each bucket of Wb = c / n_buckets rows drawn on its own
+    by ``tile_pair`` at one key word (full-range keys and values; ``kw``
+    as there)."""
+    parts = [tile_pair(1, 1, c // n_buckets, lanes, seed + b, **kw) for b in range(n_buckets)]
+    ka, va, kb, vb = (torch.cat([p[i][0] for p in parts]) for i in range(4))
+    return (ka, va), (kb, vb)
+
+
+def flag_padding(a, b) -> tuple:
+    """The operands with A's padding values 1 and B's 2 (a tombstoned tag
+    that packs to SENTINEL is padding too), so that the merge's order of the
+    two padding tails shows."""
+    return tuple((k, torch.where(k == SENTINEL, flag, v)) for (k, v), flag in ((a, 1), (b, 2)))
+
+
+def check_segment_and_merge_edges(pool, bucketed, merge, to_bucketed) -> None:
+    """Phase 6, kernel 3's segment body and kernel 6's keep-all tile: lane
+    counts that split a CTA's lanes or a 16 B chunk, planes off 16 B
+    alignment, full-range int32 keys and values, all-padding lanes beside B
+    inside A, flagged padding; kernel 3 at out_r = 0, Wb, 2 Wb and odd, C =
+    48 with 3 buckets, Wb = 1 and 256, 16 lanes a CTA; kernel 6 at C = 8,
+    1024 and 4096.  ``bucketed``, ``merge`` and ``to_bucketed`` are
+    check_set_kernels' checks."""
+    from crdt_tpu_torch.ops import hopper_union as hu
+
+    wb = SET_C // N_BUCKETS
+    for n in (1, 7, 9, 127, 130, 4097):
+        a, b = bucket_pair(SET_C, N_BUCKETS, n, SEED + 30 + n)
+        bucketed(a, b, wb, f"full-range L={n}")
+        bucketed(a, b, 2 * wb, f"full-range L={n}, out_r=2Wb")
+        ka, va = tile_pair(1, 1, SET_C, n, SEED + 31 + n)[:2]
+        kb, vb = tile_pair(1, 1, SET_C, n, SEED + 32 + n)[:2]
+        merge((ka[0], va[0]), (kb[0], vb[0]), f"full-range L={n}")
+    a, b = bucket_pair(SET_C, N_BUCKETS, 130, SEED + 33)
+    bucketed(a, b, 0, "out_r=0")
+    if bucketed(a, b, 5, "odd out_r=5") <= 5:
+        raise AssertionError("the odd out_r case did not truncate")
+    bucketed(tuple(off_alignment(list(a))), tuple(off_alignment(list(b))), 17,
+             "unaligned, odd out_r=17")
+    a, b = bucket_pair(SET_C, N_BUCKETS, 4097, SEED + 34, b_inside_a=True,
+                       empty_lanes=(0, 7, 8, 4096))
+    bucketed(a, b, wb, "B inside A, all-padding lanes")
+    sa = to_bucketed(*strided_planes(4097, SEED + 35))
+    sb = to_bucketed(*strided_planes(4097, SEED + 36))
+    bucketed(*flag_padding(sa, sb), wb, "strided draw, flagged padding L=4097")
+    for c, nb, n, outs in ((48, 3, 130, (16, 32, 7)), (64, 64, 130, (1, 2)),
+                           (512, 2, 130, (256, 512)), (4096, 16, 33, (512,))):
+        a, b = bucket_pair(c, nb, n, SEED + 37 + c)
+        for out_r in outs:
+            bucketed(a, b, out_r, f"C={c} B={nb} L={n} out_r={out_r}", n_buckets=nb)
+    limit = hu.smem_limit(torch.device("cuda"))
+    for c, n in ((8, 9), (8, 4097), (4096, 130)):
+        ka, va, kb, vb = tile_pair(1, 1, c, n, SEED + 38 + c + n)
+        merge((ka[0], va[0]), (kb[0], vb[0]), f"full-range C={c} L={n}")
+    ka, va, kb, vb = tile_pair(1, 1, SET_C, 4097, SEED + 39, b_inside_a=True,
+                               empty_lanes=(0, 7, 8, 4096))
+    merge((ka[0], va[0]), (kb[0], vb[0]), "B inside A, all-padding lanes")
+    oa, ob = set_planes(pool, 130, SEED + 40), set_planes(pool, 130, SEED + 41)
+    merge(tuple(off_alignment(list(oa))), tuple(off_alignment(list(ob))),
+          "OR-Set draw, unaligned L=130")
+    merge(*flag_padding(oa, ob), "OR-Set draw, flagged padding L=130")
+    log(f"bucketed_union segment edges vs twin: bit-exact at L=1/7/9/127/130/4097, "
+        f"out_r=0/5/17/Wb/2Wb, unaligned, B inside A with all-padding lanes, flagged "
+        f"padding, full-range keys, C=48 B=3, Wb=1/16/256; plans (lanes a CTA, buffers, "
+        f"B): out_r=Wb {hu.bucketed_union_plan(SET_C, N_BUCKETS, wb, limit)}, 2Wb "
+        f"{hu.bucketed_union_plan(SET_C, N_BUCKETS, 2 * wb, limit)}, Wb=256 "
+        f"{hu.bucketed_union_plan(512, 2, 512, limit)}")
+    log(f"merge keep-all edges vs twin: bit-exact at C=8/1024/4096, L=1/7/9/127/130/4097, "
+        f"unaligned, B inside A with all-padding lanes, flagged padding (A's tail first); "
+        f"plan at C={SET_C}: {hu.merge_plan(SET_C, limit)}, {hu.merge_smem_bytes(SET_C, limit)} "
+        f"B a CTA")
 
 
 def run_set_slice(pool) -> tuple:
@@ -812,13 +893,14 @@ def set_times_engines(draw, strided, card: str) -> tuple:
              2 * SET_C * SET_L * math.ceil(math.log2(SET_C)), library_ms)
     log("merge library yardstick: a stable torch.sort of the 2C keys per lane and a "
         "gather of the values")
+    unfused_ms = time_ms(lambda: hu.sorted_union_columnar_unfused(*a, *b, out_size=SET_C),
+                         reps=5)
+    log(f"sorted_union_columnar_unfused end to end (L={SET_L}, out=C): {unfused_ms:.4f} ms, "
+        f"its merge kernel {ms:.4f} ms ({100 * ms / unfused_ms:.1f}%)")
 
     (ka, va), (kb, vb) = strided
     ba = ue.sorted_to_bucketed(ka, va, N_BUCKETS, KEY_BITS)[:2]
     bb = ue.sorted_to_bucketed(kb, vb, N_BUCKETS, KEY_BITS)[:2]
-    ms = time_ms(lambda: hu.bucketed_union_columnar(*ba, *bb, n_buckets=N_BUCKETS,
-                                                    out_bucket_rows=wb), reps=10)
-    plain_ms = time_ms(lambda: hu._bucketed_union_plain(*ba, *bb, N_BUCKETS, wb), reps=5)
 
     def segments(x):  # (C, L) -> (L·B, Wb): one row per (lane, bucket)
         return x.reshape(N_BUCKETS, wb, SET_L).permute(2, 0, 1).reshape(-1, wb)
@@ -826,13 +908,34 @@ def set_times_engines(draw, strided, card: str) -> tuple:
     seg_keys = torch.cat([segments(ba[0]), segments(bb[0])], dim=1)
     library_ms = time_ms(lambda: torch.sort(seg_keys, dim=1), reps=5)
     del seg_keys
-    real = int((ba[0] != SENTINEL).sum()) + int((bb[0] != SENTINEL).sum())
-    bucketed = ("bucketed_union", "crdt_tpu_torch/csrc/set_union.cu",
-                "crdt_tpu/ops/pallas_union.py:1003", ms, plain_ms,
-                (4 * SET_C * SET_L + 2 * N_BUCKETS * wb * SET_L + 2 * SET_L) * 4,
-                real * math.ceil(math.log2(wb)), library_ms)
     log("bucketed_union library yardstick: one segmented torch.sort over the "
         f"(L·B, 2·Wb) = ({SET_L * N_BUCKETS}, {2 * wb}) bucket rows")
+    real = int((ba[0] != SENTINEL).sum()) + int((bb[0] != SENTINEL).sum())
+    # the table's row: the resident chain's out_r = Wb; the engine's 2·Wb
+    # beside it in the log
+    shapes = {}
+    limit = hu.smem_limit(torch.device("cuda"))
+    for out_r in (wb, 2 * wb):
+        ms = time_ms(lambda o=out_r: hu.bucketed_union_columnar(
+            *ba, *bb, n_buckets=N_BUCKETS, out_bucket_rows=o), reps=10)
+        plain_ms = time_ms(lambda o=out_r: hu._bucketed_union_plain(*ba, *bb, N_BUCKETS, o),
+                           reps=5)
+        n_bytes = (4 * SET_C * SET_L + 2 * N_BUCKETS * out_r * SET_L + 2 * SET_L) * 4
+        shapes[out_r] = (ms, plain_ms, n_bytes)
+        bound_ms, bound_by = bound(n_bytes, real * math.ceil(math.log2(wb)))
+        plan = hu.bucketed_union_plan(SET_C, N_BUCKETS, out_r, limit)
+        log(f"bucketed_union out_r={out_r} (L={SET_L}, B={N_BUCKETS}): {ms:.4f} ms, plain "
+            f"twin {plain_ms:.4f} ms, library {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"by {bound_by}; plan (lanes a CTA, buffers, B) {plan}")
+    ms, plain_ms, n_bytes = shapes[wb]
+    bucketed = ("bucketed_union", "crdt_tpu_torch/csrc/set_union.cu",
+                "crdt_tpu/ops/pallas_union.py:1003", ms, plain_ms, n_bytes,
+                real * math.ceil(math.log2(wb)), library_ms)
+    engine_ms = time_ms(lambda: ue.engine_bucket(ka, va, kb, vb, SET_C, n_buckets=N_BUCKETS,
+                                                 key_bits=KEY_BITS), reps=5)
+    log(f"engine_bucket end to end (strided draw, L={SET_L}): {engine_ms:.4f} ms, its "
+        f"bucketed_union (out_r=2Wb) {shapes[2 * wb][0]:.4f} ms "
+        f"({100 * shapes[2 * wb][0] / engine_ms:.1f}%)")
 
     auto_ms = time_ms(lambda: orset.columnar_join(*a, *b, engine="auto"), reps=5)
     log(f"columnar_join engine=auto (L={SET_L}, plans bucket, falls back to sort): "

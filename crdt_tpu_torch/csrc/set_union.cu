@@ -1,68 +1,57 @@
 // Single-key columnar set union, bucket-local union and merge — the Hopper
 // (sm_90a) port of three TPU kernels of crdt_tpu/ops/pallas_union.py:
 //
-//   mode UNION, one segment per lane   <- `_union_kernel` (:218), launched
-//       by `sorted_union_columnar_fused` (pallas_call at :334);
-//   mode UNION, B segments of Wb rows  <- `_make_bucketed_union_kernel`
-//       (:1003, body `_bucketed_union_body` :932), launched by
-//       `bucketed_union_columnar` (pallas_call at :1070);
-//   mode MERGE                         <- `_merge_kernel` (:87), launched by
+//   `set_union`       <- `_union_kernel` (:218), launched by
+//       `sorted_union_columnar_fused` (pallas_call at :334);
+//   `bucketed_union`  <- `_make_bucketed_union_kernel` (:1003, body
+//       `_bucketed_union_body` :932), launched by `bucketed_union_columnar`
+//       (pallas_call at :1070);
+//   `set_merge`       <- `_merge_kernel` (:87), launched by
 //       `bitonic_merge_columnar` (pallas_call at :120).
 //
-// What it computes, per lane j (planes are (C, L) int32, row-major, lane j =
-// column j; keys ascending per lane with a SENTINEL tail, values 0 there):
-//   UNION: each lane is cut into C/seg segments of `seg` rows (seg = C for
-//     the full union, seg = Wb for the bucketed layout).  Segment s of the
-//     output is the union of A's and B's segment s: keys ascending, a key
-//     held by both sides appears once with its values OR-combined, a
-//     SENTINEL key is padding; the first `out_seg` rows are written and
-//     rows past the segment's unique count are SENTINEL / 0.  n_unique[j]
-//     is the sum over segments of the unique counts before truncation,
-//     seg_max[j] (bucketed layout only) their maximum.
-//   MERGE: the 2C rows of A and B in ascending key order, nothing dropped;
-//     of two equal keys A's copy comes first.
-// On inputs that keep the host contract (unique keys per side, SENTINEL/0
-// padding) the UNION output is bit-identical to the TPU kernels' on every
-// plane: their bitonic network leaves the order of equal keys open, but the
-// OR makes the kept copy a | b either way.  Values of any width are OR-ed
-// exactly (the TPU kernels fold them into bits 16-30 of a displacement word
-// and so take values < 2^15 only).  MERGE equals the TPU merge wherever the
+// What they compute, per lane j (planes are (C, L) int32, row-major, lane j
+// = column j; keys ascending per lane with a SENTINEL tail, values 0 there):
+//   set_union: the union of A's and B's C rows: keys ascending, a key held
+//     by both sides appears once with its values OR-combined, a SENTINEL
+//     key is padding; the first `out` rows are written and rows past the
+//     unique count are SENTINEL / 0; n_unique[j] is the unique count before
+//     truncation.
+//   bucketed_union: each lane is B buckets of Wb rows, each ascending with
+//     its own SENTINEL tail; bucket b of the output (`out_r` rows) is the
+//     union of A's and B's bucket b, as above; n_unique[j] and
+//     bucket_max[j] are the sum and the maximum of the buckets' unique
+//     counts before truncation.
+//   set_merge: the 2C rows of A and B in ascending key order, nothing
+//     dropped; of two equal keys (padding included) A's copy comes first.
+// The unions follow the plain twins' rule row for row (a merged row equal
+// to the row before it, and not padding, ORs its values into that row and
+// is dropped), so they are bit-identical to the twins, and on inputs that
+// keep the host contract (unique keys per side) to the TPU kernels, whose
+// bitonic network leaves the order of equal keys open but whose OR makes
+// the kept copy a | b either way.  Values of any width are OR-ed exactly
+// (the TPU kernels fold them into bits 16-30 of a displacement word and so
+// take values < 2^15 only).  The merge equals the TPU merge wherever the
 // two copies of an equal key carry equal values.
 //
-// Two bodies:
-//   * UNION with one segment (kernel 2, the OR-Set swarm join) runs the
-//     lane-tile union of tile_union.cuh at one key word and one value plane:
-//     persistent CTAs of 8-lane tiles, the next tile's key planes in flight
-//     by cp.async while this one ranks by merge path and moves, the value
-//     planes staged while it ranks, a map of output row -> source, whole
-//     rows stored.  Its lane tile, stage counts and shared memory are the
-//     host's (hopper_union.set_union_plan / set_union_smem_bytes); the host
-//     passes a lane tile for this launch only, and the C entry takes the
-//     tile body exactly when it is given one.
-//   * the bucketed UNION (kernel 3) and MERGE (kernel 6) run the first
-//     version's template below: a CTA takes a tile of LT adjacent lanes (LT
-//     in {1, 2, 4, 8}, the largest whose shared memory fits kTileBudget, so
-//     two CTAs share an SM), loads the four input planes cooperatively,
-//     row-major, then a warp per (lane, segment) ranks each row of one side
-//     against the other by a binary search in shared memory (merged position
-//     = i + #(B < A[i]) for A, j + #(A <= B[j]) for B), drops B rows whose
-//     key A also holds and shifts the rest down by the duplicates below them
-//     (__ballot_sync/__popc), and writes the output tile back row-major.
+// Two bodies, chosen by the host (ops/hopper_union.py), which also works
+// out each launch's plan and shared memory and passes them in:
+//   * set_union and set_merge run the lane-tile union of tile_union.cuh at
+//     one key word and one value plane (persistent CTAs of 8-lane tiles,
+//     the next tile's keys in flight by cp.async while this one ranks by
+//     merge path and moves, whole rows stored); set_merge in its keep-all
+//     mode, whose 16-bit map leaves room for two key stages at C = 1024
+//     (hopper_union.set_union_plan / merge_plan).
+//   * bucketed_union runs the wide-lane segment body below: a bucket is
+//     only Wb rows, so a CTA stages one bucket of W adjacent lanes at once
+//     (W up to 256) and its row requests are W lanes wide — 512 B to 1 KB
+//     where the lane tile's were 16-32 B.
 //
-// What bounds them on this card: bytes.  The union at C = 1024 reads 4
-// planes and writes 2 planes + n_unique: 24 KB per lane, 25.8 GB at 2^20
-// lanes, 7.69 ms at 3.35 TB/s.  The first version (now kernels 3 and 6
-// only) loads, ranks and stores in turn, with a thread's few 4 B loads in
-// flight only while it loads, its binary searches bank-conflicted and each
-// sector half used at LT = 4; it ran kernel 2 at 5.5x that bound.  The tile
-// body keeps loads in flight across the tiles, ranks with one shared load a
-// merged row and moves whole sectors; what holds it now is the count of
-// row requests at 2^20 lanes (tile_union.cuh).  The template's shared memory per
-// CTA (LT lanes): 4 input planes of C rows plus 2 output planes of rows_out
-// rows, each lane's column padded by 32/LT words so the tile's row-major
-// stores to shared memory hit 32 distinct banks.  Past the card's opt-in
-// limit (227 KB) cudaFuncSetAttribute refuses a launch and the wrapper
-// raises.
+// What bounds them on this card: bytes in principle (kernel 3 at C = 1024,
+// out = Wb reads 4 planes and writes 2 planes of C rows: 24 KB a lane,
+// 0.96 ms at 131,072 lanes and 3.35 TB/s), and in fact the rate at which an
+// SM serves row requests when a lane's rows are L words apart (PERF.md,
+// the kernel table): the lane tile makes its rows one 32 B sector each;
+// the segment body makes them W lanes wide.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -71,262 +60,269 @@
 
 namespace {
 
+// ---- the wide-lane segment body (kernel 3) ----
+//
+// One CTA of kThreads threads takes W adjacent lanes (W a power of two, 1 to
+// 256) and walks the B buckets in order through a ring of `stages` buffers,
+// each one bucket of the four input planes laid out [plane][row][lane]
+// (4 x Wb x W words), filled by cp.async: 16 B a thread where W % 4 == 0,
+// L % 4 == 0 and the planes are 16 B aligned, else 4 B; lanes past L read
+// nothing.  While bucket b's buffer is ranked, buckets b+1 .. b+stages-1 are
+// in flight.  Thread t < W unions lane t's bucket from its own column (no
+// bank conflicts: neighbouring threads read neighbouring words), by a merge
+// walk of the twin's rule into an output buffer [plane][row][lane] of
+// out_r rows, then the whole CTA stores that buffer as whole W-lane rows
+// (16 B a thread where allowed).  n_unique and bucket_max stay in the lane
+// thread's registers until the last bucket.
+// Shared memory (words): stages x 4 x Wb x W inputs + 2 x out_r x W outputs
+// — the host's hopper_union.bucketed_union_plan; the launcher checks the
+// figure it is given against this layout.
+
 constexpr int32_t kSentinel = 0x7FFFFFFF;
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxLaneShift = 3;  // at most 8 lanes a CTA
-// two CTAs per SM: Hopper's SM has 228 KB of shared memory, 1 KB of it
-// reserved per CTA
-constexpr size_t kTileBudget = 113 * 1024;
+constexpr int kMaxWidth = 256;
+constexpr int kMaxStages = 4;
 
-enum Mode { kUnion = 0, kMerge = 1 };
-
-struct Params {
-  const int32_t* ka;
+struct SegArgs {
+  const int32_t* ka;  // inputs (c, lanes): keys and values of A and B
   const int32_t* va;
   const int32_t* kb;
   const int32_t* vb;
-  int32_t* ko;
+  int32_t* ko;        // outputs (B * out_r, lanes)
   int32_t* vo;
-  int32_t* n_unique;  // [lanes], UNION only
-  int32_t* seg_max;   // [lanes] or null
-  int c;              // rows per operand per lane
+  int32_t* n_unique;
+  int32_t* bucket_max;
+  int c;        // rows of each input plane: B * Wb
   int lanes;
-  int seg;            // rows per segment per operand
-  int out_seg;        // output rows per segment
-  int lt_shift;       // log2 of the lanes per CTA
+  int wb;       // rows of a bucket, a power of two
+  int out_r;    // output rows of a bucket, 0 .. 2 Wb
+  int width;    // lanes a CTA, a power of two <= kMaxWidth
+  int stages;   // input buffers, 1 .. kMaxStages
 };
 
-// #rows of arr[0, n) (ascending) below x (kStrict) or at or below x.
-template <bool kStrict>
-__device__ __forceinline__ int rank_in(const int32_t* arr, int n, int32_t x) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    const bool go_right = kStrict ? arr[mid] < x : arr[mid] <= x;
-    if (go_right) lo = mid + 1; else hi = mid;
-  }
-  return lo;
+size_t seg_smem_bytes(const SegArgs& p) {
+  return sizeof(int32_t) * (size_t)p.width *
+         ((size_t)p.stages * 4 * p.wb + (size_t)2 * p.out_r);
 }
 
-__host__ __device__ __forceinline__ int tile_pad(int lt) { return 32 / lt; }
-
-// Union of one segment (n rows a side) into out[0, out_rows), by one warp.
-// Returns the segment's unique count (on every lane of the warp).
-__device__ int union_segment(const int32_t* a, const int32_t* av,
-                             const int32_t* b, const int32_t* bv, int n,
-                             int32_t* ok, int32_t* ov, int out_rows) {
-  const int lid = threadIdx.x & 31;
-  const unsigned below = (1u << lid) - 1u;
-  int dups = 0;
-  for (int base = 0; base < n; base += 32) {
-    const int i = base + lid;
-    const int32_t x = i < n ? a[i] : kSentinel;
-    const bool real = x != kSentinel;
-    const int cb = real ? rank_in<true>(b, n, x) : 0;
-    const bool dup = real && cb < n && b[cb] == x;
-    const unsigned m = __ballot_sync(0xffffffffu, dup);
-    // rows of A below i are real (keys ascend, SENTINEL last), and the
-    // duplicates below x are exactly A's duplicate rows below i
-    const int pos = i + cb - (dups + __popc(m & below));
-    if (real && pos < out_rows) {
-      ok[pos] = x;
-      ov[pos] = av[i] | (dup ? bv[cb] : 0);
-    }
-    dups += __popc(m);
-  }
-  int b_dups = 0;
-  for (int base = 0; base < n; base += 32) {
-    const int j = base + lid;
-    const int32_t y = j < n ? b[j] : kSentinel;
-    const bool real = y != kSentinel;
-    const int ca = real ? rank_in<true>(a, n, y) : 0;
-    const bool dup = real && ca < n && a[ca] == y;
-    const unsigned m = __ballot_sync(0xffffffffu, dup);
-    const int pos = j + ca - (b_dups + __popc(m & below));
-    if (real && !dup && pos < out_rows) {
-      ok[pos] = y;
-      ov[pos] = bv[j];
-    }
-    b_dups += __popc(m);
-  }
-  const int unique = rank_in<true>(a, n, kSentinel) + rank_in<true>(b, n, kSentinel) - dups;
-  for (int r = unique + lid; r < out_rows; r += 32) {
-    ok[r] = kSentinel;
-    ov[r] = 0;
-  }
-  return unique;
-}
-
-// Merge of A's and B's n rows into out[0, 2n), by one warp.
-__device__ void merge_segment(const int32_t* a, const int32_t* av,
-                              const int32_t* b, const int32_t* bv, int n,
-                              int32_t* ok, int32_t* ov) {
-  const int lid = threadIdx.x & 31;
-  for (int i = lid; i < n; i += 32) {
-    const int pos = i + rank_in<true>(b, n, a[i]);
-    ok[pos] = a[i];
-    ov[pos] = av[i];
-  }
-  for (int j = lid; j < n; j += 32) {
-    const int pos = j + rank_in<false>(a, n, b[j]);
-    ok[pos] = b[j];
-    ov[pos] = bv[j];
+__device__ __forceinline__ void cp_async_wait_dyn(int pending) {
+  switch (pending) {
+    case 0: tile_union::cp_async_wait<0>(); break;
+    case 1: tile_union::cp_async_wait<1>(); break;
+    case 2: tile_union::cp_async_wait<2>(); break;
+    default: tile_union::cp_async_wait<3>(); break;
   }
 }
 
-template <Mode kMode>
-__global__ void __launch_bounds__(kThreads)
-set_union_kernel(Params p) {
-  extern __shared__ int32_t smem[];
-  const int lt = 1 << p.lt_shift;
-  const int n_seg = p.c / p.seg;
-  const int rows_out = n_seg * p.out_seg;
-  const int in_stride = p.c + tile_pad(lt);
-  const int out_stride = rows_out + tile_pad(lt);
-  const size_t lanes = (size_t)p.lanes;
-  const size_t lane0 = (size_t)blockIdx.x << p.lt_shift;
+// Request bucket `b` of the four input planes for lanes lane0 .. lane0+W-1
+// into `buf` ([plane][row][lane]).
+__device__ __forceinline__ void load_bucket(const SegArgs& p, int b, int32_t* buf,
+                                            long long lane0, bool vec, int wb_shift,
+                                            int w_shift) {
+  const int q_shift = vec ? w_shift - 2 : w_shift;  // chunks a row, log2
+  const int chunk = vec ? 4 : 1;                    // lanes a chunk
+  const long long lanes = p.lanes;
+  const int items = 4 << (wb_shift + q_shift);
+  for (int w = threadIdx.x; w < items; w += kThreads) {
+    const int h = w & ((1 << q_shift) - 1), rest = w >> q_shift;
+    const int row = rest & (p.wb - 1), plane = rest >> wb_shift;
+    const long long lane = lane0 + h * chunk;
+    const long long left = lanes - lane;
+    const int valid = left <= 0 ? 0 : (left >= chunk ? chunk : (int)left);
+    int32_t* dst = buf + ((size_t)(plane << wb_shift) + row) * p.width + h * chunk;
+    // a select, not p.in[plane]: indexing the parameters would copy them to
+    // the stack
+    const int32_t* base = plane < 2 ? (plane ? p.va : p.ka) : (plane == 2 ? p.kb : p.vb);
+    const int32_t* src = valid ? base + ((size_t)b * p.wb + row) * lanes + lane : base;
+    if (vec) tile_union::cp_async16(dst, src, 4 * valid);
+    else tile_union::cp_async4(dst, src, 4 * valid);
+  }
+}
 
-  int32_t* s_ka = smem;                      // LT x in_stride each
-  int32_t* s_va = s_ka + lt * in_stride;
-  int32_t* s_kb = s_va + lt * in_stride;
-  int32_t* s_vb = s_kb + lt * in_stride;
-  int32_t* s_ko = s_vb + lt * in_stride;     // LT x out_stride each
-  int32_t* s_vo = s_ko + lt * out_stride;
-  int* s_nu = s_vo + lt * out_stride;        // LT
-  int* s_max = s_nu + lt;                    // LT
-
-  // 1. load the lane tile, row-major: thread -> (row, lane of the tile)
-  for (int idx = threadIdx.x; idx < (p.c << p.lt_shift); idx += kThreads) {
-    const int row = idx >> p.lt_shift, l = idx & (lt - 1);
-    const size_t lane = lane0 + l;
-    const int at = l * in_stride + row;
-    if (lane < lanes) {
-      const size_t g = (size_t)row * lanes + lane;
-      s_ka[at] = p.ka[g];
-      s_va[at] = p.va[g];
-      s_kb[at] = p.kb[g];
-      s_vb[at] = p.vb[g];
+// The union of one lane's bucket (column `t` of `buf`) into column `t` of
+// the output buffer; returns the bucket's unique count before truncation.
+__device__ __forceinline__ int union_column(const SegArgs& p, const int32_t* buf,
+                                            int32_t* ko, int32_t* vo, int t) {
+  const int wb = p.wb, w = p.width, out_r = p.out_r;
+  const int32_t* ka = buf + t;
+  const int32_t* va = ka + (size_t)wb * w;
+  const int32_t* kb = va + (size_t)wb * w;
+  const int32_t* vb = kb + (size_t)wb * w;
+  int ia = 0, ib = 0, o = 0;
+  int32_t ha = ka[0], hb = kb[0], prev = 0;
+  bool prev_kept = false;  // the merged row before this one was kept
+  for (int d = 0; d < 2 * wb; ++d) {
+    const bool ta = ia < wb && (ib >= wb || !(hb < ha));
+    const int32_t key = ta ? ha : hb;
+    if (key == kSentinel) break;  // padding: every later merged row is too
+    const int32_t val = ta ? va[ia * w] : vb[ib * w];
+    if (ta) {
+      if (++ia < wb) ha = ka[ia * w];
     } else {
-      s_ka[at] = s_kb[at] = kSentinel;
-      s_va[at] = s_vb[at] = 0;
+      if (++ib < wb) hb = kb[ib * w];
     }
-  }
-  if (threadIdx.x < lt) s_nu[threadIdx.x] = s_max[threadIdx.x] = 0;
-  __syncthreads();
-
-  // 2. one warp per (lane, segment) work item
-  const int warp = threadIdx.x >> 5;
-  for (int item = warp; item < (n_seg << p.lt_shift); item += kWarps) {
-    const int l = item / n_seg, s = item - l * n_seg;
-    const int in_at = l * in_stride + s * p.seg;
-    const int out_at = l * out_stride + s * p.out_seg;
-    if (kMode == kMerge) {
-      merge_segment(s_ka + in_at, s_va + in_at, s_kb + in_at, s_vb + in_at,
-                    p.seg, s_ko + out_at, s_vo + out_at);
+    if (d > 0 && key == prev) {  // a duplicate ORs into a kept row before it
+      if (prev_kept && o - 1 < out_r) vo[(o - 1) * w + t] |= val;
+      prev_kept = false;
     } else {
-      const int unique = union_segment(s_ka + in_at, s_va + in_at, s_kb + in_at,
-                                       s_vb + in_at, p.seg, s_ko + out_at,
-                                       s_vo + out_at, p.out_seg);
-      if ((threadIdx.x & 31) == 0) {
-        atomicAdd(&s_nu[l], unique);
-        atomicMax(&s_max[l], unique);
+      if (o < out_r) {
+        ko[o * w + t] = key;
+        vo[o * w + t] = val;
       }
+      ++o;
+      prev_kept = true;
+    }
+    prev = key;
+  }
+  for (int r = o; r < out_r; ++r) {
+    ko[r * w + t] = kSentinel;
+    vo[r * w + t] = 0;
+  }
+  return o;
+}
+
+// Store the output buffer (2 planes x out_r rows x W lanes) as bucket `b`
+// of the output planes, whole W-lane rows.
+__device__ __forceinline__ void store_bucket(const SegArgs& p, int b, const int32_t* obuf,
+                                             long long lane0, bool vec, int w_shift) {
+  const int q_shift = vec ? w_shift - 2 : w_shift;
+  const int chunk = vec ? 4 : 1;
+  const long long lanes = p.lanes;
+  const int items = (2 * p.out_r) << q_shift;
+  for (int w = threadIdx.x; w < items; w += kThreads) {
+    const int h = w & ((1 << q_shift) - 1), rest = w >> q_shift;
+    const int plane = rest >= p.out_r, row = rest - plane * p.out_r;
+    const long long lane = lane0 + h * chunk;
+    if (lane >= lanes) continue;
+    const int32_t* src = obuf + (size_t)rest * p.width + h * chunk;
+    int32_t* dst = (plane ? p.vo : p.ko) + ((size_t)b * p.out_r + row) * lanes + lane;
+    if (vec) {
+      *reinterpret_cast<int4*>(dst) = *reinterpret_cast<const int4*>(src);
+    } else {
+      *dst = *src;
     }
   }
-  __syncthreads();
+}
 
-  // 3. write the output tile back, row-major like the load
-  for (int idx = threadIdx.x; idx < (rows_out << p.lt_shift); idx += kThreads) {
-    const int row = idx >> p.lt_shift, l = idx & (lt - 1);
-    const size_t lane = lane0 + l;
-    if (lane < lanes) {
-      const size_t g = (size_t)row * lanes + lane;
-      p.ko[g] = s_ko[l * out_stride + row];
-      p.vo[g] = s_vo[l * out_stride + row];
+__global__ void __launch_bounds__(kThreads) segment_union_kernel(SegArgs p) {
+  extern __shared__ int32_t smem[];
+  const int t = threadIdx.x, w = p.width;
+  const int wb_shift = __ffs(p.wb) - 1, w_shift = __ffs(w) - 1;
+  const int n_buckets = p.c >> wb_shift;
+  const long long lane0 = (long long)blockIdx.x * w;
+  const size_t stage_words = (size_t)4 * p.wb * w;
+  int32_t* obuf = smem + p.stages * stage_words;
+  const bool vec_ok = w % 4 == 0 && p.lanes % 4 == 0;
+  const bool vec_in = vec_ok && ((reinterpret_cast<uintptr_t>(p.ka) | reinterpret_cast<uintptr_t>(p.va) |
+                                  reinterpret_cast<uintptr_t>(p.kb) | reinterpret_cast<uintptr_t>(p.vb)) &
+                                 15) == 0;
+  const bool vec_out =
+      vec_ok && ((reinterpret_cast<uintptr_t>(p.ko) | reinterpret_cast<uintptr_t>(p.vo)) & 15) == 0;
+  const bool lane_live = t < w && lane0 + t < p.lanes;
+
+  for (int s = 0; s < p.stages; ++s) {
+    if (s < n_buckets) load_bucket(p, s, smem + s * stage_words, lane0, vec_in, wb_shift, w_shift);
+    tile_union::cp_async_commit();
+  }
+  int total = 0, most = 0;
+  for (int b = 0; b < n_buckets; ++b) {
+    const int slot = b % p.stages;
+    cp_async_wait_dyn(p.stages - 1);
+    __syncthreads();  // bucket b has landed; the last bucket's stores have read obuf
+    if (lane_live) {
+      const int u = union_column(p, smem + slot * stage_words, obuf,
+                                 obuf + (size_t)p.out_r * w, t);
+      total += u;
+      most = max(most, u);
     }
+    __syncthreads();
+    store_bucket(p, b, obuf, lane0, vec_out, w_shift);
+    if (b + p.stages < n_buckets) {
+      load_bucket(p, b + p.stages, smem + slot * stage_words, lane0, vec_in, wb_shift, w_shift);
+    }
+    tile_union::cp_async_commit();
   }
-  if (kMode == kUnion && threadIdx.x < lt && lane0 + threadIdx.x < lanes) {
-    p.n_unique[lane0 + threadIdx.x] = s_nu[threadIdx.x];
-    if (p.seg_max != nullptr) p.seg_max[lane0 + threadIdx.x] = s_max[threadIdx.x];
+  tile_union::cp_async_wait<0>();
+  if (lane_live) {
+    p.n_unique[lane0 + t] = total;
+    p.bucket_max[lane0 + t] = most;
   }
 }
 
-size_t smem_bytes(int c, int rows_out, int lt) {
-  const size_t pad = tile_pad(lt);
-  return sizeof(int32_t) * (size_t)lt * (4 * (c + pad) + 2 * (rows_out + pad) + 2);
-}
-
-int lane_tile_shift(int c, int rows_out) {
-  int shift = kMaxLaneShift;
-  while (shift > 0 && smem_bytes(c, rows_out, 1 << shift) > kTileBudget) --shift;
-  return shift;
-}
-
-template <Mode kMode>
-cudaError_t launch(const Params& p, size_t smem, cudaStream_t stream) {
-  auto kernel = set_union_kernel<kMode>;
+cudaError_t launch_segment(const SegArgs& p, int smem, cudaStream_t stream) {
+  const bool pow2_wb = p.wb >= 1 && (p.wb & (p.wb - 1)) == 0;
+  const bool pow2_w = p.width >= 1 && p.width <= kMaxWidth && (p.width & (p.width - 1)) == 0;
+  if (!pow2_wb || !pow2_w || p.c < p.wb || p.c % p.wb != 0 || p.lanes <= 0 || p.out_r < 0 ||
+      p.out_r > 2 * p.wb || p.stages < 1 || p.stages > kMaxStages ||
+      p.n_unique == nullptr || p.bucket_max == nullptr || smem < 0 ||
+      (size_t)smem < seg_smem_bytes(p)) {
+    return cudaErrorInvalidValue;
+  }
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      segment_union_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const unsigned blocks = (unsigned)((p.lanes + (1 << p.lt_shift) - 1) >> p.lt_shift);
-  kernel<<<blocks, kThreads, smem, stream>>>(p);
+  const long long blocks = ((long long)p.lanes + p.width - 1) / p.width;
+  segment_union_kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+tile_union::Args tile_args(const void* ka, const void* va, const void* kb, const void* vb,
+                           void* ko, void* vo, void* n_unique, int c, int lanes, int out,
+                           int lane_tile, int stages, int stage_vals) {
+  tile_union::Args t = {};
+  t.a[0] = static_cast<const int32_t*>(ka);
+  t.a[1] = static_cast<const int32_t*>(va);
+  t.b[0] = static_cast<const int32_t*>(kb);
+  t.b[1] = static_cast<const int32_t*>(vb);
+  t.out[0] = static_cast<int32_t*>(ko);
+  t.out[1] = static_cast<int32_t*>(vo);
+  t.n_unique = static_cast<int32_t*>(n_unique);
+  t.c = c;
+  t.lanes = lanes;
+  t.out_size = out;
+  t.n_keys = 1;
+  t.n_vals = 1;
+  t.lt = lane_tile;
+  t.stages = stages;
+  t.stage_vals = stage_vals;
+  return t;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Lanes per CTA and shared-memory bytes per CTA of the template (kernels 3
-// and 6) for `c` rows per operand and `rows_out` output rows per lane.
-int segment_union_lane_tile(int c, int rows_out) {
-  return 1 << lane_tile_shift(c, rows_out);
+// Each entry launches on `stream` with the host's plan and `smem` bytes of
+// shared memory a CTA (checked against the body's layout) and returns a
+// cudaError_t.  Planes are contiguous (c, lanes) int32.
+
+// Kernel 2: the union cut to `out` rows, on the lane tile (`lane_tile`,
+// `stages`, `stage_vals`: hopper_union.set_union_plan).
+int set_union(const void* ka, const void* va, const void* kb, const void* vb, void* ko,
+              void* vo, void* n_unique, int c, int lanes, int out, int lane_tile,
+              int stages, int stage_vals, int smem, void* stream) {
+  return tile_union::launch<1>(tile_args(ka, va, kb, vb, ko, vo, n_unique, c, lanes, out,
+                                         lane_tile, stages, stage_vals),
+                               smem, static_cast<cudaStream_t>(stream));
 }
 
-size_t segment_union_smem_bytes(int c, int rows_out) {
-  return smem_bytes(c, rows_out, segment_union_lane_tile(c, rows_out));
+// Kernel 6: the merge into (2c, lanes) planes, on the lane tile's keep-all
+// mode (hopper_union.merge_plan).
+int set_merge(const void* ka, const void* va, const void* kb, const void* vb, void* ko,
+              void* vo, int c, int lanes, int lane_tile, int stages, int stage_vals,
+              int smem, void* stream) {
+  return tile_union::launch<1, true>(tile_args(ka, va, kb, vb, ko, vo, nullptr, c, lanes,
+                                               2 * c, lane_tile, stages, stage_vals),
+                                     smem, static_cast<cudaStream_t>(stream));
 }
 
-// Launch on `stream`.  mode 0 = union of segments of `seg` rows, each cut
-// to `out_seg` rows (n_unique required, seg_max may be null); mode 1 =
-// merge (seg = c, out_seg = 2c, n_unique and seg_max unused).  Planes are
-// contiguous (c, lanes) int32, outputs (c / seg * out_seg, lanes).
-// `lane_tile` > 0 runs the tile body with the host's `lane_tile`, `stages`,
-// `stage_vals` and `smem` bytes a CTA; it takes the union of one segment
-// (seg = c) without seg_max only.  `lane_tile` 0 runs the template, which
-// ignores the other three.  Returns a cudaError_t.
-int set_union(int mode, const void* ka, const void* va, const void* kb,
-              const void* vb, void* ko, void* vo, void* n_unique, void* seg_max,
-              int c, int lanes, int seg, int out_seg, int lane_tile, int stages,
-              int stage_vals, int smem, void* stream) {
-  if (lanes <= 0 || seg <= 0 || c % seg != 0 || out_seg < 0 ||
-      out_seg > 2 * seg || (mode == kMerge && (seg != c || out_seg != 2 * c)) ||
-      (mode == kUnion && n_unique == nullptr)) {
-    return cudaErrorInvalidValue;
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (lane_tile > 0) {
-    if (mode != kUnion || seg != c || seg_max != nullptr) return cudaErrorInvalidValue;
-    tile_union::Args t = {};
-    t.a[0] = static_cast<const int32_t*>(ka);
-    t.a[1] = static_cast<const int32_t*>(va);
-    t.b[0] = static_cast<const int32_t*>(kb);
-    t.b[1] = static_cast<const int32_t*>(vb);
-    t.out[0] = static_cast<int32_t*>(ko);
-    t.out[1] = static_cast<int32_t*>(vo);
-    t.n_unique = static_cast<int32_t*>(n_unique);
-    t.c = c;
-    t.lanes = lanes;
-    t.out_size = out_seg;
-    t.n_keys = 1;
-    t.n_vals = 1;
-    t.lt = lane_tile;
-    t.stages = stages;
-    t.stage_vals = stage_vals;
-    return tile_union::launch<1>(t, smem, s);
-  }
-  Params p = {};
+// Kernel 3: the union of each of c / wb buckets cut to `out_r` rows, into
+// (c / wb * out_r, lanes) planes, on the segment body (`width` lanes a CTA,
+// `stages` input buffers: hopper_union.bucketed_union_plan).
+int bucketed_union(const void* ka, const void* va, const void* kb, const void* vb,
+                   void* ko, void* vo, void* n_unique, void* bucket_max, int c, int lanes,
+                   int wb, int out_r, int width, int stages, int smem, void* stream) {
+  SegArgs p = {};
   p.ka = static_cast<const int32_t*>(ka);
   p.va = static_cast<const int32_t*>(va);
   p.kb = static_cast<const int32_t*>(kb);
@@ -334,17 +330,14 @@ int set_union(int mode, const void* ka, const void* va, const void* kb,
   p.ko = static_cast<int32_t*>(ko);
   p.vo = static_cast<int32_t*>(vo);
   p.n_unique = static_cast<int32_t*>(n_unique);
-  p.seg_max = static_cast<int32_t*>(seg_max);
+  p.bucket_max = static_cast<int32_t*>(bucket_max);
   p.c = c;
   p.lanes = lanes;
-  p.seg = seg;
-  p.out_seg = out_seg;
-  const int rows_out = c / seg * out_seg;
-  p.lt_shift = lane_tile_shift(c, rows_out);
-  const size_t bytes = smem_bytes(c, rows_out, 1 << p.lt_shift);
-  if (mode == kUnion) return launch<kUnion>(p, bytes, s);
-  if (mode == kMerge) return launch<kMerge>(p, bytes, s);
-  return cudaErrorInvalidValue;
+  p.wb = wb;
+  p.out_r = out_r;
+  p.width = width;
+  p.stages = stages;
+  return launch_segment(p, smem, static_cast<cudaStream_t>(stream));
 }
 
 const char* set_union_error_string(int err) {

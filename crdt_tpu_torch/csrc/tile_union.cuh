@@ -1,6 +1,7 @@
-// The lane-tile union: one body for two kernels, the single-key OR-Set union
-// (set_union.cu, mode UNION with one segment) and the lexN union at narrow
-// keys (lexn_union.cu, the OpLog's (hi, lo) split).
+// The lane-tile union: one body for three kernels, the single-key OR-Set union
+// (set_union.cu, `set_union`) and the lexN union at narrow keys
+// (lexn_union.cu, the OpLog's (hi, lo) split), and, in its keep-all mode, the
+// single-key merge (set_union.cu, `set_merge`).
 //
 // Contract (per lane j of (C, L) int32 planes, keys first, then values):
 // both operands' rows ascend lexicographically over the n_keys key words
@@ -11,6 +12,10 @@
 // kept rows ascend from row 0, the first `out_size` of them written and the
 // rest SENTINEL / 0; n_unique[j] is the kept count before truncation.  This
 // is the plain twins' rule row for row, so the result is bit-equal to them.
+// Keep-all mode (a compile-time parameter, tile_merge_kernel) keeps every
+// merged row, padding included: no row is punched, no value ORed, out_size
+// is 2C and no n_unique is written — a stable merge, A's rows first among
+// equal keys, each row with its own values.
 //
 // What bounds it on an H100: bytes in principle — it reads every plane once
 // and writes the output once, against ~2C compares a lane — and in fact
@@ -42,10 +47,15 @@
 //   * the move: a warp takes 32/LT output rows x LT lanes, reads the map,
 //     the key words and staged values from shared memory, 8 rows of a
 //     thread in flight a plane, and stores whole rows of the tile.
+// In keep-all mode an output row is its merged row, so the walk writes the
+// map directly (no bits, no scan) and the map holds only the 16-bit source:
+// half the map's bytes, which leaves room at C = 1024 for the second key
+// stage.
 // Shared memory (words): stages x 2 x n_keys x C x LT keys, 2 x n_vals x C
-// x LT staged values, out_size x LT map, (warps + 1) x LT scan sums and
-// totals — the host's hopper_union.tile_union_smem_bytes; the launcher
-// checks the figure it is given against this layout.
+// x LT staged values, out_size x LT map (half words in keep-all mode),
+// (warps + 1) x LT scan sums and totals — the host's
+// hopper_union.tile_union_smem_bytes; the launcher checks the figure it is
+// given against this layout.
 
 #pragma once
 
@@ -79,11 +89,14 @@ struct Args {
   int stage_vals;  // 1: one buffer of the value planes; 0: gather them
 };
 
-__host__ __device__ inline size_t smem_bytes(const Args& p) {
+// `keep_all`: a map entry is the 16-bit source alone, not source and OR
+// partner
+__host__ __device__ inline size_t smem_bytes(const Args& p, bool keep_all = false) {
   return sizeof(int32_t) *
-         ((size_t)p.stages * 2 * p.n_keys * p.c * p.lt +
-          (size_t)p.stage_vals * 2 * p.n_vals * p.c * p.lt + (size_t)p.out_size * p.lt +
-          (size_t)(kWarps + 1) * p.lt);
+             ((size_t)p.stages * 2 * p.n_keys * p.c * p.lt +
+              (size_t)p.stage_vals * 2 * p.n_vals * p.c * p.lt +
+              (size_t)(kWarps + 1) * p.lt) +
+         (keep_all ? sizeof(uint16_t) : sizeof(uint32_t)) * p.out_size * p.lt;
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
@@ -204,6 +217,46 @@ __device__ __forceinline__ int lane_scan(int cnt, int* warp_sums, int lt, int* t
   return incl - cnt + before;
 }
 
+// The keep-all rank: each thread walks its 32 merged rows and writes each
+// row's 16-bit source straight into the map (output row = merged row).
+template <int kKeys>
+__device__ __forceinline__ int rank_keep_all(const Args& p, const int32_t* buf,
+                                             uint16_t* map) {
+  constexpr int K = kKeys ? kKeys : kMaxKeys;
+  const int nk = kKeys ? kKeys : p.n_keys;
+  const int lt = p.lt, c = p.c, n = 2 * c;
+  const int t = threadIdx.x, l = t % lt, q = t / lt, tpl = kThreads / lt;
+  const int ws = c * lt;
+  const int32_t* col_a = buf + l;
+  const int32_t* col_b = buf + (size_t)nk * ws + l;
+  for (int base = 0; base < n; base += kRankRows * tpl) {
+    const int d0 = min(n, base + q * kRankRows), d1 = min(n, d0 + kRankRows);
+    if (d0 >= d1) continue;
+    int lo = max(0, d0 - c), hi = min(d0, c);
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      int32_t x[K], y[K];
+      read_row<K>(x, col_a, mid, nk, ws, lt);
+      read_row<K>(y, col_b, d0 - 1 - mid, nk, ws, lt);
+      if (!lex_less<K>(y, x, nk)) lo = mid + 1; else hi = mid;
+    }
+    int ia = lo, ib = d0 - lo;
+    int32_t ha[K], hb[K];
+    if (ia < c) read_row<K>(ha, col_a, ia, nk, ws, lt);
+    if (ib < c) read_row<K>(hb, col_b, ib, nk, ws, lt);
+    for (int d = d0; d < d1; ++d) {
+      const bool ta = ia < c && (ib >= c || !lex_less<K>(hb, ha, nk));
+      map[(size_t)d * lt + l] = (uint16_t)(ta ? ia : (0x8000 | ib));
+      if (ta) {
+        if (++ia < c) read_row<K>(ha, col_a, ia, nk, ws, lt);
+      } else {
+        if (++ib < c) read_row<K>(hb, col_b, ib, nk, ws, lt);
+      }
+    }
+  }
+  return n;
+}
+
 // Rank one tile's lanes (keys in `buf`) into `map`; returns lane t % lt's
 // kept count.  The source of a merged row: bit 15 = B, bits 0-14 = row.
 template <int kKeys>
@@ -316,10 +369,12 @@ __device__ __forceinline__ int rank_tile(const Args& p, const int32_t* buf,
 // tile (`lane` in the planes): its keys from the staged keys, its values
 // from the staged values (`vals` non-null) or from device memory,
 // kMoveRows rows in flight together a plane.  Neighbouring threads take
-// neighbouring lanes, so a warp's stores are whole rows of the tile.
-template <int kKeys>
+// neighbouring lanes, so a warp's stores are whole rows of the tile.  In
+// keep-all mode `map` holds half words (a source, no OR partner) and every
+// output row is filled.
+template <int kKeys, bool kKeepAll>
 __device__ __forceinline__ void move_rows(const Args& p, const int32_t* keys,
-                                          const int32_t* vals, const uint32_t* map,
+                                          const int32_t* vals, const void* map_words,
                                           const int* totals, int l, int lt, long long lane,
                                           int o_first, int o_end, int rp) {
   const int nk = kKeys ? kKeys : p.n_keys;
@@ -327,6 +382,8 @@ __device__ __forceinline__ void move_rows(const Args& p, const int32_t* keys,
   if (lane >= p.lanes) return;
   const long long lanes = p.lanes;
   const int total = totals[l];
+  const uint32_t* map = static_cast<const uint32_t*>(map_words);
+  const uint16_t* map16 = static_cast<const uint16_t*>(map_words);
   const int ws = p.c * lt;  // stride of a staged plane
   const int32_t* keys_a = keys + l;
   const int32_t* keys_b = keys + (size_t)nk * ws + l;
@@ -335,7 +392,11 @@ __device__ __forceinline__ void move_rows(const Args& p, const int32_t* keys,
 #pragma unroll
     for (int u = 0; u < kMoveRows; ++u) {
       const int o = o0 + u * rp;
-      e[u] = o < o_end && o < total ? map[(size_t)o * lt + l] : 0xFFFFFFFFu;
+      if constexpr (kKeepAll) {
+        e[u] = o < o_end ? map16[(size_t)o * lt + l] : kNone;
+      } else {
+        e[u] = o < o_end && o < total ? map[(size_t)o * lt + l] : 0xFFFFFFFFu;
+      }
     }
     for (int k = 0; k < nk; ++k) {
 #pragma unroll
@@ -355,7 +416,7 @@ __device__ __forceinline__ void move_rows(const Args& p, const int32_t* keys,
         const int32_t* vb = vals + (size_t)(nv + v) * ws + l;
 #pragma unroll
         for (int u = 0; u < kMoveRows; ++u) {
-          const uint32_t s = e[u] & kNone, s2 = e[u] >> 16;
+          const uint32_t s = e[u] & kNone, s2 = kKeepAll ? kNone : e[u] >> 16;
           x[u] = s == kNone ? 0 : ((s & 0x8000u) ? vb : va)[(int)(s & 0x7FFFu) * lt];
           if (s2 != kNone) x[u] |= ((s2 & 0x8000u) ? vb : va)[(int)(s2 & 0x7FFFu) * lt];
         }
@@ -368,11 +429,13 @@ __device__ __forceinline__ void move_rows(const Args& p, const int32_t* keys,
           x[u] = s == kNone ? 0
                             : __ldg(((s & 0x8000u) ? vb : va) + (size_t)(s & 0x7FFFu) * lanes + lane);
         }
+        if constexpr (!kKeepAll) {
 #pragma unroll
-        for (int u = 0; u < kMoveRows; ++u) {
-          const uint32_t s = e[u] >> 16;
-          if (s != kNone) {
-            x[u] |= __ldg(((s & 0x8000u) ? vb : va) + (size_t)(s & 0x7FFFu) * lanes + lane);
+          for (int u = 0; u < kMoveRows; ++u) {
+            const uint32_t s = e[u] >> 16;
+            if (s != kNone) {
+              x[u] |= __ldg(((s & 0x8000u) ? vb : va) + (size_t)(s & 0x7FFFu) * lanes + lane);
+            }
           }
         }
       }
@@ -399,7 +462,7 @@ __device__ __forceinline__ bool aligned16(const Args& p, int first, int count) {
 // commits the next tile's keys at its top (two stages) or end (one stage)
 // and the next tile's values at its end.  The rank waits for its keys, the
 // move for its values.
-template <int kKeys>
+template <int kKeys, bool kKeepAll>
 __device__ __forceinline__ void run(const Args& p, int32_t* smem) {
   const int nk = kKeys ? kKeys : p.n_keys;
   const int nv = p.n_vals;
@@ -409,7 +472,9 @@ __device__ __forceinline__ void run(const Args& p, int32_t* smem) {
   int32_t* vals = p.stage_vals ? smem + p.stages * key_words : nullptr;
   uint32_t* map = reinterpret_cast<uint32_t*>(smem + p.stages * key_words +
                                               (p.stage_vals ? (size_t)2 * nv * p.c * lt : 0));
-  int* warp_sums = reinterpret_cast<int*>(map + (size_t)p.out_size * lt);
+  int* warp_sums = kKeepAll ? reinterpret_cast<int*>(reinterpret_cast<uint16_t*>(map) +
+                                                     (size_t)p.out_size * lt)
+                            : reinterpret_cast<int*>(map + (size_t)p.out_size * lt);
   int* totals = warp_sums + kWarps * lt;
   const long long n_tiles = ((long long)p.lanes + lt - 1) >> lt_shift;
   const bool vec = lt % 4 == 0 && p.lanes % 4 == 0;
@@ -440,17 +505,22 @@ __device__ __forceinline__ void run(const Args& p, int32_t* smem) {
       cp_async_wait<1>();
     }
     __syncthreads();
-    const int total = rank_tile<kKeys>(p, keys, map, warp_sums);
+    int total;
+    if constexpr (kKeepAll) {
+      total = rank_keep_all<kKeys>(p, keys, reinterpret_cast<uint16_t*>(map));
+    } else {
+      total = rank_tile<kKeys>(p, keys, map, warp_sums);
+    }
     const long long lane = (tile << lt_shift) + t;
     if (t < lt) {
       totals[t] = total;
-      if (lane < p.lanes) p.n_unique[lane] = total;
+      if (!kKeepAll && lane < p.lanes) p.n_unique[lane] = total;
     }
     if (p.stages == 2) cp_async_wait<1>();
     else cp_async_wait<0>();
     __syncthreads();
-    move_rows<kKeys>(p, keys, vals, map, totals, t % lt, lt, (tile << lt_shift) + t % lt,
-                     t / lt, p.out_size, kThreads / lt);
+    move_rows<kKeys, kKeepAll>(p, keys, vals, map, totals, t % lt, lt,
+                               (tile << lt_shift) + t % lt, t / lt, p.out_size, kThreads / lt);
     __syncthreads();
     if (p.stages == 1) {
       if (next < n_tiles) load_planes(p, 0, nk, smem, next, vec_keys, c_shift, lt_shift);
@@ -465,23 +535,34 @@ __device__ __forceinline__ void run(const Args& p, int32_t* smem) {
 template <int kKeys>
 __global__ void __launch_bounds__(kThreads, 1) tile_union_kernel(Args p) {
   extern __shared__ int32_t smem[];
-  run<kKeys>(p, smem);
+  run<kKeys, false>(p, smem);
+}
+
+template <int kKeys>
+__global__ void __launch_bounds__(kThreads, 1) tile_merge_kernel(Args p) {
+  extern __shared__ int32_t smem[];
+  run<kKeys, true>(p, smem);
 }
 
 // Launch on `stream` with `smem` bytes a CTA (the host's figure, checked
 // against the layout): as many persistent CTAs as the card holds at once,
-// at most one a tile.  Returns a cudaError_t.
-template <int kKeys>
+// at most one a tile; the keep-all body (tile_merge_kernel) when
+// `kKeepAll`, which takes out_size = 2C and no n_unique.  Returns a
+// cudaError_t.
+template <int kKeys, bool kKeepAll = false>
 cudaError_t launch(const Args& p, int smem, cudaStream_t stream) {
   const bool lt_ok = p.lt == 1 || p.lt == 2 || p.lt == 4 || p.lt == 8;
   if (!lt_ok || (p.stages != 1 && p.stages != 2) || (p.stage_vals & ~1) || p.c < 1 ||
       p.c > kMaxRows || (p.c & (p.c - 1)) ||
       p.lanes <= 0 || p.n_keys < 1 || p.n_keys > kMaxKeys || p.n_vals < 0 ||
       p.n_keys + p.n_vals > kMaxPlanes || p.out_size < 0 || p.out_size > 2 * p.c ||
-      (kKeys && p.n_keys != kKeys) || smem < 0 || (size_t)smem < smem_bytes(p)) {
+      (kKeepAll ? p.out_size != 2 * p.c : p.n_unique == nullptr) ||
+      (kKeys && p.n_keys != kKeys) || smem < 0 || (size_t)smem < smem_bytes(p, kKeepAll)) {
     return cudaErrorInvalidValue;
   }
-  auto kernel = tile_union_kernel<kKeys>;
+  void (*kernel)(Args);
+  if constexpr (kKeepAll) kernel = tile_merge_kernel<kKeys>;
+  else kernel = tile_union_kernel<kKeys>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;

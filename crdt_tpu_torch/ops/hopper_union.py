@@ -16,11 +16,13 @@ Counterpart of ``crdt_tpu.ops.pallas_union``.  Two CUDA sources:
   (``bitonic_merge_columnar``) and the bucket-local union
   (``bucketed_union_columnar``).
 
-The single-key union and the fused lexN union at narrow keys (the OpLog's
-(hi, lo)) share one body, the lane tile of ``csrc/tile_union.cuh``; its
-plan (lane tile, key stages, values staged) and shared memory are worked
-out here from the shape (``set_union_plan``, ``lexn_union_body``) and
-passed to the launch.
+The single-key union, its merge (in the body's keep-all mode) and the
+fused lexN union at narrow keys (the OpLog's (hi, lo)) share one body, the
+lane tile of ``csrc/tile_union.cuh``; the bucket-local union runs a
+wide-lane segment body of ``csrc/set_union.cu``.  Each body's plan and
+shared memory are worked out here from the shape (``set_union_plan``,
+``merge_plan``, ``bucketed_union_plan``, ``lexn_union_body``) and passed to
+the launch.
 
 The host contract is the JAX one: planes are ``(C, L)`` int32 with lane j
 holding one replica's rows, per-lane sorted ascending over the key words,
@@ -103,14 +105,17 @@ TILE_LANES = (8, 4, 2, 1)
 
 
 def tile_union_smem_bytes(n_keys: int, n_vals: int, c: int, out: int,
-                          plan: tuple[int, int, int]) -> int:
+                          plan: tuple[int, int, int], keep_all: bool = False) -> int:
     """The tile body, per CTA, under ``plan`` = (lane tile, key stages,
     values staged): the key-word buffers of both operands, one buffer of
-    their value planes when staged, the map (a word an output row a lane),
-    and the scan's warp sums and the lanes' totals."""
+    their value planes when staged, the map (a word an output row a lane,
+    or half a word in the keep-all mode of the merge), and the scan's warp
+    sums and the lanes' totals."""
     lt, stages, stage_vals = plan
-    return 4 * lt * (stages * 2 * n_keys * c + stage_vals * 2 * n_vals * c + out
-                     + _TILE_THREADS // 32 + 1)
+    map_bytes = 2 if keep_all else 4
+    return (4 * lt * (stages * 2 * n_keys * c + stage_vals * 2 * n_vals * c
+                      + _TILE_THREADS // 32 + 1)
+            + map_bytes * out * lt)
 
 
 # the tile body's (key stages, values staged), best first: the next
@@ -120,13 +125,13 @@ _TILE_STAGINGS = ((2, 1), (1, 1), (2, 0), (1, 0))
 
 
 def _tile_plan(n_keys: int, n_vals: int, c: int, out: int, lane_tiles,
-               limit: int) -> tuple[int, int, int] | None:
+               limit: int, keep_all: bool = False) -> tuple[int, int, int] | None:
     """The first (lane tile, stages, values staged) of ``lane_tiles`` x
     ``_TILE_STAGINGS`` whose shared memory fits ``limit`` bytes."""
     for lt in lane_tiles:
         for stages, stage_vals in _TILE_STAGINGS:
             plan = (lt, stages, stage_vals)
-            if tile_union_smem_bytes(n_keys, n_vals, c, out, plan) <= limit:
+            if tile_union_smem_bytes(n_keys, n_vals, c, out, plan, keep_all) <= limit:
                 return plan
     return None
 
@@ -422,10 +427,10 @@ _SIGNATURES = {
         "lexn_union_error_string": ([_I], ctypes.c_char_p),
     },
     "set_union": {
-        "set_union": ([_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                       _I, _P], _I),
-        "segment_union_smem_bytes": ([_I, _I], ctypes.c_size_t),
-        "segment_union_lane_tile": ([_I, _I], _I),
+        "set_union": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),
+        "set_merge": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P], _I),
+        "bucketed_union": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                            _P], _I),
         "set_union_error_string": ([_I], ctypes.c_char_p),
     },
     "set_floor": {
@@ -598,12 +603,11 @@ def _lexn_compact_plain(keys, vals, out):
 
 # ---- single-key OR-Set union, its merge stage, the bucket-local union ----
 #
-# csrc/set_union.cu in two modes: UNION over segments of `seg` rows (the
-# whole lane, or the Wb rows of a bucket), each cut to `out_seg` rows, and
-# MERGE.  Values are OR-combined on duplicate keys (the OR-Set tombstone
-# rule); the TPU kernels took values < 2^15 only, the port any int32.
-
-_UNION, _MERGE = 0, 1
+# csrc/set_union.cu's three entries: set_union (the whole lane, cut to
+# `out` rows) and set_merge on the lane tile, bucketed_union (each bucket
+# of Wb rows cut to `out_r` rows) on the segment body.  Values are
+# OR-combined on duplicate keys (the OR-Set tombstone rule); the TPU
+# kernels took values < 2^15 only, the port any int32.
 
 
 def _check_columnar(keys_a, vals_a, keys_b, vals_b, pow2: bool = True):
@@ -639,6 +643,56 @@ def set_union_smem_bytes(c: int, out: int, limit: int = HOPPER_SMEM_OPTIN) -> in
     """Kernel 2's shared memory a CTA at capacity ``c`` and ``out`` output
     rows, in the plan of :func:`set_union_plan`."""
     return tile_union_smem_bytes(1, 1, c, out, set_union_plan(c, out, limit))
+
+
+def merge_plan(c: int, limit: int) -> tuple[int, int, int]:
+    """(lane tile, key stages, values staged) of kernel 6, the tile body's
+    keep-all mode at one key word and one value plane, 2C output rows: the
+    widest tile, then the best staging, that fits ``limit`` bytes; (1, 1,
+    0) when nothing fits (the launch is then refused with that figure)."""
+    plan = (_tile_plan(1, 1, c, 2 * c, TILE_LANES, limit, keep_all=True)
+            if c <= TILE_MAX_ROWS else None)
+    return plan or (1, 1, 0)
+
+
+def merge_smem_bytes(c: int, limit: int = HOPPER_SMEM_OPTIN) -> int:
+    """Kernel 6's shared memory a CTA at capacity ``c``, in the plan of
+    :func:`merge_plan`."""
+    return tile_union_smem_bytes(1, 1, c, 2 * c, merge_plan(c, limit), keep_all=True)
+
+
+# the segment body of kernel 3 (csrc/set_union.cu): lanes a CTA, widest
+# first (256 lanes make a row request 1 KB), and the most input buffers of
+# its ring
+SEGMENT_WIDTHS = (256, 128, 64, 32, 16, 8, 4, 2, 1)
+SEGMENT_MAX_STAGES = 4
+
+
+def segment_union_smem_bytes(wb: int, out_r: int, width: int, stages: int) -> int:
+    """The segment body, per CTA of ``width`` lanes: ``stages`` buffers of
+    one bucket of the four input planes (Wb rows each) and one buffer of
+    the bucket's two output planes (``out_r`` rows each)."""
+    return 4 * width * (stages * 4 * wb + 2 * out_r)
+
+
+def bucketed_union_plan(c: int, n_buckets: int, out_r: int,
+                        limit: int) -> tuple[int, int, int]:
+    """(lanes a CTA, input buffers, shared-memory bytes) of kernel 3's
+    segment body on a card with ``limit`` bytes a block: the widest lane
+    count that fits with at least two buffers (the next bucket loads while
+    this one is united), with the most buffers up to
+    ``SEGMENT_MAX_STAGES`` (never more than the buckets); else the widest
+    with one; else one lane and one buffer, whose figure (past the limit)
+    the refused launch reports."""
+    wb = c // n_buckets
+    most = min(SEGMENT_MAX_STAGES, n_buckets)
+    for least in (min(2, most), 1):
+        for width in SEGMENT_WIDTHS:
+            for stages in range(most, least - 1, -1):
+                smem = segment_union_smem_bytes(wb, out_r, width, stages)
+                if smem <= limit:
+                    return width, stages, smem
+    return 1, 1, segment_union_smem_bytes(wb, out_r, 1, 1)
 
 
 def sorted_union_columnar_fused(keys_a, vals_a, keys_b, vals_b,
@@ -711,48 +765,55 @@ def bucketed_union_columnar(keys_a, vals_a, keys_b, vals_b, n_buckets: int,
 
 
 def _set_union_cuda(name, keys_a, vals_a, keys_b, vals_b, seg, out_seg):
-    """Launch csrc/set_union.cu: ``name`` is "set_union" (one segment),
-    "bucketed_union" (segments of Wb rows, with bucket_max) or "merge"."""
+    """Launch csrc/set_union.cu: ``name`` is "set_union" (the lane tile),
+    "merge" (its keep-all mode; ``out_seg`` = 2C) or "bucketed_union" (the
+    segment body over buckets of ``seg`` rows, with bucket_max), each in the
+    host's plan for the shape."""
     device = keys_a.device
     c, lanes = keys_a.shape
-    mode = _MERGE if name == "merge" else _UNION
+    limit = smem_limit(device)
     rows_out = c // seg * out_seg
 
     def empty(*shape):
         return torch.empty(shape, dtype=torch.int32, device=device)
 
     ko, vo = empty(rows_out, lanes), empty(rows_out, lanes)
-    nu = empty(lanes) if mode == _UNION else None
-    bmax = empty(lanes) if name == "bucketed_union" else None
-    outs = tuple(t for t in (ko, vo, nu, bmax) if t is not None)
+    ins = [t.data_ptr() for t in (keys_a, vals_a, keys_b, vals_b, ko, vo)]
+    if name == "set_union":
+        plan = set_union_plan(c, out_seg, limit)
+        smem = tile_union_smem_bytes(1, 1, c, out_seg, plan)
+        outs = (ko, vo, empty(lanes))
+        args = (*ins, outs[2].data_ptr(), c, lanes, out_seg, *plan, smem)
+        what = f"lane tile {plan[0]}, {plan[1]} key stages, values staged {plan[2]}"
+    elif name == "merge":
+        plan = merge_plan(c, limit)
+        smem = tile_union_smem_bytes(1, 1, c, 2 * c, plan, keep_all=True)
+        outs = (ko, vo)
+        args = (*ins, c, lanes, *plan, smem)
+        what = (f"keep-all lane tile {plan[0]}, {plan[1]} key stages, values staged "
+                f"{plan[2]}")
+    else:
+        width, stages, smem = bucketed_union_plan(c, c // seg, out_seg, limit)
+        outs = (ko, vo, empty(lanes), empty(lanes))
+        args = (*ins, outs[2].data_ptr(), outs[3].data_ptr(), c, lanes, seg, out_seg,
+                width, stages, smem)
+        what = f"{width} lanes a CTA, {stages} input buffers"
     if lanes == 0:
         return outs
 
     lib = _lib("set_union")
-    plan, smem = (0, 0, 0), 0
-    if name == "set_union":  # the tile body, by the host's plan
-        plan = set_union_plan(c, out_seg, smem_limit(device))
-        smem = tile_union_smem_bytes(1, 1, c, out_seg, plan)
+    entry = {"set_union": lib.set_union, "merge": lib.set_merge,
+             "bucketed_union": lib.bucketed_union}[name]
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.set_union(
-            mode, keys_a.data_ptr(), vals_a.data_ptr(), keys_b.data_ptr(),
-            vals_b.data_ptr(), ko.data_ptr(), vo.data_ptr(),
-            None if nu is None else nu.data_ptr(),
-            None if bmax is None else bmax.data_ptr(),
-            c, lanes, seg, out_seg, *plan, smem, stream,
-        )
+        err = entry(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
-        # past the card's shared-memory opt-in (227 KB on Hopper: C = 16,384
-        # at one lane per block) cudaFuncSetAttribute refuses the launch
-        lt = plan[0]
-        if name != "set_union":
-            smem = lib.segment_union_smem_bytes(c, rows_out)
-            lt = lib.segment_union_lane_tile(c, rows_out)
+        # a plan past the card's shared-memory opt-in (227 KB on Hopper)
+        # is refused at cudaFuncSetAttribute, a lane tile past 16,384 rows
+        # an operand by the launcher
         raise RuntimeError(
             f"{name} launch failed: {lib.set_union_error_string(err).decode()} "
-            f"(C={c}, L={lanes}, {smem} B of shared memory per block at {lt} lanes "
-            f"a block)"
+            f"(C={c}, L={lanes}; {what}: {smem} B of shared memory per block, "
+            f"{limit} B allowed)"
         )
     LAUNCHES[name] += 1
     return outs

@@ -3,7 +3,9 @@ L=10,240 lanes the union at the OpLog's split (2 key words, 2 value
 planes; two seeded 40% subsets of the reference-shaped write pool) and
 the RSeq merge and compaction on phase 9's ``workload.seq_swarm`` draw
 (18 key words; 2 value planes, or 3 with the GC join's src marker); at
-C=1024 x L=2^20 the single-key OR-Set union.
+C=1024 x L=2^20 the single-key OR-Set union; at C=1024 x L=131,072 the
+bucket-local union and the single-key merge on chip_smoke.py phase 8's
+draws.
 
     python3 tools/time_lexn_union.py [--root CHECKOUT] [--reps N] [--cases ...]
 
@@ -13,8 +15,13 @@ of the 20-plane merge, out=C), ``compact21`` (of the 21-plane merge,
 out=2C, the GC join's shape) and ``set2m`` (set_union through
 ``sorted_union_columnar_fused`` at out=C on L=2^20 lanes: one 131,072-lane
 ``workload.set_swarm`` draw a side, as chip_smoke.py phase 6 draws it,
-repeated 8 times along the lane axis).  Each compaction takes its
-checkout's own merge of the same draw.
+repeated 8 times along the lane axis), ``bucket16`` and ``bucket32``
+(bucketed_union at out_bucket_rows = Wb, the resident chain's shape, and
+2·Wb, the bucket engine's, on phase 8's strided draw converted by
+``sorted_to_bucketed``: B=64 buckets of Wb=16 rows, 15 key bits) and
+``merge131k`` (bitonic_merge_columnar on phase 8's 131,072-lane
+set_swarm draw).  Each compaction takes its checkout's own merge of the
+same draw.
 
 ``--root`` picks the checkout whose ``crdt_tpu_torch`` is imported and
 built (default: the one holding this script), so that two versions of the
@@ -22,9 +29,12 @@ kernel compare on one card in one session: unpack the other version with
 ``git archive`` into a git-ignored directory and run the two alternately
 (parent, change, change, parent).  Prints one JSON line a case: the
 card's name and power limit, the median ms a call over ``--reps``
-CUDA-event-timed calls after two warm-up calls, every call's time, and a
-checksum of the call's output, so that the versions can be seen to
-agree.  Exits 1 without a card.
+CUDA-event-timed calls after two warm-up calls, every call's time, the
+device time of a call's kernels (``device_ms``: torch.profiler over ten
+more calls; the events also count the host's launch gap, which is a
+visible share of a call under a millisecond), and a checksum of the
+call's output, so that the versions can be seen to agree.  Exits 1
+without a card.
 """
 from __future__ import annotations
 
@@ -42,7 +52,9 @@ R, C = 10_240, 1024
 N_KEYS = 62
 SENTINEL = 2**31 - 1
 SET_L, SET_REPEAT = 131_072, 8   # the OR-Set draw's lanes, and its copies
-CASES = ("oplog", "merge20", "merge21", "compact20", "compact21", "set2m")
+N_BUCKETS, KEY_BITS = 64, 15     # phase 8's bucketed layout
+CASES = ("oplog", "merge20", "merge21", "compact20", "compact21", "set2m", "bucket16",
+         "bucket32", "merge131k")
 
 
 def checksum(planes) -> int:
@@ -69,6 +81,24 @@ def time_call(call, reps: int) -> list:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return times
+
+
+def device_ms(call, reps: int = 10) -> float:
+    """The mean device time of one call's kernels (and copies), from
+    torch.profiler over ``reps`` calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    # a device copy of each host range shares its name with the host range
+    averages = prof.key_averages()
+    host_keys = {e.key for e in averages if e.device_type == DeviceType.CPU}
+    return sum(e.self_device_time_total for e in averages
+               if e.device_type == DeviceType.CUDA and e.key not in host_keys) / reps / 1e3
 
 
 def oplog_call(workload, oc, hu):
@@ -139,6 +169,37 @@ def set_call(workload, orset, hu):
     return call, checksum(call())
 
 
+def bucket_call(case: str, workload, ue, hu):
+    """Kernel 3 on phase 8's strided draws (seeds SEED+13, SEED+14: C/2
+    live keys a lane over a 32·C universe) in the bucketed layout, at
+    out_bucket_rows = Wb (``bucket16``) or 2·Wb (``bucket32``)."""
+    sides = []
+    for seed in (SEED + 13, SEED + 14):
+        keys, vals = workload.strided_columns(C, SET_L, C // 2, 32 * C, seed, device="cuda")
+        sides += ue.sorted_to_bucketed(keys, vals, N_BUCKETS, KEY_BITS)[:2]
+    out_r = C // N_BUCKETS * (2 if case == "bucket32" else 1)
+
+    def call():
+        return hu.bucketed_union_columnar(*sides, n_buckets=N_BUCKETS, out_bucket_rows=out_r)
+
+    return call, checksum(call())
+
+
+def merge_call(workload, orset, hu):
+    """Kernel 6 on phase 8's set_swarm draws (seeds SEED+11, SEED+12) at
+    131,072 lanes."""
+    pool = workload.set_pool(SEED)
+    sides = []
+    for seed in (SEED + 11, SEED + 12):
+        sides += orset.stack_to_columnar(
+            workload.set_swarm(pool, SET_L, C, seed, device="cuda").sets)
+
+    def call():
+        return hu.bitonic_merge_columnar(*sides)
+
+    return call, checksum(call())
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parent.parent))
@@ -153,6 +214,7 @@ def main() -> int:
     from crdt_tpu_torch import workload
     from crdt_tpu_torch.models import oplog_columnar as oc, orset, rseq_columnar as rc
     from crdt_tpu_torch.ops import hopper_union as hu
+    from crdt_tpu_torch.ops import union_engine as ue
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -163,13 +225,18 @@ def main() -> int:
             call, total = oplog_call(workload, oc, hu)
         elif case == "set2m":
             call, total = set_call(workload, orset, hu)
+        elif case.startswith("bucket"):
+            call, total = bucket_call(case, workload, ue, hu)
+        elif case == "merge131k":
+            call, total = merge_call(workload, orset, hu)
         else:
             call, total = rseq_call(case, workload, rc, hu)
         times = time_call(call, args.reps)
-        lanes = SET_L * SET_REPEAT if case == "set2m" else R
+        lanes = {"set2m": SET_L * SET_REPEAT, "bucket16": SET_L, "bucket32": SET_L,
+                 "merge131k": SET_L}.get(case, R)
         print(json.dumps({"root": root, "card": card, "case": case, "C": C, "L": lanes,
                           "median_ms": statistics.median(times), "ms": times,
-                          "checksum": total}), flush=True)
+                          "device_ms": device_ms(call), "checksum": total}), flush=True)
         del call
         torch.cuda.empty_cache()
     return 0
