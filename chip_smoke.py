@@ -70,8 +70,12 @@ Phases (any failure exits non-zero and prints no result):
 13. the OR-Set floors (kernels 7 and 8) at benches/orset_floor.py's shape,
     C=1024, L=131,072, B=64 on its draw: one launch of each through its
     entry point, both against their twins (also out=C/2, B=2 and 128,
-    full-range int32, C=64 and 2048, ragged lanes), then their times
-    beside set_union's and bucketed_union's as one JSON line;
+    full-range int32, C=64 and 2048, ragged lanes, and the edges: L=1, 7,
+    9, 127, 130 and 4097, out=0, odd and 2C, B=1, 2, 64 and C, C=8 and
+    8192, planes off 16 B, the refusal at C=16,384), the set_floor
+    kernels' ptxas lines and plans, then their times (CUDA events and
+    profiler device times) beside set_union's and bucketed_union's as one
+    JSON line;
     ``floor_union`` also runs at L=2^20 on phase 7's OR-Set planes;
 14. the counters and registers at BASELINE's sizes (plain torch joins):
     G-Counter 2^20 x 8 against 16 peers and the 8-slot pair, PN-Counter
@@ -1544,6 +1548,67 @@ def floor_check(name, planes, arg, label, err) -> None:
                                     floor_twin(name, planes, arg)))
 
 
+def check_floor_edges(err) -> None:
+    """Phase 13's edges, kernel against twin on full-range int32 with
+    values past 2^15: lane counts that split a tile of 8 lanes or a walk of
+    256 (1, 7, 9, 127, 130, 4097), out_size 0, odd, C and 2C, C = 8 (one
+    thread a lane) and 8,192 (one lane a tile), B = 1, 2, 64 and C (the walk
+    at Wb <= 16, the tile body above), planes off 16 B alignment, and the
+    refusal past the envelope."""
+    from crdt_tpu_torch.ops import hopper_union as hu
+    from crdt_tpu_torch.ops import orset_floor as of
+
+    for n in (1, 7, 9, 127, 130, 4097):
+        planes = full_range_draw(1024, n, SEED + 65 + n)
+        floor_check("floor_union", planes, 1024, f"edge L={n}", err)
+        floor_check("bucketed_floor_union", planes, 64, f"edge L={n}", err)
+    planes = full_range_draw(1024, 130, SEED + 66)
+    for out in (0, 1023, 2048):
+        floor_check("floor_union", planes, out, f"edge out={out}", err)
+    for b in (1, 2, 64, 1024):
+        floor_check("bucketed_floor_union", planes, b, f"edge B={b}", err)
+    shifted = off_alignment(planes)
+    floor_check("floor_union", shifted, 1024, "planes off 16 B", err)
+    for b in (2, 64):
+        floor_check("bucketed_floor_union", shifted, b, f"planes off 16 B, B={b}", err)
+    for c, n, outs, buckets in ((8, 4097, (16, 5), (1, 8)), (8192, 9, (8192, 3), (1, 2, 512))):
+        planes = full_range_draw(c, n, SEED + 67 + c)
+        for out in outs:
+            floor_check("floor_union", planes, out, f"edge C={c} out={out}", err)
+        for b in buckets:
+            floor_check("bucketed_floor_union", planes, b, f"edge C={c} B={b}", err)
+    del planes, shifted
+    before = dict(hu.LAUNCHES)
+    try:
+        of.floor_union(*[torch.zeros((16_384, 1), dtype=torch.int32, device="cuda")] * 4,
+                       16_384)
+    except RuntimeError as e:
+        log(f"floor_union at C=16,384 refused: {e}")
+    else:
+        raise AssertionError("floor_union past its envelope (C=16,384) launched")
+    if hu.LAUNCHES != before:
+        raise AssertionError("a refused floor counted a launch")
+    log(f"floor edges vs twins: bit-exact at L=1/7/9/127/130/4097, out=0/1023/2C, "
+        f"B=1/2/64/C, C=8 and 8192, planes off 16 B; max |err| {err}")
+
+
+def device_time_ms(fn, reps: int = 10) -> float:
+    """The mean device time of one call's kernels, from torch.profiler over
+    ``reps`` calls (the CUDA events also count the host's launch gap)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    averages = prof.key_averages()
+    host_keys = {e.key for e in averages if e.device_type == DeviceType.CPU}
+    return sum(e.self_device_time_total for e in averages
+               if e.device_type == DeviceType.CUDA and e.key not in host_keys) / reps / 1e3
+
+
 def floor_full_width(planes, set_union_ms: float, card: str) -> dict:
     """Phase 13 at full width, inside phase 7: floor_union on the stacked
     OR-Set planes at L=2^20 beside that phase's set_union, == its twin on
@@ -1612,12 +1677,26 @@ def floor_phases(full: dict, card: str) -> list:
     del wide, other, ragged
     log(f"floors vs twins: bit-exact on the OR-Set floor draw (out=C and C/2, B={nb}, 2 "
         f"and 128), full-range int32, C=64 and 2048, ragged L=1/1000; max |err| {err}")
+    check_floor_edges(err)
+    from crdt_tpu_torch import _build
+    func = ""
+    for line in _build.build_log("set_floor").splitlines():
+        if "Function properties for" in line:
+            func = line.split("Function properties for", 1)[1].strip()
+        elif "registers" in line or "spill" in line:
+            log(f"  ptxas [set_floor] {func}: {line.strip()}")
+    tile_plan = of.floor_tile_plan(c)
+    walk_plan = of.bucketed_floor_plan(c, nb, hu.smem_limit(torch.device("cuda")))
+    log(f"floor plans at C={c}: floor_union tile body {tile_plan} (lanes a tile, rows a "
+        f"thread, B); bucketed_floor_union at B={nb} {walk_plan}")
 
     floor_ms = time_ms(lambda: of.floor_union(*draw, c), reps=20)
     fused_ms = time_ms(lambda: hu.sorted_union_columnar_fused(*draw, out_size=c), reps=20)
     bfloor_ms = time_ms(lambda: of.bucketed_floor_union(*draw, nb), reps=20)
     bfused_ms = time_ms(lambda: hu.bucketed_union_columnar(*draw, nb, out_bucket_rows=wb),
                         reps=20)
+    floor_dev = device_time_ms(lambda: of.floor_union(*draw, c))
+    bfloor_dev = device_time_ms(lambda: of.bucketed_floor_union(*draw, nb))
     floor_plain = time_ms(lambda: floor_twin("floor_union", draw, c), reps=3, warmup=1)
     bfloor_plain = time_ms(lambda: floor_twin("bucketed_floor_union", draw, nb), reps=3,
                            warmup=1)
@@ -1625,9 +1704,10 @@ def floor_phases(full: dict, card: str) -> list:
     bwork = floor_work(c, lanes, wb, c)
     log(json.dumps({
         "capacity": c, "lanes": lanes, "n_buckets": nb,
-        "floor_ms": floor_ms, "fused_ms": fused_ms,
+        "floor_ms": floor_ms, "floor_device_ms": floor_dev, "fused_ms": fused_ms,
         "headroom_pct": 100 * (fused_ms - floor_ms) / fused_ms,
-        "bucketed_floor_ms": bfloor_ms, "bucketed_fused_ms": bfused_ms,
+        "bucketed_floor_ms": bfloor_ms, "bucketed_floor_device_ms": bfloor_dev,
+        "bucketed_fused_ms": bfused_ms,
         "bucketed_headroom_pct": 100 * (bfused_ms - bfloor_ms) / bfused_ms,
         "floor_vs_floor": floor_ms / bfloor_ms,
         "floor_bytes_bound_ms": bound(work[0], 0)[0],

@@ -56,6 +56,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "segment_ring.cuh"
 #include "tile_union.cuh"
 
 namespace {
@@ -65,7 +66,8 @@ namespace {
 // One CTA of kThreads threads takes W adjacent lanes (W a power of two, 1 to
 // 256) and walks the B buckets in order through a ring of `stages` buffers,
 // each one bucket of the four input planes laid out [plane][row][lane]
-// (4 x Wb x W words), filled by cp.async: 16 B a thread where W % 4 == 0,
+// (4 x Wb x W words), filled by cp.async (the loader of segment_ring.cuh,
+// shared with kernel 8's walk in set_floor.cu): 16 B a thread where W % 4 == 0,
 // L % 4 == 0 and the planes are 16 B aligned, else 4 B; lanes past L read
 // nothing.  While bucket b's buffer is ranked, buckets b+1 .. b+stages-1 are
 // in flight.  Thread t < W unions lane t's bucket from its own column (no
@@ -79,9 +81,9 @@ namespace {
 // figure it is given against this layout.
 
 constexpr int32_t kSentinel = 0x7FFFFFFF;
-constexpr int kThreads = 256;
-constexpr int kMaxWidth = 256;
-constexpr int kMaxStages = 4;
+constexpr int kThreads = segment_ring::kThreads;
+constexpr int kMaxWidth = segment_ring::kMaxWidth;
+constexpr int kMaxStages = segment_ring::kMaxStages;
 
 struct SegArgs {
   const int32_t* ka;  // inputs (c, lanes): keys and values of A and B
@@ -103,40 +105,6 @@ struct SegArgs {
 size_t seg_smem_bytes(const SegArgs& p) {
   return sizeof(int32_t) * (size_t)p.width *
          ((size_t)p.stages * 4 * p.wb + (size_t)2 * p.out_r);
-}
-
-__device__ __forceinline__ void cp_async_wait_dyn(int pending) {
-  switch (pending) {
-    case 0: tile_union::cp_async_wait<0>(); break;
-    case 1: tile_union::cp_async_wait<1>(); break;
-    case 2: tile_union::cp_async_wait<2>(); break;
-    default: tile_union::cp_async_wait<3>(); break;
-  }
-}
-
-// Request bucket `b` of the four input planes for lanes lane0 .. lane0+W-1
-// into `buf` ([plane][row][lane]).
-__device__ __forceinline__ void load_bucket(const SegArgs& p, int b, int32_t* buf,
-                                            long long lane0, bool vec, int wb_shift,
-                                            int w_shift) {
-  const int q_shift = vec ? w_shift - 2 : w_shift;  // chunks a row, log2
-  const int chunk = vec ? 4 : 1;                    // lanes a chunk
-  const long long lanes = p.lanes;
-  const int items = 4 << (wb_shift + q_shift);
-  for (int w = threadIdx.x; w < items; w += kThreads) {
-    const int h = w & ((1 << q_shift) - 1), rest = w >> q_shift;
-    const int row = rest & (p.wb - 1), plane = rest >> wb_shift;
-    const long long lane = lane0 + h * chunk;
-    const long long left = lanes - lane;
-    const int valid = left <= 0 ? 0 : (left >= chunk ? chunk : (int)left);
-    int32_t* dst = buf + ((size_t)(plane << wb_shift) + row) * p.width + h * chunk;
-    // a select, not p.in[plane]: indexing the parameters would copy them to
-    // the stack
-    const int32_t* base = plane < 2 ? (plane ? p.va : p.ka) : (plane == 2 ? p.kb : p.vb);
-    const int32_t* src = valid ? base + ((size_t)b * p.wb + row) * lanes + lane : base;
-    if (vec) tile_union::cp_async16(dst, src, 4 * valid);
-    else tile_union::cp_async4(dst, src, 4 * valid);
-  }
 }
 
 // The union of one lane's bucket (column `t` of `buf`) into column `t` of
@@ -221,13 +189,15 @@ __global__ void __launch_bounds__(kThreads) segment_union_kernel(SegArgs p) {
   const bool lane_live = t < w && lane0 + t < p.lanes;
 
   for (int s = 0; s < p.stages; ++s) {
-    if (s < n_buckets) load_bucket(p, s, smem + s * stage_words, lane0, vec_in, wb_shift, w_shift);
+    if (s < n_buckets) {
+      segment_ring::load_bucket(p, s, smem + s * stage_words, lane0, vec_in, wb_shift, w_shift);
+    }
     tile_union::cp_async_commit();
   }
   int total = 0, most = 0;
   for (int b = 0; b < n_buckets; ++b) {
     const int slot = b % p.stages;
-    cp_async_wait_dyn(p.stages - 1);
+    segment_ring::cp_async_wait_dyn(p.stages - 1);
     __syncthreads();  // bucket b has landed; the last bucket's stores have read obuf
     if (lane_live) {
       const int u = union_column(p, smem + slot * stage_words, obuf,
@@ -238,7 +208,8 @@ __global__ void __launch_bounds__(kThreads) segment_union_kernel(SegArgs p) {
     __syncthreads();
     store_bucket(p, b, obuf, lane0, vec_out, w_shift);
     if (b + p.stages < n_buckets) {
-      load_bucket(p, b + p.stages, smem + slot * stage_words, lane0, vec_in, wb_shift, w_shift);
+      segment_ring::load_bucket(p, b + p.stages, smem + slot * stage_words, lane0, vec_in,
+                                wb_shift, w_shift);
     }
     tile_union::cp_async_commit();
   }

@@ -434,10 +434,8 @@ _SIGNATURES = {
         "set_union_error_string": ([_I], ctypes.c_char_p),
     },
     "set_floor": {
-        "floor_union": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
-        "bucketed_floor_union": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
-        "set_floor_smem_bytes": ([_I], ctypes.c_size_t),
-        "set_floor_lane_tile": ([_I], _I),
+        "floor_union": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P], _I),
+        "bucketed_floor_walk": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
         "set_floor_error_string": ([_I], ctypes.c_char_p),
     },
 }

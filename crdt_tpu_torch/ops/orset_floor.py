@@ -84,35 +84,90 @@ def _flip_buckets(x, n_buckets):
 
 
 # ---- the kernel ----
+#
+# csrc/set_floor.cu's two bodies and their plans: pure functions of the
+# shape and the card's shared-memory limit (the CPU tests plan with
+# hopper_union.HOPPER_SMEM_OPTIN).
+
+# the tile body (kernel 7): threads a CTA, rows of a lane a thread holds
+# (at most), plane buffers in its ring
+FLOOR_THREADS = 512
+FLOOR_ROWS = 32
+FLOOR_RING = 3
+# the segment walk (kernel 8): a segment of 2·Wb rows in registers, 256
+# lanes a CTA (set_floor.cu WalkArgs::width; 1 KB row requests)
+FLOOR_WALK_MAX_WB = 16
+FLOOR_WALK_LANES = 256
+
+
+def floor_tile_plan(c: int) -> tuple[int, int, int]:
+    """(lanes a tile, rows a thread, shared-memory bytes a CTA) of the tile
+    body at ``c`` rows an operand: R = min(32, 2C) rows a thread, 512 threads
+    hold a tile of 512·R / 2C lanes; three plane buffers of 512·R words and
+    four 512-word arrays (edge rows, scan totals).  Past the envelope (C >
+    8,192) the tile would be one lane whose ring holds three whole columns:
+    that figure, past the card's limit, is what the refused launch reports."""
+    n = 2 * c
+    rows = min(FLOOR_ROWS, n)
+    lanes = max(1, FLOOR_THREADS * rows // n)
+    plane_words = max(FLOOR_THREADS * rows, n)
+    return lanes, rows, 4 * (FLOOR_RING * plane_words + 4 * FLOOR_THREADS)
+
+
+def bucketed_floor_plan(c: int, n_buckets: int, limit: int) -> tuple:
+    """The bucketed floor's body and plan on a card with ``limit`` bytes a
+    block: ``("walk", lanes a CTA, bucket buffers, bytes)`` where a segment
+    of 2·Wb rows fits the walk's registers (Wb <= 16) — 256 lanes and as
+    many buffers of one bucket's four planes as fit, up to kernel 3's
+    ``SEGMENT_MAX_STAGES`` and never more than the buckets, at least two
+    where there are two (the next bucket loads while this one is computed)
+    — else ``("tile", lanes a tile, rows a thread, bytes)``, the tile body
+    at segments of Wb rows."""
+    wb = c // n_buckets
+    if wb > FLOOR_WALK_MAX_WB:
+        return ("tile", *floor_tile_plan(c))
+    per_stage = 4 * 4 * wb * FLOOR_WALK_LANES
+    stages = max(min(2, n_buckets), min(hu.SEGMENT_MAX_STAGES, n_buckets, limit // per_stage))
+    return "walk", FLOOR_WALK_LANES, stages, stages * per_stage
 
 
 def _floor_cuda(name, keys_a, vals_a, keys_b, vals_b, seg, out_seg):
-    """Launch csrc/set_floor.cu's entry point ``name`` with segments of
-    ``seg`` rows an operand, ``out_seg`` rows of each kept."""
+    """Launch csrc/set_floor.cu for entry point ``name`` with segments of
+    ``seg`` rows an operand, ``out_seg`` rows of each kept: floor_union on
+    the tile body, bucketed_floor_union on the body of its plan."""
     device = keys_a.device
     c, lanes = keys_a.shape
     rows_out = c // seg * out_seg
     ko = torch.empty((rows_out, lanes), dtype=torch.int32, device=device)
     vo = torch.empty((rows_out, lanes), dtype=torch.int32, device=device)
     nu = torch.empty((1, lanes), dtype=torch.int32, device=device)
+    limit = hu.smem_limit(device)
+    if name == "floor_union":
+        plan = ("tile", *floor_tile_plan(c))
+    else:
+        plan = bucketed_floor_plan(c, c // seg, limit)
     if lanes == 0:
         return ko, vo, nu
     lib = hu._lib("set_floor")
+    args = (keys_a.data_ptr(), vals_a.data_ptr(), keys_b.data_ptr(), vals_b.data_ptr(),
+            ko.data_ptr(), vo.data_ptr(), nu.data_ptr(), c, lanes)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        args = (keys_a.data_ptr(), vals_a.data_ptr(), keys_b.data_ptr(),
-                vals_b.data_ptr(), ko.data_ptr(), vo.data_ptr(), nu.data_ptr(), c, lanes)
-        if name == "floor_union":
-            err = lib.floor_union(*args, out_seg, stream)
+        if plan[0] == "tile":
+            _, lane_tile, rows, smem = plan
+            err = lib.floor_union(*args, seg, out_seg, lane_tile, smem, stream)
+            what = f"tile body, {lane_tile} lanes a tile, {rows} rows a thread"
         else:
-            err = lib.bucketed_floor_union(*args, c // seg, stream)
+            _, width, stages, smem = plan
+            err = lib.bucketed_floor_walk(*args, seg, stages, smem, stream)
+            what = f"segment walk, {width} lanes a CTA, {stages} bucket buffers"
     if err != 0:
-        # past the card's shared-memory opt-in (C = 16,384 at one lane a
-        # block) cudaFuncSetAttribute refuses the launch
+        # past C = 8,192 the tile body has no plan (its figure exceeds the
+        # card's opt-in limit), and the launcher refuses it
         raise RuntimeError(
             f"{name} launch failed: {lib.set_floor_error_string(err).decode()} "
-            f"(C={c}, L={lanes}, {lib.set_floor_smem_bytes(c)} B of shared memory "
-            f"per block at {lib.set_floor_lane_tile(c)} lanes a block)"
+            f"(C={c}, L={lanes}; {what}: {smem} B of shared memory per block, "
+            f"{limit} B allowed)"
         )
     hu.LAUNCHES[name] += 1
     return ko, vo, nu

@@ -78,6 +78,40 @@ def test_bucketed_floor_kernel_matches_twin(draw, c, lanes, n_buckets):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("c, lanes, out", [
+    (1024, 1, 1024), (1024, 7, 0), (1024, 9, 1023), (1024, 127, 2048), (1024, 130, 1),
+    (1024, 4097, 1024), (8, 1, 16), (8, 4097, 5), (8192, 7, 8192), (8192, 1, 3),
+    (4096, 9, 4096), (256, 130, 255),
+])
+def test_floor_tile_body_edges(c, lanes, out):
+    """Kernel 7's tile body at ragged lane counts (a tile of 8 split, one
+    lane), out_size 0, odd, C and 2C, C = 8 (one thread a lane) up to 8,192
+    (one lane a tile), on full-range int32 with values past 2^15."""
+    _need_card()
+    planes = _planes("full_range", c, lanes, seed=7 * c + lanes + out)
+    got, want = _both(of.floor_union, planes, out)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c, lanes, n_buckets", [
+    (1024, 1, 64), (1024, 7, 1024), (1024, 9, 2), (1024, 127, 1), (1024, 130, 64),
+    (1024, 4097, 64), (8, 130, 8), (8, 9, 1), (8192, 7, 512), (8192, 3, 2), (8192, 1, 1),
+    (16, 4097, 1), (32, 130, 1), (1024, 259, 128),
+])
+def test_bucketed_floor_edges(c, lanes, n_buckets):
+    """Kernel 8 on the segment walk (Wb <= 16: B = 64 and C, Wb = 1) and on
+    the tile body (B = 1 and 2 at large C), at ragged lane counts that
+    split a CTA of 256 lanes, full-range int32."""
+    _need_card()
+    planes = _planes("full_range", c, lanes, seed=11 * c + lanes + n_buckets)
+    got, want = _both(of.bucketed_floor_union, planes, n_buckets)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
 def test_planes_off_16_byte_alignment_take_the_scalar_loads():
     """Contiguous planes that start 4 B into their storage: the kernel must
     not use its 16 B loads on them, and still equal the twin."""
@@ -91,7 +125,8 @@ def test_planes_off_16_byte_alignment_take_the_scalar_loads():
         view.copy_(torch.from_numpy(p))
         shifted.append(view)
     assert all(t.data_ptr() % 16 for t in shifted)
-    for fn, arg in ((of.floor_union, c), (of.bucketed_floor_union, 64)):
+    for fn, arg in ((of.floor_union, c), (of.bucketed_floor_union, 64),
+                    (of.bucketed_floor_union, 2)):
         got = fn(*shifted, arg)
         torch.cuda.synchronize()
         want = fn(*(torch.from_numpy(p) for p in planes), arg)
@@ -101,9 +136,9 @@ def test_planes_off_16_byte_alignment_take_the_scalar_loads():
 
 @pytest.mark.cuda
 def test_refusals_raise_before_any_launch():
-    """Bad shapes raise in the wrapper; a capacity past the card's shared
-    memory raises at cudaFuncSetAttribute, with the figure; none counts a
-    launch."""
+    """Bad shapes raise in the wrapper; a capacity past the tile body's
+    envelope (C > 8,192) is refused by the launcher, with the plan's figure;
+    none counts a launch."""
     _need_card()
     before = dict(hu.LAUNCHES)
 
@@ -119,7 +154,9 @@ def test_refusals_raise_before_any_launch():
                                                         device="cuda").T, 64)
     with pytest.raises(ValueError, match="divide"):
         of.bucketed_floor_union(*planes(64, 4), 3)
-    with pytest.raises(RuntimeError, match="B of shared memory"):
+    with pytest.raises(RuntimeError, match="401408 B of shared memory"):
         of.floor_union(*planes(16384, 1), 16384)
+    with pytest.raises(RuntimeError, match="tile body, 1 lanes a tile"):
+        of.bucketed_floor_union(*planes(16384, 1), 1)
     torch.cuda.synchronize()
     assert hu.LAUNCHES == before

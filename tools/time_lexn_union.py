@@ -20,8 +20,11 @@ repeated 8 times along the lane axis), ``bucket16`` and ``bucket32``
 2·Wb, the bucket engine's, on phase 8's strided draw converted by
 ``sorted_to_bucketed``: B=64 buckets of Wb=16 rows, 15 key bits) and
 ``merge131k`` (bitonic_merge_columnar on phase 8's 131,072-lane
-set_swarm draw).  Each compaction takes its checkout's own merge of the
-same draw.
+set_swarm draw), ``floor131k`` and ``bfloor131k`` (the OR-Set floors
+floor_union at out=C and bucketed_floor_union at B=64 on chip_smoke.py
+phase 13's draw: C=1024, L=131,072, each column sorted uniform [0, 2^30)
+with the first C/2 rows real, vals = the draw & 1).  Each compaction takes
+its checkout's own merge of the same draw.
 
 ``--root`` picks the checkout whose ``crdt_tpu_torch`` is imported and
 built (default: the one holding this script), so that two versions of the
@@ -45,6 +48,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import torch
 
 SEED = 20240           # chip_smoke.py's seed and shapes
@@ -53,8 +57,9 @@ N_KEYS = 62
 SENTINEL = 2**31 - 1
 SET_L, SET_REPEAT = 131_072, 8   # the OR-Set draw's lanes, and its copies
 N_BUCKETS, KEY_BITS = 64, 15     # phase 8's bucketed layout
+FLOOR_SEED = SEED + 61           # phase 13's floor draw
 CASES = ("oplog", "merge20", "merge21", "compact20", "compact21", "set2m", "bucket16",
-         "bucket32", "merge131k")
+         "bucket32", "merge131k", "floor131k", "bfloor131k")
 
 
 def checksum(planes) -> int:
@@ -200,6 +205,25 @@ def merge_call(workload, orset, hu):
     return call, checksum(call())
 
 
+def floor_call(case: str, of):
+    """Kernel 7 (``floor131k``, out=C) or 8 (``bfloor131k``, B=64) on
+    chip_smoke.py phase 13's draw."""
+    rng = np.random.default_rng(FLOOR_SEED)
+    sides = []
+    for _ in range(2):
+        kk = torch.from_numpy(rng.integers(0, 1 << 30, (C, SET_L), dtype=np.int32)).cuda()
+        kk = torch.sort(kk, dim=0).values
+        real = torch.arange(C, device="cuda")[:, None] < C // 2
+        sides += [torch.where(real, kk, SENTINEL).contiguous(), kk & 1]
+
+    def call():
+        if case == "floor131k":
+            return of.floor_union(*sides, C)
+        return of.bucketed_floor_union(*sides, N_BUCKETS)
+
+    return call, checksum(call())
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parent.parent))
@@ -214,6 +238,7 @@ def main() -> int:
     from crdt_tpu_torch import workload
     from crdt_tpu_torch.models import oplog_columnar as oc, orset, rseq_columnar as rc
     from crdt_tpu_torch.ops import hopper_union as hu
+    from crdt_tpu_torch.ops import orset_floor as of
     from crdt_tpu_torch.ops import union_engine as ue
 
     card = subprocess.run(
@@ -229,11 +254,13 @@ def main() -> int:
             call, total = bucket_call(case, workload, ue, hu)
         elif case == "merge131k":
             call, total = merge_call(workload, orset, hu)
+        elif case.endswith("floor131k"):
+            call, total = floor_call(case, of)
         else:
             call, total = rseq_call(case, workload, rc, hu)
         times = time_call(call, args.reps)
         lanes = {"set2m": SET_L * SET_REPEAT, "bucket16": SET_L, "bucket32": SET_L,
-                 "merge131k": SET_L}.get(case, R)
+                 "merge131k": SET_L, "floor131k": SET_L, "bfloor131k": SET_L}.get(case, R)
         print(json.dumps({"root": root, "card": card, "case": case, "C": C, "L": lanes,
                           "median_ms": statistics.median(times), "ms": times,
                           "device_ms": device_ms(call), "checksum": total}), flush=True)
