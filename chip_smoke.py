@@ -1,6 +1,6 @@
 """Drive the PyTorch port's OpLog, OR-Set and RSeq swarm paths, the OR-Set
-union floors and the counter and register family on a CUDA card and check
-them.
+union floors, the counter and register family and the replica-node cluster
+on a CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -82,7 +82,19 @@ Phases (any failure exits non-zero and prints no result):
     1,024 and 2^20 x 64, LWW 100,352 and 2^25 (and the packed join),
     EW/DW flags and the MV-register at 2^20 x 8 through seeded op
     scripts — each == a numpy fold or the port's CPU run, with
-    replica-merges/s and p50/p99 beside the bytes bound.
+    replica-merges/s and p50/p99 beside the bytes bound;
+15. the reference's own system: a ``LocalCluster`` of 5 ``ReplicaNode``s
+    (ClusterConfig's defaults, delta gossip) takes 131,072
+    ``WorkloadGenerator`` writes in 64 rounds of 2,048 (one
+    ``add_commands`` batch per live replica, then one ``tick()``; replica 4
+    down for rounds 16-31), ticks to convergence, twice: (a) the
+    never-pruned log, (b) a compaction barrier every 8 ticks.  All 5 views
+    == the oracle over the acknowledged writes in both, (b) == (a), (b)'s
+    tails below (a)'s logs, every node tensor on the card, no hand kernel
+    launched; a 4,096-command run of the parity mix (multi-key,
+    non-numeric) == the oracle; then writes/s, tick() median and p99, the
+    barrier, get_state(), ``oplog.merge_checked`` at capacity 2^17 beside
+    its bound, one profiled tick and the peak memory, as one JSON line.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1983,6 +1995,225 @@ def register_phase(card: str) -> None:
         report_rate(f"{label} join R={REG_R} x {REG_W} writers", REG_R, times,
                     REG_R * per_replica[k], card)
 
+# ---- phase 15: the KV node path (ReplicaNode + LocalCluster) ----
+
+# The reference's deployment (ClusterConfig's defaults: 5 replicas, logs of
+# 1024 rows growing 2x, delta gossip) under its write shape
+# (WorkloadGenerator.next_command), at a backlog of 2^17 writes landed in
+# 64 rounds of 2,048: each round one add_commands batch per live replica,
+# then one tick().  Replica 4 is down for rounds 16-31.
+KV_WRITES, KV_ROUNDS = 131_072, 64
+KV_CAPACITY = 1 << 17                  # where (a)'s logs grow to from 1024
+KV_DEAD, KV_DOWN, KV_UP = 4, 16, 32
+KV_EXTRA_TICKS = 64
+KV_MIXED, KV_MIXED_ROUNDS = 4096, 16   # the untimed run of the parity mix
+KV_BATCH = 2048                        # merge_checked's batch in the timing
+
+
+def kv_drive(cluster, oracles, commands, rounds: int, down: int, up: int,
+             profile_last: bool = False) -> dict:
+    """Land ``commands`` ((cmd, target) pairs, ts = their index) in ``rounds``
+    rounds, each one add_commands batch per live replica and one tick(),
+    with replica KV_DEAD down from round ``down`` to round ``up``; mirror
+    every acknowledged write into the oracles; then tick until converged.
+    Returns the host-clock times, each ending in a sync."""
+    per_round = len(commands) // rounds
+    add_s, ticks, barriers, acked = 0.0, [], [], 0
+    compact = cluster.compact
+
+    def timed_compact():
+        t0 = time.perf_counter()
+        frontier = compact()
+        torch.cuda.synchronize()
+        barriers.append((time.perf_counter() - t0) * 1e3)
+        return frontier
+
+    def timed_tick():
+        t0 = time.perf_counter()
+        cluster.tick()
+        torch.cuda.synchronize()
+        ticks.append((time.perf_counter() - t0) * 1e3)
+
+    cluster.compact = timed_compact  # tick() calls self.compact()
+    for rnd in range(rounds):
+        if rnd in (down, up):
+            cluster.nodes[KV_DEAD].set_alive(rnd == up)
+        batches = {}
+        for i in range(rnd * per_round, (rnd + 1) * per_round):
+            cmd, target = commands[i]
+            cmds, tss = batches.setdefault(target, ([], []))
+            cmds.append(cmd)
+            tss.append(i)
+        t0 = time.perf_counter()
+        landed = {r: cluster.nodes[r].add_commands(*batches[r]) for r in sorted(batches)}
+        torch.cuda.synchronize()
+        add_s += time.perf_counter() - t0
+        for r, idents in landed.items():
+            if idents is None:  # refused: the replica is down
+                continue
+            acked += len(idents)
+            for cmd, ts in zip(*batches[r]):
+                oracles[r].add_command(cmd, ts)
+        if profile_last and rnd == rounds - 1:
+            profile("KV node path: one tick() after the last write round", cluster.tick)
+        else:
+            timed_tick()
+    extra = 0
+    while not cluster.converged():
+        if extra == KV_EXTRA_TICKS:
+            raise AssertionError(f"no convergence {KV_EXTRA_TICKS} ticks after the writes")
+        timed_tick()
+        extra += 1
+    del cluster.compact
+    return {"acked": acked, "add_s": add_s, "ticks": ticks, "barriers": barriers,
+            "extra_ticks": extra}
+
+
+def kv_check(label: str, cluster, want: dict) -> list:
+    """Every replica's view == the oracle's converged state, and every node
+    tensor on the card."""
+    from crdt_tpu_torch.utils.tree import leaves
+
+    states = cluster.states()
+    for r, got in enumerate(states):
+        if got != want:
+            raise AssertionError(f"{label}: replica {r}'s view != the oracle's converged "
+                                 f"state ({len(got or {})} vs {len(want)} keys)")
+        node = cluster.nodes[r]
+        held = leaves(node.log) + (leaves(node._summary_cache[0]) if node._summary_cache else [])
+        if not all(x.is_cuda for x in held):
+            raise AssertionError(f"{label}: replica {r} holds a tensor off the card")
+    return states
+
+
+def kv_run(compact_every: int, commands, card: str, profile_last: bool) -> tuple:
+    """One LocalCluster run of the backlog, checked against the oracle."""
+    from crdt_tpu_torch.api.cluster import LocalCluster
+    from crdt_tpu_torch.models import oplog
+    from crdt_tpu_torch.oracle import OracleReplica, Quirks
+    from crdt_tpu_torch.utils.config import ClusterConfig
+
+    cfg = ClusterConfig(delta_gossip=True, compact_every=compact_every, seed=SEED)
+    cluster = LocalCluster(cfg)
+    oracles = [OracleReplica(r, Quirks()) for r in range(cfg.n_replicas)]
+    t = kv_drive(cluster, oracles, commands, KV_ROUNDS, KV_DOWN, KV_UP, profile_last)
+    want = OracleReplica.converged_state(oracles)
+    states = kv_check(f"compact_every={compact_every}", cluster, want)
+    t["rows"] = [int(oplog.size(n.log)) for n in cluster.nodes]
+    t["capacity"] = [n.log.capacity for n in cluster.nodes]
+    ticks = t["ticks"]
+    barrier = (f", compaction barrier median {quantile(t['barriers'], 0.5):.4f} ms over "
+               f"{len(t['barriers'])}" if t["barriers"] else "")
+    log(f"KV cluster compact_every={compact_every}: {t['acked']} of {len(commands)} writes "
+        f"acknowledged, add_commands {t['acked'] / t['add_s']:.1f} writes/s; tick() median "
+        f"{quantile(ticks, 0.5):.4f} ms, p99 {quantile(ticks, 0.99):.4f} ms over "
+        f"{len(ticks)} ticks ({t['extra_ticks']} after the writes){barrier}; log rows "
+        f"{t['rows']}, capacity {t['capacity']}; all 5 views == the oracle's converged "
+        f"state ({len(want)} keys) [{card}]")
+    return cluster, states, t
+
+
+def kv_phase(card: str) -> None:
+    """Phase 15: the reference's own system on the card.  Run (a), the
+    never-pruned log (compact_every=0, the reference's main.go:75), and run
+    (b), a compaction barrier every 8 ticks with the revived replica caught
+    up by summary adoption: both == the oracle over the acknowledged
+    writes, (b) == (a), (b)'s tails below (a)'s logs; then the parity mix,
+    the merge at capacity 2^17 and get_state()."""
+    from crdt_tpu_torch import workload
+    from crdt_tpu_torch.api.cluster import LocalCluster
+    from crdt_tpu_torch.models import oplog
+    from crdt_tpu_torch.oracle import OracleReplica, Quirks
+    from crdt_tpu_torch.ops import hopper_union as hu
+    from crdt_tpu_torch.utils.config import ClusterConfig
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = workload.WorkloadGenerator(ClusterConfig(seed=SEED))
+    commands = [gen.next_command() for _ in range(KV_WRITES)]
+    for name in hu.LAUNCHES:
+        hu.LAUNCHES[name] = 0
+    t0 = time.perf_counter()
+    run_a, states_a, ta = kv_run(0, commands, card, profile_last=False)
+    run_b, states_b, tb = kv_run(8, commands, card, profile_last=True)
+    wall = time.perf_counter() - t0
+    if any(hu.LAUNCHES.values()):
+        raise AssertionError(f"the node path launched a hand kernel: {hu.LAUNCHES}")
+    if states_b != states_a:
+        raise AssertionError("run (b)'s views != run (a)'s: compaction is not transparent")
+    if not all(b < a for b, a in zip(tb["rows"], ta["rows"])):
+        raise AssertionError(f"run (b)'s tails {tb['rows']} not below run (a)'s logs "
+                             f"{ta['rows']}")
+    if max(ta["capacity"]) != KV_CAPACITY:
+        raise AssertionError(f"run (a)'s logs reached capacity {ta['capacity']}, "
+                             f"not {KV_CAPACITY}")
+    # replica 4 missed the barriers of rounds 16-31 and came back behind
+    # their frontier, so its adoption is of the summary sections
+    revived = len(run_b.nodes[KV_DEAD].events.find(event="frontier_adopt"))
+    if not tb["barriers"] or not revived:
+        raise AssertionError("run (b): the revived replica adopted no frontier")
+    log(f"KV runs: (b) == (a) on all 5 views; (b)'s tails {tb['rows']} < (a)'s logs "
+        f"{ta['rows']}; the revived replica adopted {revived} frontiers; the node path "
+        f"launched no hand kernel (the JAX node merges with XLA's sorted union, the "
+        f"port's with the plain torch one); both runs {wall:.1f} s")
+
+    # -- the parity mix (multi-key, non-numeric, odd numerals), untimed --
+    rng = np.random.default_rng(SEED + 91)
+    mixed = [(workload.mixed_command(rng), int(rng.integers(0, 5))) for _ in range(KV_MIXED)]
+    cluster = LocalCluster(ClusterConfig(compact_every=8, seed=SEED + 1))
+    oracles = [OracleReplica(r, Quirks()) for r in range(5)]
+    tm = kv_drive(cluster, oracles, mixed, KV_MIXED_ROUNDS, 4, 8)
+    want = OracleReplica.converged_state(oracles)
+    kv_check("parity mix", cluster, want)
+    n_text = sum(not v.lstrip("+-").isdigit() for v in want.values())
+    log(f"KV parity mix: {KV_MIXED} commands ({tm['acked']} acknowledged), all 5 views == "
+        f"the oracle ({len(want)} keys, {n_text} resolved to text)")
+    del cluster, run_b
+
+    # -- the merge at capacity 2^17 against a 2,048-row batch; get_state() --
+    node = run_a.nodes[0]
+    batch = oplog.from_ops(KV_BATCH, {
+        "ts": np.arange(KV_WRITES, KV_WRITES + KV_BATCH, dtype=np.int32),
+        "rid": np.zeros(KV_BATCH, np.int32),
+        "seq": np.arange(1 << 20, (1 << 20) + KV_BATCH, dtype=np.int32),
+        "key": np.arange(KV_BATCH, dtype=np.int32) % 62,
+        "val": np.full(KV_BATCH, -15, np.int32),
+        "payload": np.zeros(KV_BATCH, np.int32),
+        "is_num": np.ones(KV_BATCH, bool)}, device="cuda")
+    _, n_unique = oplog.merge_checked(node.log, batch)
+    if int(n_unique) != ta["rows"][0] + KV_BATCH:
+        raise AssertionError(f"merge_checked n_unique {int(n_unique)} != "
+                             f"{ta['rows'][0]} + {KV_BATCH}")
+    merge_ms = time_ms(lambda: oplog.merge_checked(node.log, batch), reps=20)
+    merge_dev = device_time_ms(lambda: oplog.merge_checked(node.log, batch), reps=20)
+    cap = node.log.capacity
+    n_bytes = 25 * ((cap + KV_BATCH) + cap) + 4  # a row: 6 int32 + 1 bool
+    get_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        node.get_state()
+        get_ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    kv = {
+        "writes": KV_WRITES, "acked_a": ta["acked"], "acked_b": tb["acked"],
+        "add_commands_writes_per_s_a": ta["acked"] / ta["add_s"],
+        "add_commands_writes_per_s_b": tb["acked"] / tb["add_s"],
+        "tick_ms_a": [quantile(ta["ticks"], 0.5), quantile(ta["ticks"], 0.99), len(ta["ticks"])],
+        "tick_ms_b": [quantile(tb["ticks"], 0.5), quantile(tb["ticks"], 0.99), len(tb["ticks"])],
+        "barrier_ms_median": quantile(tb["barriers"], 0.5), "barriers": len(tb["barriers"]),
+        "get_state_ms": statistics.median(get_ms), "merge_checked_ms": merge_ms,
+        "merge_checked_device_ms": merge_dev,
+        "merge_checked_bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
+        "rows_a": ta["rows"], "rows_b": tb["rows"], "peak_gib": peak / 2**30,
+        "runs_s": wall, "card": card,
+    }
+    log(f"oplog.merge_checked at capacity {cap} against a {KV_BATCH}-row batch: "
+        f"{merge_ms:.4f} ms (CUDA events, median of 20), device {merge_dev:.4f} ms "
+        f"(profiler, mean of 20), bytes bound {kv['merge_checked_bound_ms']:.6f} ms "
+        f"({n_bytes / 1e6:.3f} MB at 3.35 TB/s); get_state() {kv['get_state_ms']:.4f} ms; "
+        f"peak device memory {peak / 2**30:.3f} GiB [{card}]")
+    log(json.dumps({"kv_node": kv}))
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2013,6 +2244,7 @@ def main() -> int:
     rows += rseq_phases(card)
     rows += floor_phases(floor_full, card)
     counter_phases(card)
+    kv_phase(card)
 
     print(card, flush=True)
     log(json.dumps({"kernels": rows}))

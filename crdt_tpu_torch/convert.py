@@ -1,13 +1,13 @@
 """State carried across from the JAX package, as numpy.
 
-The JAX package's ``OpLog``, ``ColumnarOpLog``, ``ORSet``, ``ORSetBitmap``,
-``ORSetBucketed``, ``RSeq``, ``ColumnarRSeq``, ``Gc``, ``ColumnarGc``, the
-counters (``GCounter``, ``PNCounter``) and the registers and flags
-(``LWWRegister``, ``PackedLWW``, ``TokenPlane``, ``EWFlag``, ``DWFlag``,
-``MVRegister``) are plain arrays; these functions take them as a dict
-of numpy arrays (``np.asarray`` of each field) and build the port's
-tensors, and give them back the same way, so both packages can be fed
-identical state and compared plane by plane.
+The JAX package's ``OpLog``, ``CompactedLog``, ``ColumnarOpLog``,
+``ORSet``, ``ORSetBitmap``, ``ORSetBucketed``, ``RSeq``, ``ColumnarRSeq``,
+``Gc``, ``ColumnarGc``, the counters (``GCounter``, ``PNCounter``) and the
+registers and flags (``LWWRegister``, ``PackedLWW``, ``TokenPlane``,
+``EWFlag``, ``DWFlag``, ``MVRegister``) are plain arrays; these functions
+take them as a dict of numpy arrays (``np.asarray`` of each field) and
+build the port's tensors, and give them back the same way, so both
+packages can be fed identical state and compared plane by plane.
 """
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from crdt_tpu_torch import default_device
+from crdt_tpu_torch.models.compactlog import SUMMARY_FIELDS, CompactedLog, Summary
 from crdt_tpu_torch.models.flags import DWFlag, EWFlag, TokenPlane
 from crdt_tpu_torch.models.gcounter import GCounter
 from crdt_tpu_torch.models.lww import LWWRegister, PackedLWW
@@ -50,6 +51,26 @@ def oplog_from_numpy(d: Mapping[str, np.ndarray], device=None) -> OpLog:
 
 def oplog_to_numpy(log: OpLog) -> dict:
     return {f: getattr(log, f).cpu().numpy() for f in _FIELDS}
+
+
+def compactlog_from_numpy(d: Mapping, device=None) -> CompactedLog:
+    """A CompactedLog from ``{"summary": {field: array}, "frontier": array,
+    "tail": {field: array}}`` (the tail as :func:`oplog_from_numpy` takes
+    it)."""
+    device = default_device(device)
+    summary = Summary(**{
+        f: _tensor(d["summary"][f], torch.bool if f in ("present", "is_num")
+                   else torch.int32, device)
+        for f in SUMMARY_FIELDS
+    })
+    return CompactedLog(summary=summary,
+                        frontier=_tensor(d["frontier"], torch.int32, device),
+                        tail=oplog_from_numpy(d["tail"], device=device))
+
+
+def compactlog_to_numpy(c: CompactedLog) -> dict:
+    return {"summary": {f: getattr(c.summary, f).cpu().numpy() for f in SUMMARY_FIELDS},
+            "frontier": c.frontier.cpu().numpy(), "tail": oplog_to_numpy(c.tail)}
 
 
 def columnar_from_numpy(d: Mapping[str, np.ndarray], bits, device=None) -> ColumnarOpLog:

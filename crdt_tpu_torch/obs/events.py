@@ -1,0 +1,58 @@
+"""Structured event log: the per-node forensic record (own copy of the
+in-memory part of ``crdt_tpu.obs.events``; the JSONL file sink belongs to
+the network daemon, not ported).
+
+Every gossip round, barrier and fault-relevant transition emits one event
+carrying the round's trace ID (:mod:`crdt_tpu_torch.obs.trace`), so an
+incident across nodes reconstructs by searching one ID.  Events are kept
+in a bounded ring; each record is stamped with the schema version ``v``.
+"""
+from __future__ import annotations
+
+import collections
+import threading
+import time
+from typing import Any, Dict, List, Optional
+
+# stamped into every record as "v"; the JAX package's schema version
+SCHEMA_VERSION = 2
+
+
+class EventLog:
+    """Thread-safe bounded event ring.  ``registry`` (optional) receives
+    the ring-eviction counter ``events_dropped``, so a post-mortem can tell
+    a quiet node from a truncated ring."""
+
+    def __init__(self, node: str = "?", capacity: int = 4096, registry=None):
+        self.node = str(node)
+        self.registry = registry
+        self.dropped = 0
+        self._lock = threading.Lock()
+        self._ring: collections.deque = collections.deque(maxlen=capacity)
+
+    def emit(self, event: str, trace: Optional[str] = None,
+             **fields: Any) -> Dict[str, Any]:
+        rec: Dict[str, Any] = {
+            "v": SCHEMA_VERSION,
+            "ts_ms": int(time.time() * 1000),
+            "node": self.node,
+            "event": event,
+        }
+        if trace is not None:
+            rec["trace"] = trace
+        rec.update(fields)
+        with self._lock:
+            if len(self._ring) == self._ring.maxlen:
+                self.dropped += 1
+                if self.registry is not None:
+                    self.registry.inc("events_dropped", node=self.node)
+            self._ring.append(rec)
+        return rec
+
+    def find(self, trace: Optional[str] = None,
+             event: Optional[str] = None) -> List[Dict[str, Any]]:
+        with self._lock:
+            recs = list(self._ring)
+        return [r for r in recs
+                if (trace is None or r.get("trace") == trace)
+                and (event is None or r.get("event") == event)]

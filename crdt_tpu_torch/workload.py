@@ -1,5 +1,5 @@
 """Seeded workloads for driving the port: reference-shaped writes for the
-OpLog swarm, the OR-Set swarm of BASELINE.json's configs[3], the RSeq
+OpLog swarm and for a LocalCluster of replica nodes, the OR-Set swarm of BASELINE.json's configs[3], the RSeq
 swarm of a seeded collaborative-editing history, and the counter and
 register banks of BASELINE.json's configs 0-2.
 
@@ -19,6 +19,7 @@ swarms from a torch.Generator on the device they are built on.
 from __future__ import annotations
 
 import dataclasses
+import random
 import string
 from typing import List, Tuple
 
@@ -27,6 +28,8 @@ import torch
 
 from crdt_tpu_torch import default_device
 from crdt_tpu_torch.models import oplog, orset, rseq
+from crdt_tpu_torch.utils.config import ALPHABET as ALPHABET_REFERENCE
+from crdt_tpu_torch.utils.config import ClusterConfig
 from crdt_tpu_torch.utils.constants import SENTINEL_PY
 from crdt_tpu_torch.utils.intern import Interner, encode_value
 
@@ -84,6 +87,61 @@ def reference_writes(n_writes: int, n_replicas: int, seed: int) -> Writes:
         seq_of[w] += 1
         commands.append((w, {ALPHABET[key[i]]: value}, ts))
     return Writes(ops=cols, keys=keys, values=values, commands=commands)
+
+
+class WorkloadGenerator:
+    """The reference's ``dummyInsertions`` (its main.go:273-314) as the JAX
+    package's ``harness/workload.py`` draws it: one key of
+    ``config.key_alphabet``, a delta in [delta_min, delta_max], a random
+    target replica, from ``random.Random(seed)`` in the JAX sequence."""
+
+    def __init__(self, config: ClusterConfig | None = None, seed: int | None = None):
+        self.config = config or ClusterConfig()
+        self._rng = random.Random(self.config.seed if seed is None else seed)
+
+    def next_command(self) -> Tuple[dict, int]:
+        """Returns ({key: delta}, target_replica_index)."""
+        c = self.config
+        key = c.key_alphabet[self._rng.randrange(len(c.key_alphabet))]
+        delta = self._rng.randint(c.delta_min, c.delta_max)
+        target = self._rng.randrange(c.n_replicas)
+        return {key: str(delta)}, target
+
+    def drive_cluster(self, cluster, n_writes: int, gossip_every: int = 0) -> int:
+        """Apply n_writes commands to ``cluster`` (a LocalCluster), with a
+        gossip tick every ``gossip_every`` writes when non-zero.  Returns
+        the accepted write count."""
+        accepted = 0
+        for i in range(n_writes):
+            cmd, target = self.next_command()
+            accepted += bool(cluster.nodes[target].add_command(cmd))
+            if gossip_every and (i + 1) % gossip_every == 0:
+                cluster.tick()
+        return accepted
+
+
+ODD_NUMERALS = ("007", "+7", "-0", "+0", "000")
+
+
+def mixed_command(rng: np.random.Generator) -> dict:
+    """One command of the JAX package's parity mix (tests/test_parity.py's
+    ``_rand_cmd``, drawn from ``rng`` in its sequence): a second key one
+    time in five, a non-numeric value ("s<n>") 15% of the time, a numeral
+    that Atoi accepts but Itoa would not print (kept verbatim while it is a
+    key's only numeric op) 10% of the time, else a reference delta in
+    [-20, -11]."""
+    n_keys = 1 + int(rng.random() < 0.2)
+    cmd = {}
+    while len(cmd) < n_keys:
+        k = ALPHABET_REFERENCE[rng.integers(0, len(ALPHABET_REFERENCE))]
+        u = rng.random()
+        if u < 0.15:
+            cmd[k] = "s" + str(int(rng.integers(0, 100)))
+        elif u < 0.25:
+            cmd[k] = str(rng.choice(list(ODD_NUMERALS)))
+        else:
+            cmd[k] = str(int(rng.integers(0, 10)) - 20)
+    return cmd
 
 
 def subset_swarm(ops: dict, n_replicas: int, capacity: int, fraction: float,

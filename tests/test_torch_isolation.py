@@ -10,11 +10,15 @@ import torch
 
 import crdt_tpu_torch
 from crdt_tpu_torch import convert, workload
+from crdt_tpu_torch.api.cluster import LocalCluster
+from crdt_tpu_torch.api.node import ReplicaNode
+from crdt_tpu_torch.models import compactlog
 from crdt_tpu_torch.models import flags, gcounter, gset, lww, mvregister, oplog
 from crdt_tpu_torch.models import oplog_columnar, orset, pncounter, rseq
 from crdt_tpu_torch.models import rseq_columnar, tomb_gc
 from crdt_tpu_torch.ops import hopper_union, orset_floor
 from crdt_tpu_torch.parallel import swarm
+from crdt_tpu_torch.utils import config as tconfig
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = (sorted((ROOT / "crdt_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -49,7 +53,10 @@ def test_scan_sees_the_whole_package():
             "orset.py", "gset.py", "rseq.py", "rseq_columnar.py",
             "rseq_engine.py", "tomb_gc.py", "convert.py", "workload.py",
             "time_lexn_union.py", "orset_floor.py", "gcounter.py", "pncounter.py",
-            "lww.py", "flags.py", "mvregister.py"} <= names
+            "lww.py", "flags.py", "mvregister.py", "compactlog.py", "node.py",
+            "cluster.py", "replica.py", "clock.py", "config.py", "metrics.py",
+            "registry.py", "trace.py", "events.py", "provenance.py", "health.py",
+            "devtime.py"} <= names
 
 
 @pytest.mark.parametrize("make", [
@@ -80,18 +87,39 @@ def test_scan_sees_the_whole_package():
     lambda: mvregister.zero(4),
     lambda: convert.mvregister_from_numpy(
         convert.mvregister_to_numpy(mvregister.zero(4, device="cpu"))),
+    lambda: compactlog.empty(8, 4, 2),
+    lambda: ReplicaNode(rid=0),
+    lambda: LocalCluster(),
+    lambda: convert.compactlog_from_numpy(
+        convert.compactlog_to_numpy(compactlog.empty(4, 4, 2, device="cpu"))),
 ], ids=["oplog.empty", "from_ops", "columnar.empty", "random_peers",
         "convert", "default_device", "orset.empty", "bitmap_empty",
         "bucketed_empty", "g_empty", "tp_empty", "convert.orset", "set_swarm",
         "strided_columns", "rseq.empty", "rseq_columnar.empty", "tomb_gc.wrap",
         "seq_swarm", "convert.rseq", "gcounter.zero", "pncounter.zero", "lww.zero",
-        "ew_zero", "dw_zero", "mvregister.zero", "convert.mvregister"])
+        "ew_zero", "dw_zero", "mvregister.zero", "convert.mvregister",
+        "compactlog.empty", "ReplicaNode", "LocalCluster", "convert.compactlog"])
 def test_constructor_without_device_raises_when_no_card(make, monkeypatch):
     """device=None means the CUDA card; without one it raises rather than
     returning CPU tensors."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make()
+
+
+@pytest.mark.parametrize("ask", [
+    lambda: ReplicaNode(rid=0, use_native=True, device="cpu"),
+    lambda: ReplicaNode(rid=0, device="cpu").enable_audit(),
+    lambda: LocalCluster(tconfig.ClusterConfig(set_collect_every=3), device="cpu"),
+    lambda: LocalCluster(tconfig.ClusterConfig(seq_collect_every=1), device="cpu"),
+    lambda: LocalCluster(tconfig.ClusterConfig(map_reset_every=2), device="cpu"),
+], ids=["use_native", "enable_audit", "set_collect_every", "seq_collect_every",
+        "map_reset_every"])
+def test_left_out_node_features_raise(ask):
+    """The node features the port leaves out refuse to run rather than run
+    without their effect."""
+    with pytest.raises((ValueError, NotImplementedError), match="not ported"):
+        ask()
 
 
 def test_kernel_entry_has_no_try_fallback():
