@@ -1,6 +1,7 @@
 """Drive the PyTorch port's OpLog, OR-Set and RSeq swarm paths, the OR-Set
-union floors, the counter and register family and the replica-node cluster
-on a CUDA card and check them.
+union floors, the counter and register family, the replica-node cluster,
+the join registry and the typed sibling nodes on a CUDA card and check
+them.
 
     python3 chip_smoke.py
 
@@ -94,7 +95,23 @@ Phases (any failure exits non-zero and prints no result):
     launched; a 4,096-command run of the parity mix (multi-key,
     non-numeric) == the oracle; then writes/s, tick() median and p99, the
     barrier, get_state(), ``oplog.merge_checked`` at capacity 2^17 beside
-    its bound, one profiled tick and the peak memory, as one JSON line.
+    its bound, one profiled tick and the peak memory, as one JSON line;
+16. the join registry, the typed cluster and the soaks: (a) every
+    registered join (21) on card states drawn by its own generator, 12
+    trials: the four laws, == the join on the CPU copies, ``converge`` by
+    name == on the CPU, ``bucketed_union`` launched; (b) a
+    ``LocalCluster`` of 5 replicas with the siblings' barriers (set and
+    sequence GC every 8 ticks, map reset every 16) takes 16,384 map, 16,384
+    set, 8,192 sequence and 4,096 KV ops in 32 rounds (replica 4 down for
+    rounds 8-15) and ticks to convergence: all four views equal on every
+    replica and == the same schedule's CPU run (after the card's), the
+    barriers ran, the map reset was skipped
+    while replica 4 was down, no hand kernel launched; per-op, tick and
+    barrier times, a profiled tick, peak memory; (c) the sequence soak
+    (4 replicas, 400 steps) on the auto engine == the generic one at
+    capacity 512 (kernel 1 on one lane) and 1024 (kernels 4 and 5), each
+    join's union == its twin with its time and bound, and the set and map
+    soaks at their CLI defaults; one ``{"typed_nodes": ...}`` JSON line.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -398,10 +415,11 @@ def run_slice(device, r, c, n_writes, dead, seed):
     return start_col, alive, rounds, launches
 
 
-def profile(label: str, fn) -> None:
+def profile(label: str, fn) -> dict | None:
     """One call of ``fn`` under torch.profiler: device time by kernel and
     the device's busy share of the call's wall time (the profiler's own
-    host overhead is inside the wall)."""
+    host overhead is inside the wall).  Returns the busy and wall ms and
+    the idle share, None when the profiler saw no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
@@ -421,11 +439,12 @@ def profile(label: str, fn) -> None:
     if not events:
         log(f"profile [{label}]: torch.profiler recorded no device time; busy share "
             "not measured")
-        return
+        return None
     log(f"profile [{label}]: device busy {busy_ms:.4f} ms of {wall_ms:.4f} ms wall "
         f"(idle share {1 - busy_ms / wall_ms:.3f}, under the profiler)")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"  {e.self_device_time_total / 1e3:9.4f} ms  x{e.count:<4d} {e.key[:90]}")
+    return {"busy_ms": busy_ms, "wall_ms": wall_ms, "idle_share": 1 - busy_ms / wall_ms}
 
 
 def sync(device) -> None:
@@ -2113,7 +2132,7 @@ def kv_run(compact_every: int, commands, card: str, profile_last: bool) -> tuple
     return cluster, states, t
 
 
-def kv_phase(card: str) -> None:
+def kv_phase(card: str) -> dict:
     """Phase 15: the reference's own system on the card.  Run (a), the
     never-pruned log (compact_every=0, the reference's main.go:75), and run
     (b), a compaction barrier every 8 ticks with the revived replica caught
@@ -2213,6 +2232,398 @@ def kv_phase(card: str) -> None:
         f"({n_bytes / 1e6:.3f} MB at 3.35 TB/s); get_state() {kv['get_state_ms']:.4f} ms; "
         f"peak device memory {peak / 2**30:.3f} GiB [{card}]")
     log(json.dumps({"kv_node": kv}))
+    return kv
+
+
+# ---- phase 16: the join registry, the typed cluster and the soaks ----
+
+REGISTRY_TRIALS = 12
+# (b) the typed cluster: the reference's 5 replicas (ClusterConfig's
+# defaults) with the siblings' barriers on.  Map writes go over the
+# reference's 62-key alphabet with its deltas in [-20, -11] (main.go:274-276),
+# one remove per 16 updates; set adds and removes (3:1) over a 4,096-element
+# universe; sequence edits at 70 % inserts / 30 % deletes, near the public
+# automerge-perf editing trace's mix (182,315 inserts, 77,463 deletes); and
+# the reference's KV writes (WorkloadGenerator).  32 rounds, replica 4 down
+# for rounds 8-15, then ticks to convergence.
+TYPED_MAP, TYPED_SET, TYPED_SEQ, TYPED_KV = 16_384, 16_384, 8_192, 4_096
+TYPED_ROUNDS, TYPED_DEAD, TYPED_DOWN, TYPED_UP = 32, 4, 8, 16
+TYPED_UNIVERSE, TYPED_EXTRA_TICKS = 4_096, 64
+TYPED_BARRIERS = dict(set_collect_every=8, seq_collect_every=8, map_reset_every=16)
+# (c) the sequence soak at the JAX long mode's columnar shape
+# (tests/test_seq_soak.py:50), at capacity 512 (kernel 1) and 1024 (4, 5)
+SOAK_N, SOAK_STEPS, SOAK_SEED = 4, 400, 0
+
+
+def tree_cpu(x):
+    from crdt_tpu_torch.utils.tree import tree_map
+
+    return tree_map(lambda t: t.cpu(), x)
+
+
+def tree_same(x, y) -> bool:
+    from crdt_tpu_torch.utils.tree import leaves
+
+    lx, ly = leaves(x), leaves(y)
+    return len(lx) == len(ly) and all(
+        a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu()) for a, b in zip(lx, ly))
+
+
+def registry_check(device: str) -> dict:
+    """(a): every registered join on ``device`` states drawn by its own
+    generator, 12 trials: the four laws, each join == the same join on the
+    CPU copies, and ``converge`` by name == on the CPU.  Returns the
+    launches by kernel."""
+    import zlib
+
+    from crdt_tpu_torch.ops import hopper_union as hu
+    from crdt_tpu_torch.ops import joins
+    from crdt_tpu_torch.utils.tree import tree_map
+
+    registry = joins.registered_joins()
+    for name in hu.LAUNCHES:
+        hu.LAUNCHES[name] = 0
+    t0 = time.perf_counter()
+    for name, spec in sorted(registry.items()):
+        rng = np.random.default_rng(zlib.crc32(name.encode()))
+        join, neutral = spec.join, spec.neutral(device=device)
+        drawn = []
+        for _ in range(REGISTRY_TRIALS):
+            a, b, c = (spec.rand(rng, device=device) for _ in range(3))
+            drawn.append(a)
+            ab = join(a, b)
+            for law, x, y in (("commutativity", ab, join(b, a)),
+                              ("associativity", join(ab, c), join(a, join(b, c))),
+                              ("idempotence", join(a, a), a),
+                              ("identity", join(a, neutral), a),
+                              ("== the CPU join", ab, join(tree_cpu(a), tree_cpu(b)))):
+                if not tree_same(x, y):
+                    raise AssertionError(f"registry {name}: {law} fails on {device}")
+        stacked = tree_map(lambda *xs: torch.stack(xs), *drawn[:5])
+        if not tree_same(joins.converge(name, stacked), joins.converge(name, tree_cpu(stacked))):
+            raise AssertionError(f"registry {name}: converge on {device} != on the CPU")
+    sync(device)
+    launches = dict(hu.LAUNCHES)
+    log(f"registry: {len(registry)} joins x {REGISTRY_TRIALS} trials on the card: "
+        f"commutative, associative, idempotent, neutral, == the CPU join and converge "
+        f"({time.perf_counter() - t0:.1f} s); launches {launches}")
+    if launches["bucketed_union"] == 0:
+        raise AssertionError("the registry's orset_bucketed join launched no bucketed_union")
+    return launches
+
+
+def typed_schedule() -> list:
+    """The seeded schedule of (b), round by round: (kv, map, set, seq) ops."""
+    from crdt_tpu_torch import workload
+    from crdt_tpu_torch.utils.config import ALPHABET, ClusterConfig
+
+    rng = np.random.default_rng(SEED + 160)
+    gen = workload.WorkloadGenerator(ClusterConfig(seed=SEED + 161))
+    rounds, n_map = [], 0
+    for _ in range(TYPED_ROUNDS):
+        kv = [gen.next_command() for _ in range(TYPED_KV // TYPED_ROUNDS)]
+        maps = []
+        for _ in range(TYPED_MAP // TYPED_ROUNDS):
+            kind = "rem" if n_map % 17 == 16 else "upd"
+            n_map += 1
+            maps.append((int(rng.integers(0, 5)), kind, ALPHABET[int(rng.integers(0, 62))],
+                         int(rng.integers(-20, -10))))
+        sets = [(int(rng.integers(0, 5)), "add" if rng.random() < 0.75 else "remove",
+                 f"e{int(rng.integers(0, TYPED_UNIVERSE))}")
+                for _ in range(TYPED_SET // TYPED_ROUNDS)]
+        seqs = [(int(rng.integers(0, 5)), bool(rng.random() < 0.7), float(rng.random()))
+                for _ in range(TYPED_SEQ // TYPED_ROUNDS)]
+        rounds.append((kv, maps, sets, seqs))
+    return rounds
+
+
+def typed_views(c) -> dict:
+    return {"kv": c.states(), "set": [n.members() for n in c.set_nodes],
+            "seq": [n.items() for n in c.seq_nodes], "map": [n.items() for n in c.map_nodes],
+            "epochs": [n.epochs() for n in c.map_nodes],
+            "set_floor": [n.vv_snapshot()[1] for n in c.set_nodes],
+            "seq_floor": [n.vv_snapshot()[1] for n in c.seq_nodes],
+            "vv": [(n.version_vector(), s.version_vector(), q.version_vector(),
+                    m.version_vector()) for n, s, q, m in
+                   zip(c.nodes, c.set_nodes, c.seq_nodes, c.map_nodes)]}
+
+
+def typed_run(device: str, rounds: list, timed: bool) -> tuple:
+    """Drive one typed LocalCluster on ``device`` through ``rounds``: each
+    round every op on its replica, one tick; then tick to convergence of
+    all four surfaces.  With ``timed``, every op, tick and barrier is
+    bracketed by a sync and the host clock, and the last round's tick runs
+    under the profiler."""
+    from crdt_tpu_torch.api.cluster import LocalCluster
+    from crdt_tpu_torch.utils.config import ClusterConfig
+
+    cluster = LocalCluster(ClusterConfig(seed=SEED, **TYPED_BARRIERS), device=device)
+    t = {k: [] for k in ("upd", "rem", "add", "remove", "insert_at", "remove_at", "tick",
+                         "set_collect", "seq_collect", "map_reset", "add_commands")}
+    prof = {}
+
+    def clock(key, fn, *args):
+        if timed:
+            sync(device)
+            t0 = time.perf_counter()
+        out = fn(*args)
+        if timed:
+            sync(device)
+            if out is not None:
+                t[key].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    for name in ("set_collect", "seq_collect", "map_reset"):  # tick() calls them
+        setattr(cluster, name, lambda _f=getattr(cluster, name), _n=name: clock(_n, _f))
+    acked, ts = 0, 0
+    for rnd, (kv, maps, sets, seqs) in enumerate(rounds):
+        if rnd in (TYPED_DOWN, TYPED_UP):
+            for nodes in (cluster.nodes, cluster.set_nodes, cluster.seq_nodes,
+                          cluster.map_nodes):
+                nodes[TYPED_DEAD].set_alive(rnd == TYPED_UP)
+        batches = {}
+        for cmd, target in kv:
+            cmds, tss = batches.setdefault(target, ([], []))
+            cmds.append(cmd)
+            tss.append(ts)
+            ts += 1
+        for r in sorted(batches):
+            clock("add_commands", cluster.nodes[r].add_commands, *batches[r])
+        for rep, kind, key, delta in maps:
+            node = cluster.map_nodes[rep]
+            out = (clock("upd", node.upd, key, delta) if kind == "upd"
+                   else clock("rem", node.rem, key))
+            acked += out is not None
+        for rep, kind, elem in sets:
+            acked += clock(kind, getattr(cluster.set_nodes[rep], kind), elem) is not None
+        for i, (rep, insert, u) in enumerate(seqs):
+            node = cluster.seq_nodes[rep]
+            n = len(node.items() or ())
+            if insert:
+                out = clock("insert_at", node.insert_at, int(u * (n + 1)), f"q{rnd}.{i}")
+            else:
+                out = clock("remove_at", node.remove_at, int(u * n)) if n else None
+            acked += out is not None
+        if timed and rnd == len(rounds) - 1:
+            prof = profile("typed cluster: one tick() after the last round", cluster.tick) or {}
+        else:
+            clock("tick", cluster.tick)
+    extra = 0
+    while not (cluster.converged() and cluster.set_converged() and cluster.seq_converged()
+               and cluster.map_converged()):
+        if extra == TYPED_EXTRA_TICKS:
+            raise AssertionError(f"typed cluster on {device}: no convergence "
+                                 f"{TYPED_EXTRA_TICKS} ticks after the writes")
+        clock("tick", cluster.tick)
+        extra += 1
+    return cluster, t, {"acked": acked, "extra_ticks": extra, "profile": prof}
+
+
+def typed_cluster_check(card: str, kv_tick_ms: list) -> dict:
+    """(b): the typed cluster on the card, checked against the same
+    schedule's CPU run, which runs after the card's so that no time shares
+    the host with it; per-op, tick and barrier times."""
+    from crdt_tpu_torch.models import rseq
+    from crdt_tpu_torch.ops import hopper_union as hu
+    from crdt_tpu_torch.utils.tree import leaves
+
+    rounds = typed_schedule()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for name in hu.LAUNCHES:
+        hu.LAUNCHES[name] = 0
+    t0 = time.perf_counter()
+    card_c, t, info = typed_run("cuda", rounds, timed=True)
+    card_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    if any(hu.LAUNCHES.values()):
+        raise AssertionError(f"the typed nodes launched a hand kernel: {hu.LAUNCHES}")
+    t0 = time.perf_counter()
+    cpu_c, _, _ = typed_run("cpu", rounds, timed=False)
+    cpu_s = time.perf_counter() - t0
+    got, want = typed_views(card_c), typed_views(cpu_c)
+    for surface in got:
+        if got[surface] != want[surface]:
+            raise AssertionError(f"typed cluster: {surface} on the card != on the CPU")
+    for surface in ("kv", "set", "seq", "map", "epochs"):
+        if any(v != got[surface][0] for v in got[surface][1:]):
+            raise AssertionError(f"typed cluster: the replicas' {surface} views differ")
+    reg = card_c.metrics.registry
+    counts = {k: reg.counter_value(k) for k in (
+        "set_collections", "seq_collections", "map_resets_scheduled", "map_reset_skipped",
+        "set_collect_skipped", "seq_collect_skipped", "set_floor_adoptions",
+        "seq_floor_adoptions", "map_epoch_adoptions", "set_grow", "seq_grow")}
+    if not (counts["set_collections"] and counts["seq_collections"]
+            and counts["map_reset_skipped"] and got["set_floor"][0] and got["seq_floor"][0]):
+        raise AssertionError(f"typed cluster: a barrier never ran or a map reset was not "
+                             f"skipped while replica {TYPED_DEAD} was down: {counts}")
+    for r in range(5):
+        held = (leaves(card_c.set_nodes[r].gc) + leaves(card_c.seq_nodes[r].gc)
+                + leaves(card_c.map_nodes[r].device_state()))
+        if not all(x.is_cuda for x in held):
+            raise AssertionError(f"typed cluster: replica {r} holds a sibling tensor off the card")
+    seq = card_c.seq_nodes[0].gc.inner
+
+    def q(key):
+        xs = t[key]
+        return [quantile(xs, 0.5), quantile(xs, 0.99), len(xs)] if xs else None
+
+    out = {
+        "ops": {"map": TYPED_MAP, "set": TYPED_SET, "seq": TYPED_SEQ, "kv": TYPED_KV},
+        "acked": info["acked"], "extra_ticks": info["extra_ticks"],
+        "op_ms": {k: q(k) for k in ("upd", "rem", "add", "remove", "insert_at", "remove_at",
+                                    "add_commands")},
+        "tick_ms": q("tick"), "kv_only_tick_ms_phase15": kv_tick_ms,
+        "barrier_ms": {k: q(k) for k in ("set_collect", "seq_collect", "map_reset")},
+        "profiled_tick": info["profile"], "peak_gib": peak / 2**30,
+        "seq_rows": int(rseq.n_rows(seq)), "seq_capacity": seq.capacity,
+        "seq_depth": seq.depth, "set_capacity": card_c.set_nodes[0].gc.inner.capacity,
+        "set_members": len(got["set"][0]), "seq_len": len(got["seq"][0]),
+        "map_keys": len(got["map"][0]), "map_epochs": len(got["epochs"][0]),
+        "counters": counts, "card_run_s": card_s, "cpu_run_s": cpu_s,
+    }
+    ms = out["op_ms"]
+    log(f"typed cluster: {TYPED_MAP} map + {TYPED_SET} set + {TYPED_SEQ} sequence + "
+        f"{TYPED_KV} KV ops in {TYPED_ROUNDS} rounds, replica {TYPED_DEAD} down for rounds "
+        f"{TYPED_DOWN}-{TYPED_UP - 1}: {info['acked']} typed ops acknowledged; all 5 replicas "
+        f"converged {info['extra_ticks']} ticks after the writes; every view, vv, floor and "
+        f"epoch == the CPU run; {counts}")
+    log(f"typed cluster times: upd {ms['upd']}, add {ms['add']}, insert_at {ms['insert_at']} "
+        f"ms [median, p99, n]; tick() {out['tick_ms']} ms with the siblings beside phase "
+        f"15's KV-only {kv_tick_ms}; barriers {out['barrier_ms']}; sequence rows "
+        f"{out['seq_rows']} of capacity {out['seq_capacity']}; peak device memory "
+        f"{peak / 2**30:.3f} GiB; runs: card {card_s:.1f} s, CPU {cpu_s:.1f} s [{card}]")
+    return out
+
+
+def first_auto_join(capacity: int) -> tuple:
+    """The operands of the first join of the soak's auto run (the same
+    seeded schedule, stepped up to that join)."""
+    from crdt_tpu_torch.harness.seq_soak import SeqSoakRunner
+    from crdt_tpu_torch.models import rseq_engine as reng
+
+    runner = SeqSoakRunner(n=SOAK_N, seed=SOAK_SEED, capacity=capacity, device="cuda")
+    real, seen = reng.gc_join_checked_auto, []
+
+    def spy(a, b):
+        seen.append((a, b))
+        return real(a, b)
+
+    reng.gc_join_checked_auto = spy
+    try:
+        while not seen:
+            runner.step()
+    finally:
+        reng.gc_join_checked_auto = real
+    return seen[0]
+
+
+def soak_pair(capacity: int, card: str) -> dict:
+    """(c) one capacity: the seeded sequence soak on the auto engine (the
+    lexN kernels) and on the generic one, equal reports, launches and ms a
+    join; then the join's kernel vs its twin at the soak's own operands."""
+    import dataclasses
+
+    from crdt_tpu_torch.harness.seq_soak import SeqSoakRunner
+    from crdt_tpu_torch.models import rseq_engine as reng
+    from crdt_tpu_torch.ops import hopper_union as hu
+
+    out, reports = {}, {}
+    for engine in ("auto", "generic"):
+        runner = SeqSoakRunner(n=SOAK_N, seed=SOAK_SEED, capacity=capacity, engine=engine,
+                               device="cuda")
+        join_ms, per_join = [], []
+
+        def join(_orig=runner._join, _r=runner):
+            before, launched = _r.report.joins, dict(hu.LAUNCHES)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _orig()
+            torch.cuda.synchronize()
+            if _r.report.joins > before:
+                join_ms.append((time.perf_counter() - t0) * 1e3)
+                per_join.append(sum(hu.LAUNCHES[k] - launched[k] for k in launched))
+        runner._join = join
+        for name in hu.LAUNCHES:
+            hu.LAUNCHES[name] = 0
+        t0 = time.perf_counter()
+        reports[engine] = runner.run(SOAK_STEPS)
+        torch.cuda.synchronize()
+        out[engine] = {"s": time.perf_counter() - t0, "launches": dict(hu.LAUNCHES),
+                       "join_ms": [quantile(join_ms, 0.5), quantile(join_ms, 0.99),
+                                   len(join_ms)],
+                       "launches_a_join": sorted(set(per_join))}
+    if dataclasses.asdict(reports["auto"]) != dataclasses.asdict(reports["generic"]):
+        raise AssertionError(f"seq soak at capacity {capacity}: auto {reports['auto']} != "
+                             f"generic {reports['generic']}")
+    if any(out["generic"]["launches"].values()):
+        raise AssertionError("the generic soak launched a hand kernel")
+    out["report"] = dataclasses.asdict(reports["auto"])
+    out["launches_a_step"] = {k: v / SOAK_STEPS for k, v in out["auto"]["launches"].items() if v}
+    # the join's union at the soak's own operands (one lane, 18 key words,
+    # elem / removed / src): the kernel route vs the fused twin
+    pair = first_auto_join(capacity)
+    ca, cb = reng._stack_pair(*pair)
+    sides = lexn_sides(ca.col, cb.col, gc=True)
+    err = same(f"soak union C={capacity}",
+               hu.sorted_union_columnar_lexn_auto(*sides),
+               hu._lexn_union_plain(*sides, 2 * capacity))
+    out["union_ms"] = time_ms(lambda: hu.sorted_union_columnar_lexn_auto(*sides), reps=50)
+    out["union_plain_ms"] = time_ms(lambda: hu._lexn_union_plain(*sides, 2 * capacity), reps=10)
+    n_planes = N_KEYS_SEQ + 3
+    n_bytes = 4 * (2 * n_planes * capacity + n_planes * 2 * capacity + 1)
+    n_ops = 2 * capacity * math.ceil(math.log2(2 * capacity))
+    out["union_bound_ms"], out["union_bound_by"] = bound(n_bytes, n_ops)
+    out["union_max_abs_err"] = err
+    log(f"seq soak n={SOAK_N} C={capacity} {SOAK_STEPS} steps: auto == generic "
+        f"({reports['auto']}); auto launches {out['auto']['launches']} "
+        f"({out['launches_a_step']} a step, {out['auto']['launches_a_join']} a join), join "
+        f"{out['auto']['join_ms']} ms vs generic {out['generic']['join_ms']} ms "
+        f"[median, p99, n]; runs {out['auto']['s']:.1f} / {out['generic']['s']:.1f} s; its "
+        f"union (18, 3) at one lane: {out['union_ms']:.4f} ms/call, twin "
+        f"{out['union_plain_ms']:.4f} ms, bound {out['union_bound_ms']:.6f} ms by "
+        f"{out['union_bound_by']}, == twin [{card}]")
+    return out
+
+
+def gc_soaks(card: str) -> dict:
+    """(c) the set and map soaks at their CLI defaults (1,000 steps, seeds
+    0-2, 4 replicas, capacity 512), states on the card."""
+    from crdt_tpu_torch.harness.gc_soak import MapSoakRunner, SetSoakRunner
+
+    out = {}
+    for label, make in (("set", lambda s: SetSoakRunner(n=4, seed=s, capacity=512,
+                                                        device="cuda")),
+                        ("map", lambda s: MapSoakRunner(n=4, seed=s, device="cuda"))):
+        t0 = time.perf_counter()
+        reports = [str(make(s).run(1000)) for s in range(3)]
+        out[label] = {"s": time.perf_counter() - t0, "reports": reports}
+        log(f"{label} soak (CLI defaults, seeds 0-2): {out[label]['s']:.1f} s; "
+            + "; ".join(reports) + f" [{card}]")
+    return out
+
+
+def typed_phase(card: str, rows: list, kv: dict) -> None:
+    """Phase 16: the registry on the card, the typed cluster and the soaks,
+    one ``{"typed_nodes": ...}`` JSON line.  The one-lane (18, ·) row of the
+    kernel table takes its launches from the capacity-512 soak, the path
+    that runs it."""
+    t0 = time.perf_counter()
+    reg = registry_check("cuda")
+    cluster = typed_cluster_check(card, kv["tick_ms_a"])
+    soaks = {c: soak_pair(c, card) for c in (512, 1024)}
+    if not soaks[512]["auto"]["launches"]["lexn_union"]:
+        raise AssertionError("the capacity-512 auto soak launched no lexn_union")
+    if not (soaks[1024]["auto"]["launches"]["lexn_merge"]
+            and soaks[1024]["auto"]["launches"]["lexn_compact"]):
+        raise AssertionError("the capacity-1024 auto soak launched no lexn_merge/compact")
+    gcs = gc_soaks(card)
+    for row in rows:
+        if row["name"] == "lexn_union_rseq":
+            row["launches"] = soaks[512]["auto"]["launches"]["lexn_union"]
+    log(json.dumps({"typed_nodes": {
+        "registry_launches": reg, "cluster": cluster, "seq_soak": soaks, "gc_soaks": gcs,
+        "phase_s": time.perf_counter() - t0, "card": card}}))
 
 
 def main() -> int:
@@ -2244,7 +2655,8 @@ def main() -> int:
     rows += rseq_phases(card)
     rows += floor_phases(floor_full, card)
     counter_phases(card)
-    kv_phase(card)
+    kv = kv_phase(card)
+    typed_phase(card, rows, kv)
 
     print(card, flush=True)
     log(json.dumps({"kernels": rows}))

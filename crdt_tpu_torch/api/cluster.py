@@ -11,9 +11,12 @@ Two ways to run the gossip:
   its self-and-dead-ports friend list).
 
 Peers are drawn from ``random.Random(config.seed)`` in the JAX package's
-sequence.  The JAX cluster's sibling set, sequence and map nodes and its
-ingest front doors are not ported: a non-zero ``set_collect_every``,
-``seq_collect_every`` or ``map_reset_every`` is refused.
+sequence.  Beside the KV nodes each replica holds its typed siblings — a
+``SetNode``, a ``SeqNode`` and a ``MapNode`` — pulled from the same peer in
+the same round, with their own barriers every ``set_collect_every``,
+``seq_collect_every`` and ``map_reset_every`` ticks.  The JAX cluster's
+ingest front doors (its HTTP admission lanes) are not ported: nothing in
+process calls them.
 """
 from __future__ import annotations
 
@@ -22,18 +25,19 @@ import threading
 from typing import Dict, List, Optional
 
 from crdt_tpu_torch import default_device
+from crdt_tpu_torch.api.mapnode import MapNode
 from crdt_tpu_torch.api.node import (
     ReplicaNode,
     fused_pull_round,
     pull_round,
     stable_frontier_host,
 )
+from crdt_tpu_torch.api.seqnode import SeqNode, seq_barrier
+from crdt_tpu_torch.api.setnode import SetNode, set_barrier
 from crdt_tpu_torch.obs.trace import mint_trace_id
 from crdt_tpu_torch.utils.clock import HostClock
 from crdt_tpu_torch.utils.config import ClusterConfig
 from crdt_tpu_torch.utils.metrics import Metrics
-
-_SIBLING_KNOBS = ("set_collect_every", "seq_collect_every", "map_reset_every")
 
 
 class LocalCluster:
@@ -45,11 +49,6 @@ class LocalCluster:
             raise ValueError(
                 "go_compat_gossip requires delta_gossip=True and compact_every=0"
             )
-        asked = [k for k in _SIBLING_KNOBS if getattr(self.config, k)]
-        if asked:
-            raise ValueError(
-                f"{', '.join(asked)}: the sibling set, sequence and map nodes are "
-                "not ported; leave these barriers at 0")
         device = default_device(device)
         self.metrics = Metrics()
         clock = HostClock()
@@ -64,6 +63,12 @@ class LocalCluster:
             )
             for i in range(self.config.n_replicas)
         ]
+        # the typed siblings, gossiped alongside the KV surface (cheap until
+        # first used)
+        rids = [self.config.rid_base + i for i in range(self.config.n_replicas)]
+        self.set_nodes = [SetNode(rid=r, metrics=self.metrics, device=device) for r in rids]
+        self.seq_nodes = [SeqNode(rid=r, metrics=self.metrics, device=device) for r in rids]
+        self.map_nodes = [MapNode(rid=r, metrics=self.metrics, device=device) for r in rids]
         self._rng = random.Random(self.config.seed)
         self._ticks = 0
         self._threads: List[threading.Thread] = []
@@ -115,8 +120,10 @@ class LocalCluster:
                                  delta=since is not None)
             return payload
 
-        return pull_round(node, fetch, self.metrics, delta=self.config.delta_gossip,
-                          peer=str(peer.rid), trace=tid)
+        merged = pull_round(node, fetch, self.metrics, delta=self.config.delta_gossip,
+                            peer=str(peer.rid), trace=tid)
+        self._sibling_pulls(idx, self.nodes.index(peer))
+        return merged
 
     def _gossip_once_fused(self, idx: int) -> bool:
         """One k-way fused pull round by the idx-th replica: sample k
@@ -127,7 +134,7 @@ class LocalCluster:
         chosen = self._rng.sample(pool, min(self.config.fuse_pull_k, len(pool)))
         tid = mint_trace_id(node.rid)
         since = node.version_vector() if self.config.delta_gossip else None
-        fetched = []
+        fetched, live = [], []
         for peer in chosen:
             if peer is None or peer is node or not peer.alive:
                 fetched.append((None if peer is None else str(peer.rid), None))
@@ -136,18 +143,36 @@ class LocalCluster:
             if payload is not None:
                 peer.events.emit("gossip_serve", trace=tid, peer=str(node.rid),
                                  delta=since is not None)
+                live.append(peer)
             fetched.append((str(peer.rid), payload))
-        return fused_pull_round(node, fetched, self.metrics,
-                                delta=self.config.delta_gossip, trace=tid)
+        merged = fused_pull_round(node, fetched, self.metrics,
+                                  delta=self.config.delta_gossip, trace=tid)
+        for peer in live:
+            self._sibling_pulls(idx, self.nodes.index(peer))
+        return merged
+
+    def _sibling_pulls(self, idx: int, peer_idx: int) -> None:
+        """The typed siblings' delta pulls riding the KV round (each
+        surface's freshness counted apart)."""
+        for kind, nodes in (("set", self.set_nodes), ("seq", self.seq_nodes),
+                            ("map", self.map_nodes)):
+            mine, theirs = nodes[idx], nodes[peer_idx]
+            if mine.alive and theirs.alive:
+                fresh = mine.receive(theirs.gossip_payload(since=mine.version_vector()))
+                self.metrics.inc(f"{kind}_gossip_rounds" if fresh else f"{kind}_gossip_noop")
 
     def tick(self) -> int:
         """One gossip round for every replica; returns merges performed.
-        Every config.compact_every-th tick also runs a compaction barrier."""
+        Every config.compact_every-th tick also runs a compaction barrier,
+        and the siblings' barriers run at their own cadences."""
         merges = sum(self.gossip_once(idx) for idx in range(len(self.nodes)))
         self._ticks += 1
-        every = self.config.compact_every
-        if every and self._ticks % every == 0:
-            self.compact()
+        for every, barrier in ((self.config.compact_every, self.compact),
+                               (self.config.set_collect_every, self.set_collect),
+                               (self.config.seq_collect_every, self.seq_collect),
+                               (self.config.map_reset_every, self.map_reset)):
+            if every and self._ticks % every == 0:
+                barrier()
         return merges
 
     def compact(self) -> Dict[int, int]:
@@ -172,6 +197,64 @@ class LocalCluster:
             for n in alive:
                 n.compact(frontier)
             return frontier
+
+    def _floor_collect(self, kind: str, nodes, barrier) -> Dict[int, int]:
+        """One swarm-wide set or sequence GC barrier from the 0th sibling:
+        the min over every member's vv, chain-ruled; any dead member skips
+        it (stability cannot be proven without it)."""
+        with self._barrier_lock:
+            coord = nodes[0]
+            if not coord.alive:
+                return {}
+            floor = barrier(coord, [n.vv_snapshot() if n.alive else None for n in nodes[1:]])
+            if not floor:
+                self.metrics.inc(f"{kind}_collect_skipped")
+                return {}
+            for n in nodes:
+                if n.alive:
+                    n.collect(floor)
+            return floor
+
+    def set_collect(self) -> Dict[int, int]:
+        """One swarm-wide set GC barrier (setnode.set_barrier)."""
+        return self._floor_collect("set", self.set_nodes, set_barrier)
+
+    def seq_collect(self) -> Dict[int, int]:
+        """One swarm-wide sequence GC barrier (seqnode.seq_barrier)."""
+        return self._floor_collect("seq", self.seq_nodes, seq_barrier)
+
+    def map_reset(self) -> Dict[str, int]:
+        """One swarm-wide map reset barrier.  Full-fleet rule: any dead
+        member skips it; otherwise converge the map siblings into the
+        coordinator, mint the reset there, adopt everywhere."""
+        with self._barrier_lock:
+            if not all(mn.alive for mn in self.map_nodes):
+                self.metrics.inc("map_reset_skipped")
+                return {}
+            coord = self.map_nodes[0]
+            for mn in self.map_nodes[1:]:
+                coord.receive(mn.gossip_payload(since=coord.version_vector()))
+            epochs = coord.mint_reset()
+            if not epochs:
+                return {}
+            for mn in self.map_nodes[1:]:
+                mn.adopt_epochs(epochs)
+            self.metrics.inc("map_resets_scheduled")
+            return epochs
+
+    @staticmethod
+    def _all_equal(views) -> bool:
+        views = [v for v in views if v is not None]
+        return all(v == views[0] for v in views[1:])
+
+    def map_converged(self) -> bool:
+        return self._all_equal([mn.items() for mn in self.map_nodes if mn.alive])
+
+    def seq_converged(self) -> bool:
+        return self._all_equal([qn.items() for qn in self.seq_nodes if qn.alive])
+
+    def set_converged(self) -> bool:
+        return self._all_equal([sn.members() for sn in self.set_nodes if sn.alive])
 
     def converged(self) -> bool:
         states = [n.get_state() for n in self.nodes if n.alive]
@@ -202,17 +285,19 @@ class LocalCluster:
 
     def _loop(self, idx: int) -> None:
         """Background pull loop for one replica.  The 0th replica's loop
-        doubles as the compaction scheduler (one designated scheduler, so
-        barriers never race each other)."""
+        doubles as the compaction and set/sequence GC scheduler (one
+        designated scheduler, so barriers never race each other)."""
         period = self.config.gossip_period_ms / 1000.0
         rounds = 0
         while not self._stop.wait(period):
             try:
                 self.gossip_once(idx)
                 rounds += 1
-                every = self.config.compact_every
-                if idx == 0 and every and rounds % every == 0:
-                    self.compact()
+                for every, barrier in ((self.config.compact_every, self.compact),
+                                       (self.config.set_collect_every, self.set_collect),
+                                       (self.config.seq_collect_every, self.seq_collect)):
+                    if idx == 0 and every and rounds % every == 0:
+                        barrier()
             except Exception as e:  # noqa: BLE001 — surfaced via stop()
                 self.metrics.inc("gossip_loop_errors")
                 with self._err_lock:

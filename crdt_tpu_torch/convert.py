@@ -2,9 +2,11 @@
 
 The JAX package's ``OpLog``, ``CompactedLog``, ``ColumnarOpLog``,
 ``ORSet``, ``ORSetBitmap``, ``ORSetBucketed``, ``RSeq``, ``ColumnarRSeq``,
-``Gc``, ``ColumnarGc``, the counters (``GCounter``, ``PNCounter``) and the
+``Gc``, ``ColumnarGc``, the counters (``GCounter``, ``PNCounter``), the
 registers and flags (``LWWRegister``, ``PackedLWW``, ``TokenPlane``,
-``EWFlag``, ``DWFlag``, ``MVRegister``) are plain arrays; these functions
+``EWFlag``, ``DWFlag``, ``MVRegister``), the watermark ``VVClock`` and the
+composites (``ORMap``, ``MapGc`` and ``Pair``, generic over their parts)
+are plain arrays; these functions
 take them as a dict of numpy arrays (``np.asarray`` of each field) and
 build the port's tensors, and give them back the same way, so both
 packages can be fed identical state and compared plane by plane.
@@ -17,13 +19,17 @@ import numpy as np
 import torch
 
 from crdt_tpu_torch import default_device
+from crdt_tpu_torch.consistency.vvclock import VVClock
 from crdt_tpu_torch.models.compactlog import SUMMARY_FIELDS, CompactedLog, Summary
+from crdt_tpu_torch.models.composite import Pair
 from crdt_tpu_torch.models.flags import DWFlag, EWFlag, TokenPlane
 from crdt_tpu_torch.models.gcounter import GCounter
 from crdt_tpu_torch.models.lww import LWWRegister, PackedLWW
 from crdt_tpu_torch.models.mvregister import MVRegister
 from crdt_tpu_torch.models.oplog import _FIELDS, KVState, OpLog
 from crdt_tpu_torch.models.oplog_columnar import ColumnarOpLog
+from crdt_tpu_torch.models.ormap import ORMap
+from crdt_tpu_torch.models.ormap_gc import MapGc
 from crdt_tpu_torch.models.orset import ORSet, ORSetBitmap, ORSetBucketed
 from crdt_tpu_torch.models.pncounter import PNCounter
 from crdt_tpu_torch.models.rseq import RSeq
@@ -271,3 +277,49 @@ def mvregister_from_numpy(d: Mapping[str, np.ndarray], device=None) -> MVRegiste
 
 def mvregister_to_numpy(r: MVRegister) -> dict:
     return _planes_to(r, ("seq", "ts", "payload", "obs"))
+
+
+# ---- the watermark lattice and the composites ----
+
+
+def vvclock_from_numpy(d: Mapping[str, np.ndarray], device=None):
+    """A VVClock from its ``seqs`` plane."""
+    return _planes_from(VVClock, d, ("seqs",), device)
+
+
+def vvclock_to_numpy(c) -> dict:
+    return _planes_to(c, ("seqs",))
+
+
+def ormap_from_numpy(d: Mapping, values_from_numpy, device=None):
+    """An ORMap from ``{"presence": <token plane dict>, "values": <the value
+    lattice's dict>}``; ``values_from_numpy`` builds the value planes
+    (``pncounter_from_numpy``, ``lww_from_numpy``, ...)."""
+    return ORMap(presence=token_plane_from_numpy(d["presence"], device=device),
+                 values=values_from_numpy(d["values"], device=device))
+
+
+def ormap_to_numpy(m, values_to_numpy) -> dict:
+    return {"presence": token_plane_to_numpy(m.presence),
+            "values": values_to_numpy(m.values)}
+
+
+def mapgc_from_numpy(d: Mapping, values_from_numpy, device=None):
+    """A MapGc from ``{"map": <ormap dict>, "epoch": int32[K]}``."""
+    device = default_device(device)
+    return MapGc(map=ormap_from_numpy(d["map"], values_from_numpy, device=device),
+                 epoch=_tensor(d["epoch"], torch.int32, device))
+
+
+def mapgc_to_numpy(g, values_to_numpy) -> dict:
+    return {"map": ormap_to_numpy(g.map, values_to_numpy), "epoch": g.epoch.cpu().numpy()}
+
+
+def pair_from_numpy(d: Mapping, fst_from_numpy, snd_from_numpy, device=None):
+    """A composite Pair from ``{"fst": <part dict>, "snd": <part dict>}``."""
+    return Pair(fst=fst_from_numpy(d["fst"], device=device),
+                snd=snd_from_numpy(d["snd"], device=device))
+
+
+def pair_to_numpy(p, fst_to_numpy, snd_to_numpy) -> dict:
+    return {"fst": fst_to_numpy(p.fst), "snd": snd_to_numpy(p.snd)}

@@ -1,5 +1,5 @@
 """The in-process cluster's configuration (own copy of the part of
-``crdt_tpu.utils.config.ClusterConfig`` that the port's node, cluster and
+``crdt_tpu.utils.config.ClusterConfig`` that the port's nodes, cluster and
 workload read).
 
 Defaults reproduce the reference deployment: 5 replicas on ports
@@ -40,8 +40,8 @@ class ClusterConfig:
     # a compaction barrier every N ticks (0 = never, the reference's
     # never-pruned log, main.go:75); not wire-compatible with a Go peer
     compact_every: int = 0
-    # the JAX package's sibling set, sequence and map lattices' barriers;
-    # the port has no sibling nodes and refuses a non-zero value
+    # the typed siblings' barriers, every N ticks (0 = never): a set GC
+    # floor, a sequence GC floor and a full-fleet map reset
     set_collect_every: int = 0
     seq_collect_every: int = 0
     map_reset_every: int = 0

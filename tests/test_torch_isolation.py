@@ -11,12 +11,19 @@ import torch
 import crdt_tpu_torch
 from crdt_tpu_torch import convert, workload
 from crdt_tpu_torch.api.cluster import LocalCluster
+from crdt_tpu_torch.api.mapnode import MapNode
 from crdt_tpu_torch.api.node import ReplicaNode
+from crdt_tpu_torch.api.seqnode import SeqNode
+from crdt_tpu_torch.api.setnode import SetNode
+from crdt_tpu_torch.consistency import vvclock
+from crdt_tpu_torch.harness.gc_soak import MapSoakRunner, SetSoakRunner
+from crdt_tpu_torch.harness.seq_soak import SeqSoakRunner
 from crdt_tpu_torch.models import compactlog
 from crdt_tpu_torch.models import flags, gcounter, gset, lww, mvregister, oplog
 from crdt_tpu_torch.models import oplog_columnar, orset, pncounter, rseq
-from crdt_tpu_torch.models import rseq_columnar, tomb_gc
-from crdt_tpu_torch.ops import hopper_union, orset_floor
+from crdt_tpu_torch.models import ormap, ormap_gc, rseq_columnar, tomb_gc
+from crdt_tpu_torch.ops import hopper_union, joins, orset_floor
+from crdt_tpu_torch.ops import randstate as rs
 from crdt_tpu_torch.parallel import swarm
 from crdt_tpu_torch.utils import config as tconfig
 
@@ -56,7 +63,9 @@ def test_scan_sees_the_whole_package():
             "lww.py", "flags.py", "mvregister.py", "compactlog.py", "node.py",
             "cluster.py", "replica.py", "clock.py", "config.py", "metrics.py",
             "registry.py", "trace.py", "events.py", "provenance.py", "health.py",
-            "devtime.py"} <= names
+            "devtime.py", "vvclock.py", "joins.py", "randstate.py", "ormap.py",
+            "algebra.py", "composite.py", "ormap_gc.py", "setnode.py", "seqnode.py",
+            "mapnode.py", "floornode.py", "gc_soak.py", "seq_soak.py"} <= names
 
 
 @pytest.mark.parametrize("make", [
@@ -92,13 +101,29 @@ def test_scan_sees_the_whole_package():
     lambda: LocalCluster(),
     lambda: convert.compactlog_from_numpy(
         convert.compactlog_to_numpy(compactlog.empty(4, 4, 2, device="cpu"))),
+    lambda: vvclock.zero(8),
+    lambda: ormap.empty(4, 2, pncounter.zero(2, device="cpu")),
+    lambda: ormap_gc.wrap(ormap.empty(4, 2, pncounter.zero(2, device="cpu"), device="cpu")),
+    lambda: SetNode(rid=0),
+    lambda: SeqNode(rid=0),
+    lambda: MapNode(rid=0),
+    lambda: rs.rand_orset(__import__("numpy").random.default_rng(0)),
+    lambda: rs.small_gset(),
+    lambda: joins.registered_joins()["mapof(pncounter)"].neutral(),
+    lambda: convert.vvclock_from_numpy({"seqs": [0, -1]}),
+    lambda: SetSoakRunner(),
+    lambda: MapSoakRunner(),
+    lambda: SeqSoakRunner(),
 ], ids=["oplog.empty", "from_ops", "columnar.empty", "random_peers",
         "convert", "default_device", "orset.empty", "bitmap_empty",
         "bucketed_empty", "g_empty", "tp_empty", "convert.orset", "set_swarm",
         "strided_columns", "rseq.empty", "rseq_columnar.empty", "tomb_gc.wrap",
         "seq_swarm", "convert.rseq", "gcounter.zero", "pncounter.zero", "lww.zero",
         "ew_zero", "dw_zero", "mvregister.zero", "convert.mvregister",
-        "compactlog.empty", "ReplicaNode", "LocalCluster", "convert.compactlog"])
+        "compactlog.empty", "ReplicaNode", "LocalCluster", "convert.compactlog",
+        "vvclock.zero", "ormap.empty", "ormap_gc.wrap", "SetNode", "SeqNode", "MapNode",
+        "rand_orset", "small_gset", "registry_neutral", "convert.vvclock", "SetSoakRunner",
+        "MapSoakRunner", "SeqSoakRunner"])
 def test_constructor_without_device_raises_when_no_card(make, monkeypatch):
     """device=None means the CUDA card; without one it raises rather than
     returning CPU tensors."""
@@ -110,16 +135,26 @@ def test_constructor_without_device_raises_when_no_card(make, monkeypatch):
 @pytest.mark.parametrize("ask", [
     lambda: ReplicaNode(rid=0, use_native=True, device="cpu"),
     lambda: ReplicaNode(rid=0, device="cpu").enable_audit(),
-    lambda: LocalCluster(tconfig.ClusterConfig(set_collect_every=3), device="cpu"),
-    lambda: LocalCluster(tconfig.ClusterConfig(seq_collect_every=1), device="cpu"),
-    lambda: LocalCluster(tconfig.ClusterConfig(map_reset_every=2), device="cpu"),
-], ids=["use_native", "enable_audit", "set_collect_every", "seq_collect_every",
-        "map_reset_every"])
+], ids=["use_native", "enable_audit"])
 def test_left_out_node_features_raise(ask):
     """The node features the port leaves out refuse to run rather than run
     without their effect."""
     with pytest.raises((ValueError, NotImplementedError), match="not ported"):
         ask()
+
+
+@pytest.mark.parametrize("knob,barrier", [("set_collect_every", "set_collect"),
+                                           ("seq_collect_every", "seq_collect"),
+                                           ("map_reset_every", "map_reset")])
+def test_sibling_barrier_knobs_are_accepted(knob, barrier):
+    """The typed siblings are ported: a non-zero barrier cadence builds a
+    cluster whose every tick runs that barrier."""
+    c = LocalCluster(tconfig.ClusterConfig(n_replicas=2, **{knob: 1}), device="cpu")
+    ran = []
+    setattr(c, barrier, lambda: ran.append(barrier))
+    c.tick()
+    c.tick()
+    assert ran == [barrier, barrier]
 
 
 def test_kernel_entry_has_no_try_fallback():
