@@ -15,7 +15,7 @@ Phases (any failure exits non-zero and prints no result):
    overflow case, ragged lane counts, and the tile body's edges (lane
    counts that split a tile of 8, the converge tree's narrow levels, planes
    off 16 B alignment, all-padding lanes beside B inside A, full-range and
-   word-0-tied keys, out=C/2 and 2C; (18, 2) at C=512 on the one-lane
+   word-0-tied keys, out=C/2 and 2C; (18, 2) at C=512 on the wide
    body);
 3. OpLog end to end at R=10,240 replicas x C=1024 log rows: ``plan``
    (must pick the columnar engine) → 3 ``gossip_round``s with one replica
@@ -49,25 +49,28 @@ Phases (any failure exits non-zero and prints no result):
    their kernels';
 9. RSeq: the lexn_merge and lexn_compact kernels vs their twins at C=1024,
    L=10,240 on a ``workload.seq_swarm`` draw at 18 key words with 2 and 3
-   value planes, lexn_union at those splits at C=512, the striped path at
-   a forced stripe of 256 and ``auto`` at C=2048 against the fused twin,
-   overflow, lane counts that split a tile or cluster of 8 lanes, planes
-   off 16 B alignment, 32 planes, all-padding lanes and B inside A
-   (``workload.lexn_pair``), the merge's resident clusters, ``auto`` at
-   C=1024 handing the merge's blocks straight to the compaction, and the
-   shared-memory refusals;
+   value planes, lexn_union (the wide body) at those splits at C=512 and
+   C=1024 (out=C/4, C, 2C), the striped path at a forced stripe of 256 and
+   ``auto`` at C=2048 against the fused twin, overflow, lane counts that
+   split a tile or cluster of 8 lanes (L=1, 2, 7, 9, 127, 130, 257),
+   (2, 2) at C=2048 and 4096, (5, 2) and (18, 2) at C=64 and 256, planes
+   off 16 B alignment, 32 planes,
+   all-padding lanes and B inside A (``workload.lexn_pair``), the merge's
+   resident clusters, the striped union at S=C handing the merge's blocks
+   straight to the compaction, and the shared-memory refusals;
 10. RSeq end to end at R=10,240 replicas x C=1024 rows x depth 6:
     ``rseq_columnar.plan`` (must pick the columnar engine) → 3
     ``gossip_round``s with one replica dead → ``converge_checked`` →
     ``unstack``, checked against the port's generic engine at full width,
     a plain fold of the editing history on 64 sampled lanes, and the
-    predicted launch counts;
+    predicted launch counts (the wide body's lexn_union, no stripe);
 11. the RSeq GC barrier: ``tomb_gc.gc_round`` on the columnar engine ==
     ``engine="generic"``, exactly the removed rows under the frontier
     collected, live lists unchanged; then the dead replica revived by one
     GC-aware pull (``rseq_engine.gc_merge_checked``);
 12. RSeq times (gossip, converge, GC converge, each kernel with its twin
-    and bound) and one profiled gossip round and converge;
+    and bound, the wide body at C=512 and 1024 with its device time) and
+    one profiled gossip round and converge;
 13. the OR-Set floors (kernels 7 and 8) at benches/orset_floor.py's shape,
     C=1024, L=131,072, B=64 on its draw: one launch of each through its
     entry point, both against their twins (also out=C/2, B=2 and 128,
@@ -109,9 +112,11 @@ Phases (any failure exits non-zero and prints no result):
     while replica 4 was down, no hand kernel launched; per-op, tick and
     barrier times, a profiled tick, peak memory; (c) the sequence soak
     (4 replicas, 400 steps) on the auto engine == the generic one at
-    capacity 512 (kernel 1 on one lane) and 1024 (kernels 4 and 5), each
-    join's union == its twin with its time and bound, and the set and map
-    soaks at their CLI defaults; one ``{"typed_nodes": ...}`` JSON line.
+    capacity 512 and 1024 (kernel 1's wide body on one lane) and 2048
+    (kernels 4 and 5), each join's union == its twin with its event and
+    device time and bound, the first auto join split by layer (staging,
+    union, floor suppression, unstack), and the set and map soaks at their
+    CLI defaults; one ``{"typed_nodes": ...}`` JSON line.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -294,8 +299,8 @@ def check_lexn_tile_edges(hu) -> int:
     lanes, the converge tree's narrow levels, planes off 16 B alignment,
     all-padding lanes beside lanes whose B rows all lie in A, full-range
     keys, keys tied on word 0, out = C/2 and untruncated; and (18, 2) at
-    C=512, which takes the one-lane body, in the same process.  Returns
-    the largest |kernel - twin|."""
+    C=512, which takes the wide body, in the same process.  Returns the
+    largest |kernel - twin|."""
     from crdt_tpu_torch import workload
 
     limit = hu.smem_limit(torch.device("cuda"))
@@ -306,7 +311,7 @@ def check_lexn_tile_edges(hu) -> int:
         ka, va, kb, vb = pair
         c = ka[0].shape[0]
         body = hu.lexn_union_body(n_keys, len(va), c, 2 * c if out is None else out, limit)
-        if (body[0] > 0) != want_tile:
+        if (body[1] > 0) != want_tile:
             raise AssertionError(f"lexn_union {label}: body {body}, tile expected {want_tile}")
         got = hu.sorted_union_columnar_fused_lexn(ka, va, kb, vb, out_size=out)
         want = hu._lexn_union_plain(ka, va, kb, vb, 2 * c if out is None else out)
@@ -331,10 +336,10 @@ def check_lexn_tile_edges(hu) -> int:
         a, b = ([x[:, :n].contiguous() for x in side] for side in (wide_a, wide_b))
         union([a[:2], a[2:], b[:2], b[2:]], 2, C, f"converge level L={n}")
     union(tile_pair(18, 2, C // 2, 130, SEED + 66, ties=True), 18, C // 2,
-          "(18, 2) C=512 (one-lane body)", want_tile=False)
+          "(18, 2) C=512 (wide body)", want_tile=False)
     log(f"lexn_union tile edges vs twin: bit-exact at L=1/7/9/127/130/4097, unaligned, "
         f"B inside A with all-padding lanes, full-range and word-0-tied keys, out=C/2 and "
-        f"2C, converge levels L=1-40; (18, 2) at C=512 on the one-lane body; tile plan at "
+        f"2C, converge levels L=1-40; (18, 2) at C=512 on the wide body; tile plan at "
         f"C={C}: {hu.lexn_union_body(2, 2, C, C, limit)}, "
         f"{hu.lexn_union_smem_bytes(2, 2, C, C, limit)} B a CTA")
     return err
@@ -1038,6 +1043,7 @@ def check_rseq_kernels(pool) -> dict:
     against their twins, the striped and auto paths against the fused
     twin, overflow, ragged lanes and the shared-memory refusals.  Returns
     the largest |kernel - twin| by kernel."""
+    from crdt_tpu_torch import workload
     from crdt_tpu_torch.ops import hopper_union as hu
 
     err = {"lexn_merge": 0, "lexn_compact": 0, "lexn_union_rseq": 0}
@@ -1075,6 +1081,12 @@ def check_rseq_kernels(pool) -> dict:
             raise AssertionError("the compaction overflow case did not overflow")
     log(f"lexn_merge + lexn_compact vs twins: bit-exact at (18, 2) and (18, 3), "
         f"C={SEQ_C} L={R}, out=C/2C and overflow (max n_unique {nu})")
+    for gc in (False, True):
+        split = f"(18, {3 if gc else 2})"
+        for out in (SEQ_C // 4, SEQ_C, 2 * SEQ_C):
+            union(lexn_sides(a, b, gc), out, f"{split} C={SEQ_C} L={R} out={out}")
+    log(f"lexn_union (wide body, one CTA an SM) vs twin: bit-exact at (18, 2) and (18, 3), "
+        f"C={SEQ_C} L={R}, out=C/4 (overflow), C and 2C")
     half_a, half_b = (seq_columnar(pool, R, SEQ_C // 2, SEED + 43),
                       seq_columnar(pool, R, SEQ_C // 2, SEED + 44))
     for gc in (False, True):
@@ -1110,27 +1122,36 @@ def check_rseq_kernels(pool) -> dict:
     log("striped (stripe 256: 12 merges + 1 compaction) and auto at C=2048 on 2,048 "
         "lanes (stripe 1024: 4 merges + 1 compaction) == the fused twin")
 
-    for n in (1, 7, 9, 127, 130, 257):
+    for n in (1, 2, 7, 9, 127, 130, 257):
         ra, rb = seq_columnar(pool, n, SEQ_C, SEED + 47), seq_columnar(pool, n, SEQ_C, SEED + 48)
         mk, mv = merge(lexn_sides(ra, rb, True), f"ragged L={n}")
         for out in (SEQ_C // 4, SEQ_C, 2 * SEQ_C):
             compact(mk, mv, out, f"ragged L={n} out={out}")
+            union(lexn_sides(ra, rb, True), out, f"(18, 3) C={SEQ_C} ragged L={n} out={out}")
         ra, rb = (seq_columnar(pool, n, SEQ_C // 2, SEED + 49),
                   seq_columnar(pool, n, SEQ_C // 2, SEED + 50))
         union(lexn_sides(ra, rb, False), SEQ_C // 2, f"ragged L={n}")
-    log("ragged L=1/7/9/127/130/257 (tiles and clusters of 8 lanes split): bit-exact, "
-        "out=C/4, C, 2C")
+    log("ragged L=1/2/7/9/127/130/257 (tiles and clusters of 8 lanes split): bit-exact, "
+        "out=C/4, C, 2C; the wide body at C=512 (two CTAs an SM) and C=1024 (one)")
+    for nk, c, lanes in ((2, 2 * SEQ_C, 130), (2, 4 * SEQ_C, 9), (5, 64, 130),
+                         (N_KEYS_SEQ, 64, 130), (N_KEYS_SEQ, 256, R)):
+        for kw in ({}, {"b_inside_a": True, "empty_lanes": (0, lanes - 1)}):
+            pair = workload.lexn_pair(nk, 2, c, lanes, SEED + 57 + c, device="cuda", **kw)
+            for out in (c // 2, c, 2 * c):
+                union(pair, out, f"({nk}, 2) C={c} L={lanes} out={out} {kw}")
+    log("lexn_union (wide body) vs twin: (2, 2) at C=2048 and 4096 past the tile, (5, 2) "
+        "and (18, 2) at C=64 (eight CTAs an SM), (18, 2) at C=256 (four), out=C/2, C, 2C, "
+        "B inside A with all-padding lanes: bit-exact")
     check_lexn_layouts(pool, merge, compact)
     check_stripe_c_hands_over(pool)
 
     limit = hu.smem_limit(torch.device("cuda"))
     big = [torch.full((2 * SEQ_C, 2), SENTINEL, dtype=torch.int32, device="cuda")] * 20
-    full = [p[:SEQ_C] for p in big]
     refusals = []
     before = dict(hu.LAUNCHES)
     for label, call, want_bytes in (
-        ("fused union (18, 2) at C=1024", lambda: hu.sorted_union_columnar_fused_lexn(
-            full[:18], full[18:], full[:18], full[18:]), hu.lexn_union_smem_bytes(18, 2, SEQ_C)),
+        ("fused union (18, 2) at C=2048", lambda: hu.sorted_union_columnar_fused_lexn(
+            big[:18], big[18:], big[:18], big[18:]), hu.lexn_union_smem_bytes(18, 2, 2 * SEQ_C)),
         ("merge at S=2048", lambda: hu.lexn_merge_columnar(
             big[:18], big[18:], big[:18], big[18:]), hu.lexn_merge_smem_bytes(18, 2 * SEQ_C)),
     ):
@@ -1240,16 +1261,16 @@ def check_stripe_c_hands_over(pool) -> None:
                        seq_columnar(pool, R, SEQ_C, SEED + 56), False)
     hu.lexn_merge_columnar, hu.lexn_compact_columnar = spy_merge, spy_compact
     try:
-        got = hu.sorted_union_columnar_lexn_auto(*sides, out_size=SEQ_C)
+        got = hu.sorted_union_columnar_striped_lexn(*sides, out_size=SEQ_C)
     finally:
         hu.lexn_merge_columnar, hu.lexn_compact_columnar = merge, compact
     if (seen["compact"][0] is not seen["merge"][0]
             or seen["compact"][1] is not seen["merge"][1]):
         raise AssertionError("at stripe = C the compaction did not take the merge's blocks")
     want = hu._lexn_union_plain(*sides, SEQ_C)
-    same("auto at C=1024 (one merge, one compaction)", (*got[0], *got[1], got[2]),
+    same("striped at C=1024 (one merge, one compaction)", (*got[0], *got[1], got[2]),
          (*want[0], *want[1], want[2]))
-    log("auto at C=1024: one merge, its blocks straight into the compaction (no "
+    log("striped at C=1024, S=C: one merge, its blocks straight into the compaction (no "
         "concatenation), == the fused twin")
 
 
@@ -1302,10 +1323,10 @@ def run_rseq_slice(pool) -> dict:
     if reason is not None or start is None:
         raise AssertionError(f"plan fell back: {reason}")
     levels = math.ceil(math.log2(R))
-    expected = {"lexn_merge": 3 + levels, "lexn_compact": 3 + levels}
-    if {k: launches[k] for k in expected} != expected or launches["lexn_union"] != 0:
-        raise AssertionError(f"RSeq launches {launches}, expected {expected} and no "
-                             "fused union (C=1024 stripes)")
+    expected = {"lexn_union": 3 + levels, "lexn_merge": 0, "lexn_compact": 0}
+    if {k: launches[k] for k in expected} != expected:
+        raise AssertionError(f"RSeq launches {launches}, expected {expected}: the wide "
+                             "body's fused union at C=1024, no stripe")
     max_nu = int(max_nu)
     if max_nu > SEQ_C:
         raise AssertionError(f"max_n_unique {max_nu} > C={SEQ_C}")
@@ -1400,7 +1421,8 @@ def run_rseq_slice(pool) -> dict:
     if idents != {k for k, dead in lub_tombs.items() if not dead}:
         raise AssertionError("the revived replica's identities != the live identities "
                              "of the plain fold")
-    if (pull_launches["lexn_merge"], pull_launches["lexn_compact"]) != (1, 1):
+    if (pull_launches["lexn_union"], pull_launches["lexn_merge"],
+            pull_launches["lexn_compact"]) != (1, 0, 0):
         raise AssertionError(f"the GC pull launched {pull_launches}")
     log(f"revival: replica {DEAD} after one gc_merge_checked from replica {peer} == the "
         f"collected LUB ({int(nu[0])} rows, no collected row brought back), launches "
@@ -1462,28 +1484,42 @@ def rseq_times(pool, ctx, err, card) -> list:
     log("lexn_merge / lexn_compact library yardstick: none — no single PyTorch call "
         "does an 18-word lexicographic merge (torch.sort takes one key) or a "
         "punch-and-compact")
-    del a, b
-    half = (seq_columnar(pool, R, SEQ_C // 2, SEED + 43),
-            seq_columnar(pool, R, SEQ_C // 2, SEED + 44))
-    for gc in (False, True):
-        sides = lexn_sides(*half, gc)
-        n_planes, c = N_KEYS_SEQ + len(sides[1]), SEQ_C // 2
-        ms = time_ms(lambda: hu.sorted_union_columnar_fused_lexn(*sides, out_size=c), reps=10)
-        plain_ms = time_ms(lambda: hu._lexn_union_plain(*sides, c), reps=3, warmup=1)
-        n_bytes = 4 * (2 * n_planes * c * R + n_planes * c * R + R)
-        n_ops = 2 * c * R * math.ceil(math.log2(c))
-        if gc:
+    # the wide body at the main path's C=1024 (the row: (18, 2), out=C, as
+    # gossip and converge call it) and at C=512 on phase 9's draws;
+    # bytes: inputs read once, outputs and n_unique written once;
+    # operations: a key-word compare a binary-search step of the 2C rows
+    draws = {SEQ_C: (a, b)}
+    for c in (SEQ_C, SEQ_C // 2):
+        if c not in draws:
+            draws[c] = (seq_columnar(pool, R, c, SEED + 43), seq_columnar(pool, R, c, SEED + 44))
+        for gc in (False, True):
+            sides = lexn_sides(*draws[c], gc)
+            n_planes, out = N_KEYS_SEQ + len(sides[1]), 2 * c if gc and c == SEQ_C else c
+            ms = time_ms(lambda: hu.sorted_union_columnar_fused_lexn(*sides, out_size=out),
+                         reps=10)
+            dev_ms = device_time_ms(
+                lambda: hu.sorted_union_columnar_fused_lexn(*sides, out_size=out))
+            plain_ms = time_ms(lambda: hu._lexn_union_plain(*sides, out), reps=3, warmup=1)
+            n_bytes = 4 * (2 * n_planes * c * R + n_planes * out * R + R)
+            n_ops = 2 * c * R * math.ceil(math.log2(c))
             bound_ms, by = bound(n_bytes, n_ops)
-            log(f"lexn_union [(18, 3), C=512]: {ms:.4f} ms/launch, plain twin "
-                f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {by} [{card}]")
-        else:
-            rows.append(kernel_row(
-                "lexn_union_rseq", "crdt_tpu_torch/csrc/lexn_union.cu",
-                "crdt_tpu/ops/pallas_union.py:353", ctx["launches"]["lexn_union"],
-                err["lexn_union_rseq"], ms, plain_ms, n_bytes, n_ops, None, card))
-    log("lexn_union_rseq: the fused union at (18, 2), C=512; the RSeq main path at "
-        "C=1024 stripes instead, so it launches it no time; library: none (as above)")
-    del half
+            body = hu.lexn_union_body(N_KEYS_SEQ, len(sides[1]), c, out,
+                                      hu.smem_limit(torch.device("cuda")))
+            share = (f"share {bound_ms / dev_ms:.3f} of the device time" if dev_ms
+                     else "device time not measured")
+            log(f"lexn_union [(18, {len(sides[1])}), C={c}, out={out}, wide body "
+                f"{hu.wide_threads(body)} threads a CTA]: {ms:.4f} ms/launch (device "
+                f"{dev_ms:.4f}), plain twin {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {by} "
+                f"({share}) [{card}]")
+            if c == SEQ_C and not gc:
+                rows.append(kernel_row(
+                    "lexn_union_rseq", "crdt_tpu_torch/csrc/lexn_union.cu",
+                    "crdt_tpu/ops/pallas_union.py:353", ctx["launches"]["lexn_union"],
+                    err["lexn_union_rseq"], ms, plain_ms, n_bytes, n_ops, None, card))
+    log(f"lexn_union_rseq: the wide body's fused union at (18, 2), C={SEQ_C}, out=C, on "
+        f"the RSeq main path ({ctx['launches']['lexn_union']} launches; the GC barrier "
+        f"{ctx['gc_launches']['lexn_union']}); library: none (as above)")
+    del a, b, draws
 
     profile("RSeq gossip_round", lambda: rc.gossip_round(col, rounds[0], alive))
     profile("RSeq converge_checked", lambda: rc.converge_checked(col, alive))
@@ -1638,6 +1674,23 @@ def device_time_ms(fn, reps: int = 10) -> float:
     host_keys = {e.key for e in averages if e.device_type == DeviceType.CPU}
     return sum(e.self_device_time_total for e in averages
                if e.device_type == DeviceType.CUDA and e.key not in host_keys) / reps / 1e3
+
+
+def queued_ms(fn, n: int = 20) -> float:
+    """The device time of one call of ``fn`` without the profiler or the
+    host's launch gaps: ``n`` calls queued behind a sleeping kernel run
+    back to back on the card, timed by CUDA events around them."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)  # ~25 ms at the H100's clock: longer than n host calls
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
 
 
 def floor_full_width(planes, set_union_ms: float, card: str) -> dict:
@@ -2251,7 +2304,8 @@ TYPED_ROUNDS, TYPED_DEAD, TYPED_DOWN, TYPED_UP = 32, 4, 8, 16
 TYPED_UNIVERSE, TYPED_EXTRA_TICKS = 4_096, 64
 TYPED_BARRIERS = dict(set_collect_every=8, seq_collect_every=8, map_reset_every=16)
 # (c) the sequence soak at the JAX long mode's columnar shape
-# (tests/test_seq_soak.py:50), at capacity 512 (kernel 1) and 1024 (4, 5)
+# (tests/test_seq_soak.py:50), at capacity 512 and 1024 (kernel 1's wide
+# body) and 2048 (kernels 4, 5: the stripe)
 SOAK_N, SOAK_STEPS, SOAK_SEED = 4, 400, 0
 
 
@@ -2527,6 +2581,7 @@ def soak_pair(capacity: int, card: str) -> dict:
     from crdt_tpu_torch.harness.seq_soak import SeqSoakRunner
     from crdt_tpu_torch.models import rseq_engine as reng
     from crdt_tpu_torch.ops import hopper_union as hu
+    from crdt_tpu_torch.utils.tree import tree_map
 
     out, reports = {}, {}
     for engine in ("auto", "generic"):
@@ -2569,7 +2624,23 @@ def soak_pair(capacity: int, card: str) -> dict:
                hu.sorted_union_columnar_lexn_auto(*sides),
                hu._lexn_union_plain(*sides, 2 * capacity))
     out["union_ms"] = time_ms(lambda: hu.sorted_union_columnar_lexn_auto(*sides), reps=50)
+    out["union_device_ms"] = device_time_ms(lambda: hu.sorted_union_columnar_lexn_auto(*sides))
+    out["union_queued_ms"] = queued_ms(lambda: hu.sorted_union_columnar_lexn_auto(*sides))
     out["union_plain_ms"] = time_ms(lambda: hu._lexn_union_plain(*sides, 2 * capacity), reps=10)
+    # the auto join by layer (CUDA events around each host call): staging the
+    # pair, the union, the floor suppression (src markers, drop and hole
+    # flags, the stable sort, the gathers, the floor max: gc_merge_checked
+    # less its union), unstack, and the whole join
+    merged = reng.gc_merge_checked(ca, cb)[0]
+    layers = {
+        "stack_pair": time_ms(lambda: reng._stack_pair(*pair), reps=50),
+        "union": out["union_ms"],
+        "gc_merge_checked": time_ms(lambda: reng.gc_merge_checked(ca, cb), reps=50),
+        "unstack": time_ms(lambda: tree_map(lambda x: x[0], reng.unstack(merged)), reps=50),
+        "join": time_ms(lambda: reng.gc_join_checked_auto(*pair), reps=50),
+    }
+    layers["suppression"] = layers["gc_merge_checked"] - layers["union"]
+    out["join_layers_ms"] = layers
     n_planes = N_KEYS_SEQ + 3
     n_bytes = 4 * (2 * n_planes * capacity + n_planes * 2 * capacity + 1)
     n_ops = 2 * capacity * math.ceil(math.log2(2 * capacity))
@@ -2580,9 +2651,11 @@ def soak_pair(capacity: int, card: str) -> dict:
         f"({out['launches_a_step']} a step, {out['auto']['launches_a_join']} a join), join "
         f"{out['auto']['join_ms']} ms vs generic {out['generic']['join_ms']} ms "
         f"[median, p99, n]; runs {out['auto']['s']:.1f} / {out['generic']['s']:.1f} s; its "
-        f"union (18, 3) at one lane: {out['union_ms']:.4f} ms/call, twin "
-        f"{out['union_plain_ms']:.4f} ms, bound {out['union_bound_ms']:.6f} ms by "
-        f"{out['union_bound_by']}, == twin [{card}]")
+        f"union (18, 3) at one lane: {out['union_ms']:.4f} ms/call (device: profiler "
+        f"{out['union_device_ms'] or 'not measured'}, queued {out['union_queued_ms']:.4f}), twin "
+        f"{out['union_plain_ms']:.4f} ms, bound "
+        f"{out['union_bound_ms']:.6f} ms by {out['union_bound_by']}, == twin; the auto join "
+        f"by layer: " + ", ".join(f"{k} {v:.4f}" for k, v in layers.items()) + f" ms [{card}]")
     return out
 
 
@@ -2605,22 +2678,26 @@ def gc_soaks(card: str) -> dict:
 
 def typed_phase(card: str, rows: list, kv: dict) -> None:
     """Phase 16: the registry on the card, the typed cluster and the soaks,
-    one ``{"typed_nodes": ...}`` JSON line.  The one-lane (18, ·) row of the
-    kernel table takes its launches from the capacity-512 soak, the path
-    that runs it."""
+    one ``{"typed_nodes": ...}`` JSON line.  The rows of kernels 4 and 5 in
+    the kernel table take their launches from the capacity-2048 soak, the
+    path that runs them since the wide body took C = 1024."""
     t0 = time.perf_counter()
     reg = registry_check("cuda")
     cluster = typed_cluster_check(card, kv["tick_ms_a"])
-    soaks = {c: soak_pair(c, card) for c in (512, 1024)}
-    if not soaks[512]["auto"]["launches"]["lexn_union"]:
-        raise AssertionError("the capacity-512 auto soak launched no lexn_union")
-    if not (soaks[1024]["auto"]["launches"]["lexn_merge"]
-            and soaks[1024]["auto"]["launches"]["lexn_compact"]):
-        raise AssertionError("the capacity-1024 auto soak launched no lexn_merge/compact")
+    soaks = {c: soak_pair(c, card) for c in (512, 1024, 2048)}
+    for c in (512, 1024):
+        launched = soaks[c]["auto"]["launches"]
+        if not launched["lexn_union"] or launched["lexn_merge"] or launched["lexn_compact"]:
+            raise AssertionError(f"the capacity-{c} auto soak launched {launched}, expected "
+                                 "the wide body's lexn_union alone")
+    launched = soaks[2048]["auto"]["launches"]
+    if launched["lexn_union"] or not (launched["lexn_merge"] and launched["lexn_compact"]):
+        raise AssertionError(f"the capacity-2048 auto soak launched {launched}, expected "
+                             "the striped lexn_merge and lexn_compact alone")
     gcs = gc_soaks(card)
     for row in rows:
-        if row["name"] == "lexn_union_rseq":
-            row["launches"] = soaks[512]["auto"]["launches"]["lexn_union"]
+        if row["name"] in ("lexn_merge", "lexn_compact"):
+            row["launches"] = launched[row["name"]]
     log(json.dumps({"typed_nodes": {
         "registry_launches": reg, "cluster": cluster, "seq_soak": soaks, "gc_soaks": gcs,
         "phase_s": time.perf_counter() - t0, "card": card}}))

@@ -32,8 +32,8 @@
 // TPU kernels' on every plane.  The raw merge is not: of two equal keys it
 // always puts A's copy first, where the TPU's bitonic network puts either.
 //
-// Design.  lexn_union has two bodies; the host picks one by shared memory
-// (hopper_union.lexn_union_body) and passes its lane tile:
+// Design.  lexn_union has two bodies; the host picks one by shape and shared
+// memory (hopper_union.lexn_union_body) and passes its plan:
 //   * the tile body (tile_union.cuh, lane_tile 8) where 2 sides x n_keys x
 //     C rows x 8 lanes of key words fit a CTA — the OpLog's (2, 2) at
 //     C = 1024 (164,384 B at out = C): each row of a tile's key planes is
@@ -41,14 +41,19 @@
 //     with the heads in registers; a per-lane scan and a map of output row
 //     -> source; the move gathers the value planes from device memory and
 //     stores whole rows; persistent CTAs, one an SM;
-//   * the one-lane body (lane_tile 0), the first version, for the wide
-//     splits: RSeq's (18, 2) / (18, 3) at C <= 512.  One CTA a lane; the
-//     lane's key words of A and B go to shared memory, A[i] lands at
-//     i + #(B < A[i]) and B[j] at j + #(A <= B[j]) (a binary search each);
-//     the merged planes stay in shared memory (2·n_keys·C + 2C·(n_keys +
-//     n_vals) words plus 2C flag bytes — 156,800 B at C=512 for (18, 2));
-//     past the card's 227 KB opt-in the host stripes the union instead; one
-//     block-wide exclusive scan of the keep flags and a scatter compact it.
+//   * the wide body (stages 0) for the keys the tile does not take: RSeq's
+//     (18, 2) / (18, 3) at C <= 1024, 5 key words, and narrow keys past the
+//     tile's shared memory ((2, 2) at C = 2048 and 4096).  A cluster of 8
+//     CTAs takes a tile of 8 adjacent lanes, each CTA owning one lane's
+//     staged key rows, so a CTA's shared memory holds one lane's keys and
+//     never the merged planes: 2·C·KP + 2C words and 2C flag bytes (KP =
+//     n_keys rounded up to 4), 87,168 B at (18, ·), C = 512 and 174,208 B
+//     at C = 1024.  It stages and ranks as lexn_merge does, then finishes
+//     the union in the same launch where lexn_compact would read the merged
+//     planes back from device memory: flags read through the map, one block
+//     scan, the map rewritten in place into the compacted gather map, and a
+//     move of out_size rows.  Past the card's 227 KB opt-in (C = 2048 at 18
+//     words) the host stripes the union instead.
 // Both take the key and value counts at run time (under kMaxPlanes planes a
 // side; the tile body under tile_union::kMaxKeys key words).
 // lexn_merge and lexn_compact (designs above their kernels) work on tiles
@@ -62,12 +67,13 @@
 // union reads 8 planes x C x L x 4 B = 335.5 MB and writes 167.8 MB: 0.150
 // ms at 3.35 TB/s, against ~(C log C) integer compares a lane, which the
 // card does far faster.  RSeq's 20-plane merge moves 3.36 GB (1.00 ms) and
-// its compaction 2.52 GB (0.75 ms).  The merge reads each key word from
-// device memory once (its move takes them from the owners' shared memory);
-// the compaction reads them twice (the flags, then the move), 1.51 GB more
-// at 18 words.  The one-lane body reads a lane's column strided by L, so a
-// warp's load uses 4 B of each 32 B sector (it ran the OpLog union at 11.8x
-// its bound); the tile body loads and stores whole sectors.
+// its compaction 2.52 GB (0.75 ms); the wide body's union at out = C moves
+// 2.52 GB (0.75 ms) in one launch: it reads each key word from device
+// memory once (flags and move take them from the owners' shared memory),
+// the values once more where they are gathered, and writes no merged
+// intermediate.  At one or two lanes (the sequence soak's joins) nothing is
+// bound by bytes: the launch, the cluster's barriers and the owner CTA's
+// rank and scan set the time.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -77,9 +83,10 @@
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int32_t kSentinel = 0x7FFFFFFF;
 constexpr int kMaxPlanes = 32;  // per operand: n_keys + n_vals <= 32
-constexpr int kThreads = 256;
 
 struct Params {
   const int32_t* a[kMaxPlanes];
@@ -93,46 +100,9 @@ struct Params {
   int n_vals;
 };
 
-// x < y over nk words, x at column xi of a plane set with row stride xs.
-__device__ __forceinline__ bool lex_less(const int32_t* x, int xs, int xi,
-                                         const int32_t* y, int ys, int yi,
-                                         int nk) {
-  for (int k = 0; k < nk; ++k) {
-    const int32_t u = x[k * xs + xi], v = y[k * ys + yi];
-    if (u != v) return u < v;
-  }
-  return false;
-}
-
-// #rows of `arr` (n rows, ascending) strictly below element `xi` of `x`
-// (strict = true), or at or below it (strict = false).
-template <bool kStrict>
-__device__ __forceinline__ int rank_in(const int32_t* arr, int n,
-                                       const int32_t* x, int xi, int nk) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    const bool go_right = kStrict ? lex_less(arr, n, mid, x, n, xi, nk)
-                                  : !lex_less(x, n, xi, arr, n, mid, nk);
-    if (go_right) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
-
-// Stage the lane's key words of A and B in shared memory (nk x c each).
-__device__ __forceinline__ void stage_keys(const Params& p, int32_t* sa,
-                                           int32_t* sb) {
-  const size_t lanes = (size_t)p.lanes, lane = blockIdx.x;
-  for (int i = threadIdx.x; i < p.c; i += blockDim.x) {
-    for (int k = 0; k < p.n_keys; ++k) {
-      sa[k * p.c + i] = p.a[k][i * lanes + lane];
-      sb[k * p.c + i] = p.b[k][i * lanes + lane];
-    }
-  }
-}
-
 // Block-wide exclusive scan of `cnt` (one count per thread, threads in
-// order).  Returns the thread's exclusive prefix; *total gets the sum.
+// order).  Returns the thread's exclusive prefix; *total gets the sum,
+// which warp_sums[last warp] keeps.
 __device__ __forceinline__ int block_exclusive_scan(int cnt, int* warp_sums,
                                                     int* total) {
   const int wid = threadIdx.x >> 5, lid = threadIdx.x & 31;
@@ -157,77 +127,6 @@ __device__ __forceinline__ int block_exclusive_scan(int cnt, int* warp_sums,
   __syncthreads();
   *total = warp_sums[n_warps - 1];
   return incl - cnt + (wid > 0 ? warp_sums[wid - 1] : 0);
-}
-
-__global__ void __launch_bounds__(kThreads)
-lexn_union_kernel(Params p) {
-  const int nk = p.n_keys, np = p.n_keys + p.n_vals;
-  extern __shared__ int32_t smem[];
-  const int c = p.c, n = 2 * c;
-  const size_t lanes = (size_t)p.lanes;
-  const size_t lane = blockIdx.x;
-
-  int32_t* sa = smem;                   // nk x C   A's key words
-  int32_t* sb = sa + nk * c;            // nk x C   B's key words
-  int32_t* m = sb + nk * c;             // np x 2C  merged planes
-  int* warp_sums = m + np * n;          // 32
-  unsigned char* dup = reinterpret_cast<unsigned char*>(warp_sums + 32);  // 2C
-
-  stage_keys(p, sa, sb);
-  __syncthreads();
-
-  // 1. merge by rank: equal keys put A's copy first.
-  for (int i = threadIdx.x; i < c; i += blockDim.x) {
-    const int pa = i + rank_in<true>(sb, c, sa, i, nk);
-    const int pb = i + rank_in<false>(sa, c, sb, i, nk);
-    for (int k = 0; k < nk; ++k) {
-      m[k * n + pa] = sa[k * c + i];
-      m[k * n + pb] = sb[k * c + i];
-    }
-    for (int v = nk; v < np; ++v) {
-      m[v * n + pa] = p.a[v][i * lanes + lane];
-      m[v * n + pb] = p.b[v][i * lanes + lane];
-    }
-  }
-  __syncthreads();
-
-  // 2a. duplicate flags (read-only over m).
-  for (int r = threadIdx.x; r < n; r += blockDim.x) {
-    bool d = r > 0 && m[r] != kSentinel;
-    for (int k = 0; d && k < nk; ++k) d = m[k * n + r] == m[k * n + r - 1];
-    dup[r] = d;
-  }
-  __syncthreads();
-
-  // 2b. OR each duplicate's values into its kept copy.  Only kept rows are
-  // written and only duplicate rows are read, so no row is both.
-  for (int r = threadIdx.x; r + 1 < n; r += blockDim.x) {
-    if (!dup[r] && dup[r + 1]) {
-      for (int v = nk; v < np; ++v) m[v * n + r] |= m[v * n + r + 1];
-    }
-  }
-  __syncthreads();
-
-  // 3. block-wide exclusive scan of keep flags; thread t owns rows
-  // [t·per, (t+1)·per).
-  const int per = (n + blockDim.x - 1) / blockDim.x;
-  const int r0 = threadIdx.x * per;
-  const int r1 = min(r0 + per, n);
-  int cnt = 0;
-  for (int r = r0; r < r1; ++r) cnt += !dup[r] && m[r] != kSentinel;
-  int total;
-  int dst = block_exclusive_scan(cnt, warp_sums, &total);
-
-  // 4-5. scatter kept rows to their compacted row, truncated to out_size.
-  for (int r = r0; r < r1 && dst < p.out_size; ++r) {
-    if (dup[r] || m[r] == kSentinel) continue;
-    for (int v = 0; v < np; ++v) p.out[v][dst * lanes + lane] = m[v * n + r];
-    ++dst;
-  }
-  for (int r = total + threadIdx.x; r < p.out_size; r += blockDim.x) {
-    for (int v = 0; v < np; ++v) p.out[v][r * lanes + lane] = v < nk ? kSentinel : 0;
-  }
-  if (threadIdx.x == 0) p.n_unique[lane] = total;
 }
 
 // ---- lexn_merge: a cluster of 8 CTAs a tile of 8 adjacent lanes ----
@@ -255,6 +154,7 @@ lexn_union_kernel(Params p) {
 
 constexpr int kTile = 8;             // lanes of a merge cluster or compaction tile
 constexpr int kMergeThreads = 1024;  // 128 groups of 8 threads
+constexpr int kMergeWarps = kMergeThreads / 32;
 constexpr int kGroups = kMergeThreads / kTile;
 constexpr int kRankRows = 4;        // merged rows a thread ranks after its search
 
@@ -274,9 +174,73 @@ __device__ __forceinline__ bool row_less(const int32_t* x, const int32_t* y, int
   return false;
 }
 
+// x == y over two staged rows of kp words
+__device__ __forceinline__ bool row_equal(const int32_t* x, const int32_t* y, int kp) {
+  for (int k = 0; k < kp; k += 4) {
+    const int4 u = *reinterpret_cast<const int4*>(x + k);
+    const int4 v = *reinterpret_cast<const int4*>(y + k);
+    if (u.x != v.x || u.y != v.y || u.z != v.z || u.w != v.w) return false;
+  }
+  return true;
+}
+
+// Step 1 of the cluster kernels: CTA `me` stages rows [r0, r0 + nr) of both
+// operands for the tile's 8 lanes into their owners' sa / sb (S x KP each);
+// item (side, quad, row), rows fastest, so a warp reads 4 rows x 8 lanes of
+// one word; a thread has kUnroll items' loads in flight before it stores.
+template <int kThreadsT, int kUnroll>
+__device__ __forceinline__ void stage_rows(const Params& p, cg::cluster_group& cluster,
+                                           int32_t* sa, int32_t* sb, int s, int kp, int me,
+                                           int l, int g, size_t lane, bool lane_ok) {
+  constexpr int groups = kThreadsT / kTile;
+  const size_t lanes = (size_t)p.lanes;
+  int32_t* to_a = cluster.map_shared_rank(sa, l);
+  int32_t* to_b = cluster.map_shared_rank(sb, l);
+  const int per = (s + kTile - 1) / kTile;
+  const int r0 = min(s, me * per), nr = min(s, r0 + per) - r0;
+  const int quads = kp / 4;
+  const int items = 2 * quads * nr;
+  for (int w0 = g; lane_ok && w0 < items; w0 += groups * kUnroll) {
+    int4 x[kUnroll];
+    int32_t* to[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int w = w0 + u * groups;
+      if (w < items) {
+        const int r = r0 + w % nr, q = (w / nr) % quads, side = w / (nr * quads);
+        int32_t y[4];
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          const int k = 4 * q + v;
+          y[v] = k < p.n_keys ? __ldg((side ? p.b[k] : p.a[k]) + (size_t)r * lanes + lane) : 0;
+        }
+        x[u] = make_int4(y[0], y[1], y[2], y[3]);
+        to[u] = (side ? to_b : to_a) + r * kp + 4 * q;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (w0 + u * groups < items) *reinterpret_cast<int4*>(to[u]) = x[u];
+    }
+  }
+}
+
+// A's rows among the first d0 merged rows of the staged sa, sb (S rows
+// each): A[mid] comes first iff !(B[d0 - mid - 1] < A[mid]), so equal keys
+// put A's copy first.
+__device__ __forceinline__ int co_rank(const int32_t* sa, const int32_t* sb, int s, int kp,
+                                       int d0) {
+  int lo = max(0, d0 - s), hi = min(d0, s);
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (!row_less(sb + (d0 - mid - 1) * kp, sa + mid * kp, kp)) lo = mid + 1;
+    else hi = mid;
+  }
+  return lo;
+}
+
 __global__ void __launch_bounds__(kMergeThreads)
 lexn_merge_kernel(Params p) {
-  namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
   const int nk = p.n_keys, np = p.n_keys + p.n_vals, kp = key_stride(nk);
   const int s = p.c, n = 2 * s;
@@ -292,27 +256,8 @@ lexn_merge_kernel(Params p) {
   const size_t lane = l0 + l;
   const bool lane_ok = lane < lanes;
 
-  // 1. stage rows [r0, r0 + nr) of both operands: item (side, quad, row),
-  // rows fastest, so a warp reads 4 rows x 8 lanes of one word.
-  {
-    int32_t* to_a = cluster.map_shared_rank(sa, l);
-    int32_t* to_b = cluster.map_shared_rank(sb, l);
-    const int per = (s + kTile - 1) / kTile;
-    const int r0 = min(s, me * per), nr = min(s, r0 + per) - r0;
-    const int quads = kp / 4;
-    const int items = 2 * quads * nr;
-    for (int w = g; lane_ok && w < items; w += kGroups) {
-      const int r = r0 + w % nr, q = (w / nr) % quads, side = w / (nr * quads);
-      int32_t x[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int k = 4 * q + u;
-        x[u] = k < nk ? __ldg((side ? p.b[k] : p.a[k]) + (size_t)r * lanes + lane) : 0;
-      }
-      *reinterpret_cast<int4*>((side ? to_b : to_a) + r * kp + 4 * q) =
-          make_int4(x[0], x[1], x[2], x[3]);
-    }
-  }
+  // 1. stage rows [r0, r0 + nr) of both operands
+  stage_rows<kMergeThreads, 1>(p, cluster, sa, sb, s, kp, me, l, g, lane, lane_ok);
   cluster.sync();
 
   // 2. rank this CTA's own lane by merge path.
@@ -320,13 +265,7 @@ lexn_merge_kernel(Params p) {
     const int k_rows = max(kRankRows, (n + blockDim.x - 1) / blockDim.x);
     const int d0 = threadIdx.x * k_rows;
     if (d0 < n) {
-      int lo = max(0, d0 - s), hi = min(d0, s);
-      while (lo < hi) {  // A's rows among the first d0: A[mid] first iff !(B < A)
-        const int mid = (lo + hi) >> 1;
-        if (!row_less(sb + (d0 - mid - 1) * kp, sa + mid * kp, kp)) lo = mid + 1;
-        else hi = mid;
-      }
-      int ia = lo, ib = d0 - lo;
+      int ia = co_rank(sa, sb, s, kp, d0), ib = d0 - ia;
       for (int d = d0; d < min(n, d0 + k_rows); ++d) {
         const bool take_a = ia < s && (ib >= s || !row_less(sb + ib * kp, sa + ia * kp, kp));
         map[d] = take_a ? ia++ : s + ib++;
@@ -358,6 +297,189 @@ lexn_merge_kernel(Params p) {
 #pragma unroll
       for (int v = 0; v < kMaxPlanes; ++v) {
         if (v >= nk && v < np) x[v] = __ldg((src < s ? p.a[v] : p.b[v]) + from_row);
+      }
+#pragma unroll
+      for (int v = 0; v < kMaxPlanes; ++v) {
+        if (v >= nk && v < np) p.out[v][to] = x[v];
+      }
+    }
+  }
+  // no CTA may leave while another still reads its shared memory
+  cluster.sync();
+}
+
+// ---- lexn_union's wide body: a cluster of 8 CTAs a tile of 8 lanes ----
+//
+// Staging and ranking are lexn_merge's (steps 1-2 above; two staging items
+// in flight a thread, the value rows of the CTA's staging range prefetched
+// into L2 for the move; K = max(2, 2C / threads) rows a thread); the owner
+// CTA then punches and compacts its lane where lexn_compact would read the
+// merged planes back from device memory.  Shared memory a CTA: sa, sb (C x
+// KP each), the map (2C words), the scan's warp sums (kMergeWarps words;
+// the last warp's ends as the lane's n_unique) and a flag byte a merged
+// row — wide_smem_bytes, the host's hopper_union.lexn_wide_smem_bytes.
+// Instances of 1,024 / k threads for k = 1, 2, 4, 8 CTAs an SM; the host
+// takes the most CTAs whose shared memory fits an SM, so that one
+// cluster's barriers and rank overlap another's loads and stores (two of
+// 512 threads at RSeq's C = 512, 87,168 B: 2.22 -> 1.47 ms at (18, 2),
+// L = 10,240, device time on an NVIDIA H100 80GB HBM3 at 700 W; one of
+// 1,024 at C = 1024, 174,208 B; eight of 128 at tiny C).
+//   2. while it merges its K rows in order, a thread flags each: padding
+//      (key word 0 is SENTINEL), a duplicate (not padding, and equal to the
+//      merged row before it: 16 B compares in shared memory; a run's first
+//      row compares with the later of A[ia - 1] and B[ib - 1]) or kept;
+//   3. one block scan of the kept counts over the threads' runs gives
+//      n_unique (before truncation) and each kept row its output row; each
+//      thread reads its run's map entries and flags, and the next run's
+//      first, before the scan's barriers, and rewrites the map in place
+//      after them into the compacted gather map: output row k -> its source
+//      (bits 0-15), and where the next merged row is a duplicate, bit 31
+//      and that row's source (bits 16-30), whose values OR in (lexn_compact's
+//      window rule);
+//   4. cluster.sync, then the move over out_size rows, as lexn_merge's step
+//      3: CTA `me` writes rows [o0, o1) of the tile's 8 lanes, the key words
+//      from the owner's staged row (distributed shared memory), the values
+//      gathered from A and B in device memory with the duplicate's ORed in,
+//      every plane stored as whole rows of the tile; rows at or past the
+//      lane's n_unique (read from the owner) are SENTINEL / 0.
+// At fewer than 8 lanes only the owners of real lanes rank and scan, while
+// all 8 CTAs stage and move.
+
+constexpr int kWideMinRows = 2;   // merged rows a thread takes at least
+constexpr int kWideRankRows = 8;  // and at most
+constexpr int kWideUnroll = 2;    // staging items in flight a thread
+constexpr int32_t kDupBit = (int32_t)0x80000000u;
+
+__host__ __device__ inline size_t wide_smem_bytes(int nk, int c) {
+  return sizeof(int32_t) * ((size_t)2 * c * key_stride(nk) + 2 * (size_t)c + kMergeWarps) +
+         2 * (size_t)c;
+}
+
+template <int kWideThreads, int kCtasPerSm>
+__global__ void __launch_bounds__(kWideThreads, kCtasPerSm)
+wide_union_kernel(Params p) {
+  constexpr int groups = kWideThreads / kTile, warps = kWideThreads / 32;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int nk = p.n_keys, np = p.n_keys + p.n_vals, kp = key_stride(nk);
+  const int c = p.c, n = 2 * c;
+  const size_t lanes = (size_t)p.lanes;
+  const int me = (int)cluster.block_rank();
+  const size_t l0 = (size_t)(blockIdx.x - me);  // the tile's first lane
+  extern __shared__ int32_t smem[];
+  int32_t* sa = smem;           // C x KP  A's key words of lane l0 + me
+  int32_t* sb = sa + c * kp;    // C x KP  B's key words
+  int32_t* map = sb + c * kp;   // 2C      merged row -> source, then the gather map
+  int* warp_sums = map + n;     // kMergeWarps
+  unsigned char* flag = reinterpret_cast<unsigned char*>(warp_sums + kMergeWarps);  // 2C
+
+  const int l = threadIdx.x % kTile, g = threadIdx.x / kTile;
+  const size_t lane = l0 + l;
+  const bool lane_ok = lane < lanes;
+
+  // 1. stage the keys; the value rows of the same range go to L2 for the
+  // move.  The first barrier makes sure every CTA of the cluster runs
+  // before any writes into its shared memory: with several CTAs an SM they
+  // start at different times (without it the 128-thread instance faulted
+  // now and then at C = 64)
+  cluster.sync();
+  stage_rows<kWideThreads, kWideUnroll>(p, cluster, sa, sb, c, kp, me, l, g, lane, lane_ok);
+  {
+    const int per = (c + kTile - 1) / kTile;
+    const int r0 = min(c, me * per), nr = min(c, r0 + per) - r0;
+    const int nv = p.n_vals;
+    for (int w = threadIdx.x; w < 2 * nv * nr; w += kWideThreads) {
+      const int r = r0 + w % nr, v = nk + (w / nr) % nv, side = w / (nr * nv);
+      tile_union::prefetch_l2((side ? p.b[v] : p.a[v]) + (size_t)r * lanes + l0);
+    }
+  }
+  cluster.sync();
+
+  if (l0 + me < lanes) {  // the same for every thread of the CTA
+    const int k_rows = max(kWideMinRows, (n + kWideThreads - 1) / kWideThreads);
+    const int d0 = min(n, (int)threadIdx.x * k_rows), d1 = min(n, d0 + k_rows);
+
+    // 2. rank and flag the run [d0, d1)
+    if (d0 < d1) {
+      int ia = co_rank(sa, sb, c, kp, d0), ib = d0 - ia;
+      const int32_t* prev = nullptr;
+      if (d0 > 0) {  // the merged row before d0: the later of A[ia - 1], B[ib - 1]
+        const int32_t* pa = sa + (ia - 1) * kp;
+        const int32_t* pb = sb + (ib - 1) * kp;
+        prev = ib == 0 ? pa : ia == 0 ? pb : row_less(pb, pa, kp) ? pa : pb;
+      }
+      for (int d = d0; d < d1; ++d) {
+        const bool take_a = ia < c && (ib >= c || !row_less(sb + ib * kp, sa + ia * kp, kp));
+        const int src = take_a ? ia++ : c + ib++;
+        const int32_t* row = sa + src * kp;  // sb follows sa
+        map[d] = src;
+        flag[d] = row[0] == kSentinel ? 2 : (prev != nullptr && row_equal(row, prev, kp));
+        prev = row;
+      }
+    }
+    __syncthreads();
+
+    // 3. scan, then the gather map
+    int src[kWideRankRows + 1], fl[kWideRankRows + 1];
+    int cnt = 0;
+#pragma unroll
+    for (int k = 0; k <= kWideRankRows; ++k) {
+      const bool in = k <= k_rows && d0 + k < n;
+      src[k] = in ? map[d0 + k] : 0;
+      fl[k] = in ? flag[d0 + k] : 2;
+      if (k < k_rows && d0 + k < d1) cnt += fl[k] == 0;
+    }
+    int total;
+    int dst = block_exclusive_scan(cnt, warp_sums, &total);
+#pragma unroll
+    for (int k = 0; k < kWideRankRows; ++k) {
+      if (k < k_rows && d0 + k < d1 && fl[k] == 0) {
+        map[dst++] = fl[k + 1] == 1 ? (src[k] | src[k + 1] << 16 | kDupBit) : src[k];
+      }
+    }
+    if (threadIdx.x == 0) p.n_unique[l0 + me] = total;
+  }
+  cluster.sync();
+
+  // 4. move: CTA `me` writes output rows [o0, o1) of the 8 lanes.
+  {
+    const int32_t* gather = cluster.map_shared_rank(map, l);
+    const int32_t* keys = cluster.map_shared_rank(sa, l);
+    const int nu = lane_ok ? cluster.map_shared_rank(warp_sums, l)[warps - 1] : 0;
+    const int out = p.out_size;
+    const int per = (out + kTile - 1) / kTile;
+    const int o0 = min(out, me * per), o1 = min(out, o0 + per);
+    for (int o = o0 + g; lane_ok && o < o1; o += groups) {
+      const size_t to = (size_t)o * lanes + lane;
+      if (o >= nu) {
+#pragma unroll
+        for (int v = 0; v < kMaxPlanes; ++v) {
+          if (v < np) p.out[v][to] = v < nk ? kSentinel : 0;
+        }
+        continue;
+      }
+      const int32_t e = gather[o];
+      const int s0 = e & 0xFFFF;
+      const int32_t* row = keys + s0 * kp;
+      for (int k = 0; k < nk; k += 4) {
+        const int4 v = *reinterpret_cast<const int4*>(row + k);
+        p.out[k][to] = v.x;
+        if (k + 1 < nk) p.out[k + 1][to] = v.y;
+        if (k + 2 < nk) p.out[k + 2][to] = v.z;
+        if (k + 3 < nk) p.out[k + 3][to] = v.w;
+      }
+      const size_t from0 = (size_t)(s0 < c ? s0 : s0 - c) * lanes + lane;
+      int32_t x[kMaxPlanes];
+#pragma unroll
+      for (int v = 0; v < kMaxPlanes; ++v) {
+        if (v >= nk && v < np) x[v] = __ldg((s0 < c ? p.a[v] : p.b[v]) + from0);
+      }
+      if (e < 0) {
+        const int s1 = (e >> 16) & 0x7FFF;
+        const size_t from1 = (size_t)(s1 < c ? s1 : s1 - c) * lanes + lane;
+#pragma unroll
+        for (int v = 0; v < kMaxPlanes; ++v) {
+          if (v >= nk && v < np) x[v] |= __ldg((s1 < c ? p.a[v] : p.b[v]) + from1);
+        }
       }
 #pragma unroll
       for (int v = 0; v < kMaxPlanes; ++v) {
@@ -561,15 +683,6 @@ lexn_compact_kernel(Params p, int lt) {
   }
 }
 
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, const Params& p, int smem, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<p.lanes, kThreads, smem, stream>>>(p);
-  return cudaGetLastError();
-}
-
 bool fill_params(Params* p, int n_keys, int n_vals, const void* const* a,
                  const void* const* b, void* const* out, void* n_unique,
                  int c, int lanes, int out_size) {
@@ -592,13 +705,13 @@ bool fill_params(Params* p, int n_keys, int n_vals, const void* const* a,
   return true;
 }
 
-// The merge's launch: ceil(lanes / 8) clusters of 8 CTAs, `smem` bytes a
-// CTA; *clusters gets how many clusters the card can hold at once.
-cudaError_t merge_config(int lanes, int smem, cudaStream_t stream,
-                         cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
-                         int* clusters) {
+// A cluster kernel's launch (lexn_merge, the wide union): ceil(lanes / 8)
+// clusters of 8 CTAs, `smem` bytes a CTA.
+template <typename Kernel>
+cudaError_t cluster_config(Kernel kernel, int lanes, int smem, cudaStream_t stream,
+                           cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
   cudaError_t err = cudaFuncSetAttribute(
-      lexn_merge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   *cfg = cudaLaunchConfig_t{};
   cfg->gridDim = dim3((lanes + kTile - 1) / kTile * kTile);
@@ -611,7 +724,45 @@ cudaError_t merge_config(int lanes, int smem, cudaStream_t stream,
   attr->val.clusterDim.z = 1;
   cfg->attrs = attr;
   cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
+// The merge's launch; *clusters gets how many clusters the card can hold
+// at once.
+cudaError_t merge_config(int lanes, int smem, cudaStream_t stream,
+                         cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
+                         int* clusters) {
+  cudaError_t err = cluster_config(lexn_merge_kernel, lanes, smem, stream, cfg, attr);
+  if (err != cudaSuccess) return err;
   return cudaOccupancyMaxActiveClusters(clusters, (void*)lexn_merge_kernel, cfg);
+}
+
+// The wide union's launch, after the checks of what it takes: the plan
+// (8 lanes a cluster, stages 0, `ctas_per_sm` 1, 2, 4 or 8), C a power of
+// two with 2C <= kWideRankRows x the instance's threads, and `smem` at
+// least its layout's.  k CTAs an SM run the instance of 1,024 / k threads,
+// each held to 64 registers.
+cudaError_t wide_launch(const Params& p, int lane_tile, int ctas_per_sm, int smem,
+                        cudaStream_t stream) {
+  void (*kernel)(Params) = ctas_per_sm == 8   ? wide_union_kernel<128, 8>
+                           : ctas_per_sm == 4 ? wide_union_kernel<256, 4>
+                           : ctas_per_sm == 2 ? wide_union_kernel<512, 2>
+                                              : wide_union_kernel<1024, 1>;
+  const int threads = 1024 / ctas_per_sm;
+  if (lane_tile != kTile || (ctas_per_sm != 1 && ctas_per_sm != 2 && ctas_per_sm != 4 &&
+                             ctas_per_sm != 8) || (p.c & (p.c - 1)) ||
+      2 * p.c > kWideRankRows * threads || p.out_size < 0 || p.out_size > 2 * p.c ||
+      p.n_unique == nullptr || smem < 0 || (size_t)smem < wide_smem_bytes(p.n_keys, p.c)) {
+    return cudaErrorInvalidValue;
+  }
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = cluster_config(kernel, p.lanes, smem, stream, &cfg, &attr);
+  if (err != cudaSuccess) return err;
+  cfg.blockDim = dim3(threads);
+  err = cudaLaunchKernelEx(&cfg, kernel, p);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -627,9 +778,10 @@ extern "C" {
 // cudaErrorInvalidValue for a plane count past kMaxPlanes.
 
 // The union: inputs (c, lanes), outputs (out_size, lanes), n_unique (lanes,).
-// `lane_tile` 0 runs the one-lane body; 1, 2, 4 or 8 the tile body with
-// that many lanes a tile, `stages` key buffers (1 or 2) and the value
-// planes staged (`stage_vals` 1) or gathered from device memory (0).
+// `stages` 0 runs the wide body (`lane_tile` 8: the lanes of a cluster;
+// `stage_vals` is then its CTAs an SM, 1 or 2); 1 or 2 the tile body with
+// `lane_tile` lanes a tile (1, 2, 4 or 8), that many key buffers and the
+// value planes staged (`stage_vals` 1) or gathered from device memory (0).
 int lexn_union(int n_keys, int n_vals, const void* const* a,
                const void* const* b, void* const* out, void* n_unique, int c,
                int lanes, int out_size, int lane_tile, int stages,
@@ -639,7 +791,7 @@ int lexn_union(int n_keys, int n_vals, const void* const* a,
     return cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (lane_tile == 0) return launch(lexn_union_kernel, p, smem, s);
+  if (stages == 0) return wide_launch(p, lane_tile, stage_vals, smem, s);
   tile_union::Args t = {};
   for (int i = 0; i < n_keys + n_vals; ++i) {
     t.a[i] = p.a[i];

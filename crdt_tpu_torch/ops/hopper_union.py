@@ -18,11 +18,12 @@ Counterpart of ``crdt_tpu.ops.pallas_union``.  Two CUDA sources:
 
 The single-key union, its merge (in the body's keep-all mode) and the
 fused lexN union at narrow keys (the OpLog's (hi, lo)) share one body, the
-lane tile of ``csrc/tile_union.cuh``; the bucket-local union runs a
-wide-lane segment body of ``csrc/set_union.cu``.  Each body's plan and
-shared memory are worked out here from the shape (``set_union_plan``,
-``merge_plan``, ``bucketed_union_plan``, ``lexn_union_body``) and passed to
-the launch.
+lane tile of ``csrc/tile_union.cuh``; the fused lexN union at wide keys
+(RSeq's 18 words) runs the wide body of ``csrc/lexn_union.cu``, 8-CTA
+clusters like the merge's; the bucket-local union runs a wide-lane segment
+body of ``csrc/set_union.cu``.  Each body's plan and shared memory are
+worked out here from the shape (``set_union_plan``, ``merge_plan``,
+``bucketed_union_plan``, ``lexn_union_body``) and passed to the launch.
 
 The host contract is the JAX one: planes are ``(C, L)`` int32 with lane j
 holding one replica's rows, per-lane sorted ascending over the key words,
@@ -63,13 +64,14 @@ HOPPER_SMEM_OPTIN = 232_448
 
 
 def _check_planes(planes: Sequence[torch.Tensor], shape, device) -> None:
+    shape = torch.Size(shape)
     for p in planes:
         if not isinstance(p, torch.Tensor):
             raise TypeError(f"plane is {type(p).__name__}, not a tensor")
         if p.dtype != torch.int32:
             raise TypeError(f"plane dtype {p.dtype} is not int32")
-        if tuple(p.shape) != shape:
-            raise ValueError(f"plane shape {tuple(p.shape)} != {shape}")
+        if p.shape != shape:
+            raise ValueError(f"plane shape {tuple(p.shape)} != {tuple(shape)}")
         if p.device != device:
             raise ValueError(f"plane on {p.device}, expected {device}")
         if not p.is_contiguous():
@@ -136,22 +138,47 @@ def _tile_plan(n_keys: int, n_vals: int, c: int, out: int, lane_tiles,
     return None
 
 
-def lexn_union_lane_smem_bytes(n_keys: int, n_vals: int, c: int) -> int:
-    """The fused union's one-lane body: both operands' key words, the merged
-    planes, the scan's warp sums and one flag byte a merged row."""
-    return 4 * (2 * n_keys * c + (n_keys + n_vals) * 2 * c + 32) + 2 * c
+# the wide body of the fused union (csrc/lexn_union.cu wide_union_kernel):
+# clusters of 8 CTAs a tile of 8 lanes, each CTA one lane's staged keys.
+# Its plan is (8, 0, k): 8 lanes a cluster, no key stages of the tile's
+# kind, and k CTAs of 1,024 / k threads an SM, the most of 1, 2, 4 and 8
+# whose shared memory fits the SM
+WIDE_LANES = 8
+_WIDE_WARPS = 1024 // 32
+# shared memory of an H100 SM (228 KB) and what it reserves for each CTA
+HOPPER_SMEM_PER_SM = 233_472
+_SMEM_PER_CTA_RESERVED = 1024
+
+
+def _key_stride(n_keys: int) -> int:
+    """Words of a staged key row: ``n_keys`` rounded up to 16 B."""
+    return (n_keys + 3) & ~3
+
+
+def lexn_wide_smem_bytes(n_keys: int, c: int) -> int:
+    """The wide body, per CTA: its lane's key rows of both operands (C rows
+    of ``n_keys`` rounded up to 4 words each), the map (a word a merged
+    row), the scan's warp sums and a flag byte a merged row."""
+    return 4 * (2 * c * _key_stride(n_keys) + 2 * c + _WIDE_WARPS) + 2 * c
+
+
+def wide_threads(plan: tuple[int, int, int]) -> int:
+    """Threads a CTA of the wide body's ``plan``."""
+    return 1024 // plan[2]
 
 
 def lexn_union_body(n_keys: int, n_vals: int, c: int, out: int,
                     limit: int) -> tuple[int, int, int]:
-    """(lane tile, key stages, values staged) of the fused union: the tile
-    body at 8 lanes where it fits ``limit`` bytes, else (0, 0, 0), the
-    one-lane body."""
+    """The fused union's body: (lane tile, key stages, values staged) of
+    the tile body at 8 lanes where it fits ``limit`` bytes, else the wide
+    body's (8, 0, CTAs an SM)."""
     if n_keys <= TILE_MAX_KEYS and c <= TILE_MAX_ROWS:
         plan = _tile_plan(n_keys, n_vals, c, out, (8,), limit)
         if plan is not None:
             return plan
-    return 0, 0, 0
+    per_cta = lexn_wide_smem_bytes(n_keys, c) + _SMEM_PER_CTA_RESERVED
+    ctas = next((k for k in (8, 4, 2) if k * per_cta <= HOPPER_SMEM_PER_SM), 1)
+    return WIDE_LANES, 0, ctas
 
 
 def lexn_union_smem_bytes(n_keys: int, n_vals: int, c: int, out: int | None = None,
@@ -161,16 +188,16 @@ def lexn_union_smem_bytes(n_keys: int, n_vals: int, c: int, out: int | None = No
     2C)."""
     out = 2 * c if out is None else out
     plan = lexn_union_body(n_keys, n_vals, c, out, limit)
-    if plan[0]:
-        return tile_union_smem_bytes(n_keys, n_vals, c, out, plan)
-    return lexn_union_lane_smem_bytes(n_keys, n_vals, c)
+    if plan[1] == 0:
+        return lexn_wide_smem_bytes(n_keys, c)
+    return tile_union_smem_bytes(n_keys, n_vals, c, out, plan)
 
 
 def lexn_merge_smem_bytes(n_keys: int, s: int) -> int:
     """The merge, per CTA of its 8-CTA cluster: the CTA's lane's key words
     of both operands, row by row at a stride of ``n_keys`` rounded up to 4
     words, and its merge map (one word an output row)."""
-    return 4 * (2 * s * ((n_keys + 3) & ~3) + 2 * s)
+    return 4 * (2 * s * _key_stride(n_keys) + 2 * s)
 
 
 # the compaction's gather-map window (csrc/lexn_union.cu kWindowWords) and
@@ -220,7 +247,10 @@ def lexn_plan(c: int, n_keys: int, n_vals: int, limit: int) -> int | None:
     """The union's route on a card with ``limit`` bytes of shared memory a
     block: None for the fused kernel, else the stripe of the striped path
     (merge kernels, then one compaction over 2C rows).  Raises ValueError
-    with the figures when neither fits."""
+    with the figures when neither fits.  Fused wherever a body fits: at
+    RSeq's 18 words and C = 1024 the wide body took 3.05 ms against the
+    stripe's 6.00 at (18, 2), out = C, and 3.85 against 6.64 at (18, 3),
+    out = 2C (device time, L = 10,240, NVIDIA H100 80GB HBM3 at 700 W)."""
     if lexn_fits(c, n_keys, n_vals, limit):
         return None
     s = _lexn_stripe_for(c, n_keys, limit)
@@ -271,6 +301,13 @@ def _lexn_shape(keys_a, vals_a, keys_b=None, vals_b=None):
     return n_keys, n_vals, rows, lanes, first.device
 
 
+def _lexn_out(c: int, out_size: int | None) -> int:
+    out = 2 * c if out_size is None else out_size
+    if not 0 <= out <= 2 * c:
+        raise ValueError(f"out_size {out} outside [0, 2C={2 * c}]")
+    return out
+
+
 def sorted_union_columnar_fused_lexn(
     keys_a, vals_a, keys_b, vals_b, out_size: int | None = None,
 ):
@@ -280,12 +317,10 @@ def sorted_union_columnar_fused_lexn(
     out_size) stays detectable."""
     keys_a, vals_a, keys_b, vals_b = map(tuple, (keys_a, vals_a, keys_b, vals_b))
     _, _, c, _, device = _lexn_shape(keys_a, vals_a, keys_b, vals_b)
-    out = 2 * c if out_size is None else out_size
-    if not 0 <= out <= 2 * c:
-        raise ValueError(f"out_size {out} outside [0, 2C={2 * c}]")
+    out = _lexn_out(c, out_size)
     if _route("lexn_union", device):
         return _lexn_union_plain(keys_a, vals_a, keys_b, vals_b, out)
-    return _lexn_union_cuda(keys_a, vals_a, keys_b, vals_b, out)
+    return _lexn_union_cuda(keys_a, vals_a, keys_b, vals_b, out, smem_limit(device))
 
 
 def sorted_union_columnar_fused_lex2(
@@ -351,13 +386,17 @@ def sorted_union_columnar_striped_lexn(
     (:func:`_lexn_stripe_for`).  Returns (keys[n_keys, out, L],
     vals[n_vals, out, L], n_unique[L]), n_unique before truncation."""
     keys_a, vals_a, keys_b, vals_b = map(tuple, (keys_a, vals_a, keys_b, vals_b))
-    n_keys, n_vals, c, _, device = _lexn_shape(keys_a, vals_a, keys_b, vals_b)
-    out = 2 * c if out_size is None else out_size
-    if not 0 <= out <= 2 * c:
-        raise ValueError(f"out_size {out} outside [0, 2C={2 * c}]")
+    n_keys, _, c, _, device = _lexn_shape(keys_a, vals_a, keys_b, vals_b)
+    out = _lexn_out(c, out_size)
     s = stripe if stripe is not None else _lexn_stripe_for(c, n_keys, smem_limit(device))
     if s < 1 or s & (s - 1) or c % s:
         raise ValueError(f"stripe {s} must be a power-of-two divisor of capacity {c}")
+    return _striped_lexn(keys_a, vals_a, keys_b, vals_b, out, s)
+
+
+def _striped_lexn(keys_a, vals_a, keys_b, vals_b, out: int, s: int):
+    """The striped union over validated operands at stripe ``s``."""
+    n_keys, n_vals, c = len(keys_a), len(vals_a), keys_a[0].shape[0]
     m = c // s
     if m == 1:  # one merge: its (P, 2C, L) blocks are the compaction's input
         keys, vals = lexn_merge_columnar(keys_a, vals_a, keys_b, vals_b)
@@ -396,20 +435,21 @@ def sorted_union_columnar_lexn_auto(
 ):
     """The lexN union by the card's envelope (:func:`lexn_plan`): the fused
     kernel where it fits a block's shared memory, the striped path with the
-    largest stripe that fits beyond it (RSeq's 18 key words at C = 1024).
+    largest stripe that fits beyond it (RSeq's 18 key words at C = 2048).
     A CPU tensor always takes the fused union's twin, as the JAX package's
-    interpret mode always takes the monolith; the results are the same."""
+    interpret mode always takes the monolith; the results are the same.
+    The operands are validated once, here."""
     with torch.profiler.record_function("crdt.union_lexn"):
-        keys_a, vals_a = tuple(keys_a), tuple(vals_a)
+        keys_a, vals_a, keys_b, vals_b = map(tuple, (keys_a, vals_a, keys_b, vals_b))
         n_keys, n_vals, c, _, device = _lexn_shape(keys_a, vals_a, keys_b, vals_b)
-        stripe = None
-        if not _route("lexn_union", device):
-            stripe = lexn_plan(c, n_keys, n_vals, smem_limit(device))
+        out = _lexn_out(c, out_size)
+        if _route("lexn_union", device):
+            return _lexn_union_plain(keys_a, vals_a, keys_b, vals_b, out)
+        limit = smem_limit(device)
+        stripe = lexn_plan(c, n_keys, n_vals, limit)
         if stripe is None:
-            return sorted_union_columnar_fused_lexn(
-                keys_a, vals_a, keys_b, vals_b, out_size=out_size)
-        return sorted_union_columnar_striped_lexn(
-            keys_a, vals_a, keys_b, vals_b, out_size=out_size, stripe=stripe)
+            return _lexn_union_cuda(keys_a, vals_a, keys_b, vals_b, out, limit)
+        return _striped_lexn(keys_a, vals_a, keys_b, vals_b, out, stripe)
 
 
 # ---- the lexN family: launches ----
@@ -453,7 +493,13 @@ def _lib(name: str) -> ctypes.CDLL:
 
 
 def _ptrs(ts):
-    return (ctypes.c_void_p * len(ts))(*(t.data_ptr() for t in ts))
+    return (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
+
+
+def _block_ptrs(block: torch.Tensor):
+    """The plane pointers of a contiguous (P, rows, L) int32 block."""
+    base, step = block.data_ptr(), 4 * block.stride(0)
+    return (ctypes.c_void_p * block.shape[0])(*(base + i * step for i in range(block.shape[0])))
 
 
 def _lexn_launch(name, n_keys, n_vals, rows_out, lanes, device, smem, launch):
@@ -486,18 +532,17 @@ def _lexn_launch(name, n_keys, n_vals, rows_out, lanes, device, smem, launch):
     return outs[:n_keys], outs[n_keys:], nu
 
 
-def _lexn_union_cuda(keys_a, vals_a, keys_b, vals_b, out):
+def _lexn_union_cuda(keys_a, vals_a, keys_b, vals_b, out, limit=None):
     n_keys, n_vals = len(keys_a), len(vals_a)
     c, lanes = keys_a[0].shape
-    device = keys_a[0].device
-    limit = smem_limit(device)
+    limit = smem_limit(keys_a[0].device) if limit is None else limit
     plan = lexn_union_body(n_keys, n_vals, c, out, limit)
     return _lexn_launch(
-        "lexn_union", n_keys, n_vals, out, lanes, device,
+        "lexn_union", n_keys, n_vals, out, lanes, keys_a[0].device,
         lexn_union_smem_bytes(n_keys, n_vals, c, out, limit),
         lambda lib, o, nu, smem, st: lib.lexn_union(
             n_keys, n_vals, _ptrs(keys_a + vals_a), _ptrs(keys_b + vals_b),
-            _ptrs(o), nu.data_ptr(), c, lanes, out, *plan, smem, st))
+            _block_ptrs(o), nu.data_ptr(), c, lanes, out, *plan, smem, st))
 
 
 def _lexn_merge_cuda(keys_a, vals_a, keys_b, vals_b):
@@ -508,7 +553,7 @@ def _lexn_merge_cuda(keys_a, vals_a, keys_b, vals_b):
         lexn_merge_smem_bytes(n_keys, s),
         lambda lib, o, nu, smem, st: lib.lexn_merge(
             n_keys, n_vals, _ptrs(keys_a + vals_a), _ptrs(keys_b + vals_b),
-            _ptrs(o), s, lanes, smem, st))
+            _block_ptrs(o), s, lanes, smem, st))
     return keys, vals
 
 
@@ -521,7 +566,7 @@ def _lexn_compact_cuda(keys, vals, out):
         "lexn_compact", n_keys, n_vals, out, lanes, device,
         lexn_compact_smem_bytes(n, lt),
         lambda lib, o, nu, smem, st: lib.lexn_compact(
-            n_keys, n_vals, _ptrs(keys + vals), _ptrs(o), nu.data_ptr(), n,
+            n_keys, n_vals, _ptrs(keys + vals), _block_ptrs(o), nu.data_ptr(), n,
             lanes, out, lt, smem, st))
 
 

@@ -136,7 +136,7 @@ def test_lexn_union_tile_edges_match_twin(n_keys, n_vals, c, lanes, out, case):
     converge tree's narrow levels, planes off 16 B alignment, all-padding
     lanes beside lanes whose B rows all lie in A, full-range int32 keys,
     keys tied on word 0, overflow and untruncated outputs — and (18, 2) at
-    C=512, which takes the one-lane body, in the same process."""
+    C=512, which takes the wide body, in the same process."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the lexn_union kernel has no CPU mode")
     rng = np.random.default_rng(c * 7 + lanes + n_keys)
@@ -148,7 +148,7 @@ def test_lexn_union_tile_edges_match_twin(n_keys, n_vals, c, lanes, out, case):
     limit = hu.smem_limit(torch.device("cuda"))
     want_tile = n_keys <= hu.TILE_MAX_KEYS
     assert (hu.lexn_union_body(n_keys, n_vals, c, 2 * c if out is None else out,
-                               limit)[0] > 0) == want_tile
+                               limit)[1] > 0) == want_tile
     ta = _offset_planes(a) if case == "unaligned" else [torch.from_numpy(x).cuda() for x in a]
     tb = _offset_planes(b) if case == "unaligned" else [torch.from_numpy(x).cuda() for x in b]
     if case == "unaligned":

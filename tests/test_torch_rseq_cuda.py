@@ -70,6 +70,43 @@ def test_fused_union_at_rseq_width_matches_its_twin(n_vals):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [1, 2, 7, 9, 130, 10_240])
+@pytest.mark.parametrize("c", [512, 1024])
+def test_wide_union_matches_its_twin(c, lanes):
+    """The wide body (an 8-CTA cluster a tile of 8 lanes; 512 threads two
+    CTAs an SM at C = 512, 1,024 threads at 1024) at lane counts below,
+    at and past a cluster, at (18, 2) and (18, 3), out = C/2, C and 2C."""
+    need_card()
+    for n_vals in (2, 3):
+        ka, va, kb, vb = operands(c, lanes, n_vals, c + lanes + n_vals)
+        assert hu.lexn_union_body(18, n_vals, c, c, hu.smem_limit(ka[0].device))[1] == 0
+        for out in (c // 2, c, 2 * c):
+            before = hu.LAUNCHES["lexn_union"]
+            got = hu.sorted_union_columnar_lexn_auto(ka, va, kb, vb, out_size=out)
+            want = hu._lexn_union_plain(ka, va, kb, vb, out)
+            same((*got[0], *got[1], got[2]), (*want[0], *want[1], want[2]))
+            assert hu.LAUNCHES["lexn_union"] == before + 1
+        torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_keys, c, lanes", [(2, 2048, 130), (2, 4096, 9), (5, 64, 9),
+                                              (18, 1024, 2), (18, 128, 17), (18, 256, 130)])
+def test_wide_union_edges_match_the_twin(n_keys, c, lanes):
+    """The wide body past the tile: (2, 2) at C = 2048 and 4096, 5 key
+    words, and small capacities (8 and 4 CTAs an SM); lanes all padding
+    beside lanes whose B rows all lie in A."""
+    need_card()
+    for kw in ({}, {"b_inside_a": True, "empty_lanes": (0, lanes - 1)}):
+        pair = workload.lexn_pair(n_keys, 2, c, lanes, c + n_keys, device="cuda", **kw)
+        for out in (c // 2, c, 2 * c):
+            got = hu.sorted_union_columnar_fused_lexn(*pair, out_size=out)
+            want = hu._lexn_union_plain(*pair, out)
+            same((*got[0], *got[1], got[2]), (*want[0], *want[1], want[2]))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
 def test_striped_and_auto_match_the_fused_twin():
     need_card()
     ka, va, kb, vb = operands(1024, 100, 3, 11)
@@ -80,7 +117,9 @@ def test_striped_and_auto_match_the_fused_twin():
     assert hu.LAUNCHES["lexn_merge"] - before["lexn_merge"] == 12  # M·log2(2M), M = 4
     got = hu.sorted_union_columnar_lexn_auto(ka, va, kb, vb, out_size=1024)
     same((*got[0], *got[1], got[2]), (*want[0], *want[1], want[2]))
-    assert hu.LAUNCHES["lexn_union"] == before["lexn_union"]  # C = 1024 stripes
+    # C = 1024 takes the wide body's fused union, no merge
+    assert hu.LAUNCHES["lexn_union"] == before["lexn_union"] + 1
+    assert hu.LAUNCHES["lexn_merge"] - before["lexn_merge"] == 12
 
 
 @pytest.mark.cuda

@@ -24,6 +24,15 @@ def layout_bytes(n_keys, n_vals, c, out, lt, stages, stage_vals, keep_all=False)
     return keys + vals + gather_map + scan
 
 
+def wide_layout_bytes(n_keys, c):
+    """The wide body's shared memory counted part by part, as
+    lexn_union.cu lays it out: both operands' key rows of one lane (n_keys
+    rounded up to 4 words), the map (a word a merged row), the scan's 32
+    warp sums and a flag byte a merged row."""
+    kp = -(-n_keys // 4) * 4
+    return 2 * c * kp * 4 + 2 * c * 4 + 32 * 4 + 2 * c
+
+
 def template_one_lane_bytes(c, rows_out):
     """The first template's shared memory at one lane a CTA (the figure it
     launched with past its 113 KB budget): four input planes and two
@@ -66,19 +75,24 @@ def test_set_union_plan_always_names_a_lane_tile(c, out):
     (2, 2, 512, 512, (8, 2, 1), 213_536),
     (2, 2, 64, 64, (8, 2, 1), 27_168),
     (1, 3, 256, 256, (8, 2, 1), 90_656),
-    (18, 2, 512, 512, (0, 0, 0), 156_800),    # RSeq's (18, 2): the one-lane body
-    (18, 3, 512, 1024, (0, 0, 0), 160_896),
-    (5, 2, 64, 64, (0, 0, 0), 4 * (2 * 5 * 64 + 7 * 128 + 32) + 128),  # past the tile's 4 key words
-    (2, 2, 2048, 2048, (0, 0, 0), 102_528),   # 8 lanes of keys do not fit
-    (2, 2, 8192, 16_384, (0, 0, 0), 409_728),  # refused by the card
+    (18, 2, 512, 512, (8, 0, 2), 87_168),     # RSeq's (18, 2): the wide body, two CTAs an SM
+    (18, 3, 512, 1024, (8, 0, 2), 87_168),
+    (18, 2, 1024, 1024, (8, 0, 1), 174_208),  # one CTA an SM
+    (5, 2, 64, 64, (8, 0, 8), 4_864),         # past the tile's 4 key words
+    (2, 2, 2048, 2048, (8, 0, 2), 86_144),    # 8 lanes of keys do not fit the tile
+    (2, 2, 4096, 8192, (8, 0, 1), 172_160),
+    (2, 2, 8192, 16_384, (8, 0, 1), 344_192),  # refused by the card
 ])
 def test_lexn_union_body_at_the_h100_limit(n_keys, n_vals, c, out, body, smem):
     assert hu.lexn_union_body(n_keys, n_vals, c, out, LIMIT) == body
     assert hu.lexn_union_smem_bytes(n_keys, n_vals, c, out) == smem
-    if body[0]:
+    if body[1]:
         assert smem == layout_bytes(n_keys, n_vals, c, out, *body)
     else:
-        assert smem == hu.lexn_union_lane_smem_bytes(n_keys, n_vals, c)
+        assert smem == wide_layout_bytes(n_keys, c) == hu.lexn_wide_smem_bytes(n_keys, c)
+        # the most CTAs an SM (8, 4, 2, 1) whose shared memory fits its
+        # 228 KB, each with 1 KB reserved
+        assert body[2] == next((k for k in (8, 4, 2) if k * (smem + 1024) <= 228 * 1024), 1)
 
 
 @pytest.mark.parametrize("c, n_keys, n_vals", [
@@ -90,7 +104,7 @@ def test_fused_routes_are_unchanged_by_the_tile_body(c, n_keys, n_vals):
     (18, .) at C = 512, as before the tile body."""
     assert hu.lexn_plan(c, n_keys, n_vals, LIMIT) is None
     assert hu.lexn_fits(c, n_keys, n_vals, LIMIT)
-    assert hu.lexn_union_lane_smem_bytes(n_keys, n_vals, c) <= LIMIT
+    assert hu.lexn_union_smem_bytes(n_keys, n_vals, c) <= LIMIT
 
 
 @pytest.mark.parametrize("c, plan, smem", [

@@ -24,7 +24,24 @@ set_swarm draw), ``floor131k`` and ``bfloor131k`` (the OR-Set floors
 floor_union at out=C and bucketed_floor_union at B=64 on chip_smoke.py
 phase 13's draw: C=1024, L=131,072, each column sorted uniform [0, 2^30)
 with the first C/2 rows real, vals = the draw & 1).  Each compaction takes
-its checkout's own merge of the same draw.
+its checkout's own merge of the same draw.  The RSeq unions go through
+``sorted_union_columnar_lexn_auto``, so that each checkout takes its own
+route (fused or striped): ``rseq512`` and ``rseq512gc`` ((18, 2) and
+(18, 3) at C=512, out=C, L=10,240 on phase 9's C=512 draw), ``rseq1024``
+((18, 2) at C=1024, out=C on phase 9's draw) and ``gc1024`` ((18, 3),
+out=2C, the GC join's shape), and ``soak1`` ((18, 3) at one lane, out=2C:
+the operands of the first join of phase 16's sequence soak at capacity
+512, 4 replicas, seed 0).  ``gossip``, ``converge`` and ``gcconverge`` time
+the RSeq path's calls on chip_smoke.py phase 10's swarm (R=10,240,
+C=1024, depth 6, replica 7 dead): ``rseq_columnar.gossip_round`` with its
+first peer round, ``converge_checked``, and
+``rseq_engine.gc_converge_checked`` of the converged swarm with empty
+floors (16 writers), each through its checkout's own route.  ``pair2k``,
+``pair4k`` and ``pair5`` time the fused union (out=C) on
+``workload.lexn_pair`` draws at the other shapes kernel 1's wide body
+took from the first one-lane body: (2, 2) at C=2048 and 4096, and (5, 2)
+at C=64, on L=10,240 lanes; ``pair18x64``, ``pair18x128`` and
+``pair18x256`` at (18, 2) and small capacities.
 
 ``--root`` picks the checkout whose ``crdt_tpu_torch`` is imported and
 built (default: the one holding this script), so that two versions of the
@@ -58,8 +75,20 @@ SENTINEL = 2**31 - 1
 SET_L, SET_REPEAT = 131_072, 8   # the OR-Set draw's lanes, and its copies
 N_BUCKETS, KEY_BITS = 64, 15     # phase 8's bucketed layout
 FLOOR_SEED = SEED + 61           # phase 13's floor draw
+# (key words, value planes, capacity) of the lexn_pair cases
+PAIR_CASES = {"pair2k": (2, 2, 2048), "pair4k": (2, 2, 4096), "pair5": (5, 2, 64),
+              "pair18x64": (18, 2, 64), "pair18x128": (18, 2, 128), "pair18x256": (18, 2, 256)}
 CASES = ("oplog", "merge20", "merge21", "compact20", "compact21", "set2m", "bucket16",
-         "bucket32", "merge131k", "floor131k", "bfloor131k")
+         "bucket32", "merge131k", "floor131k", "bfloor131k", "rseq512", "rseq512gc",
+         "soak1", "rseq1024", "gc1024", "gossip", "converge", "gcconverge",
+         *PAIR_CASES)
+PATH_CASES = ("gossip", "converge", "gcconverge")
+# the union cases through the auto route: (capacity, GC join's src plane,
+# out rows, the draws' seeds)
+UNION_CASES = {"rseq512": (512, False, 512, (SEED + 43, SEED + 44)),
+               "rseq512gc": (512, True, 512, (SEED + 43, SEED + 44)),
+               "rseq1024": (C, False, C, (SEED + 41, SEED + 42)),
+               "gc1024": (C, True, 2 * C, (SEED + 41, SEED + 42))}
 
 
 def checksum(planes) -> int:
@@ -123,13 +152,13 @@ def oplog_call(workload, oc, hu):
     return call, checksum((*keys, *vals, nu))
 
 
-def rseq_sides(workload, rc, gc: bool):
+def rseq_sides(workload, rc, gc: bool, c: int = C, seeds=(SEED + 41, SEED + 42)):
     """chip_smoke.py phase 9's operands: two seq_swarm draws, 18 key words
     and (elem, removed), plus the GC join's src marker when ``gc``."""
     pool = workload.seq_pool(SEED)
     sides = []
-    for k, seed in ((1, SEED + 41), (2, SEED + 42)):
-        col = rc.stack(workload.seq_swarm(pool, R, C, seed, device="cuda").states)
+    for k, seed in zip((1, 2), seeds):
+        col = rc.stack(workload.seq_swarm(pool, R, c, seed, device="cuda").states)
         vals = (col.elem, col.removed)
         if gc:
             vals += ((col.keys[0] != SENTINEL).to(torch.int32) * k,)
@@ -154,6 +183,97 @@ def rseq_call(case: str, workload, rc, hu):
 
     keys, vals, nu = call()
     return call, checksum((*keys, *vals, nu))
+
+
+def union_call(case: str, workload, rc, hu):
+    """The RSeq union through the auto route, at a shape of UNION_CASES."""
+    c, gc, out, seeds = UNION_CASES[case]
+    sides = rseq_sides(workload, rc, gc, c, seeds)
+
+    def call():
+        return hu.sorted_union_columnar_lexn_auto(*sides, out_size=out)
+
+    keys, vals, nu = call()
+    return call, checksum((*keys, *vals, nu))
+
+
+def soak_call(hu):
+    """The union of the first join of phase 16's sequence soak at capacity
+    512 (4 replicas, seed 0): one lane, 18 key words, (elem, removed, src),
+    out=2C, as ``rseq_engine.gc_merge_checked`` calls it."""
+    from crdt_tpu_torch.harness.seq_soak import SeqSoakRunner
+    from crdt_tpu_torch.models import rseq_engine as reng
+
+    runner = SeqSoakRunner(n=4, seed=0, capacity=512, device="cuda")
+    real, seen = reng.gc_join_checked_auto, []
+
+    def spy(a, b):
+        seen.append((a, b))
+        return real(a, b)
+
+    reng.gc_join_checked_auto = spy
+    try:
+        while not seen:
+            runner.step()
+    finally:
+        reng.gc_join_checked_auto = real
+    ca, cb = reng._stack_pair(*seen[0])
+
+    def side(col, k):
+        return (tuple(col.keys), (col.elem, col.removed,
+                                  (col.keys[0] != SENTINEL).to(torch.int32) * k))
+
+    sides = (*side(ca.col, 1), *side(cb.col, 2))
+
+    def call():
+        return hu.sorted_union_columnar_lexn_auto(*sides)
+
+    keys, vals, nu = call()
+    return call, checksum((*keys, *vals, nu))
+
+
+def pair_call(case: str, workload, hu):
+    """The fused union at out=C on a ``workload.lexn_pair`` draw."""
+    n_keys, n_vals, c = PAIR_CASES[case]
+    sides = workload.lexn_pair(n_keys, n_vals, c, R, SEED + c, device="cuda")
+
+    def call():
+        return hu.sorted_union_columnar_fused_lexn(*sides, out_size=c)
+
+    keys, vals, nu = call()
+    return call, checksum((*keys, *vals, nu))
+
+
+def path_call(case: str, workload, rc):
+    """The RSeq path's call of ``case`` on phase 10's swarm."""
+    from crdt_tpu_torch.models import rseq_engine as reng, tomb_gc
+    from crdt_tpu_torch.parallel import swarm
+    from crdt_tpu_torch.utils.tree import leaves
+
+    pool = workload.seq_pool(SEED)
+    sw = workload.seq_swarm(pool, R, C, SEED + 31, device="cuda")
+    alive = torch.ones(R, dtype=torch.bool, device="cuda")
+    alive[7] = False
+    peers = swarm.random_peers(torch.Generator(device="cuda").manual_seed(SEED + 32), R,
+                               device="cuda")
+    col, _ = rc.plan(sw.states)
+    del sw
+    if case == "gossip":
+        def call():
+            return rc.gossip_round(col, peers, alive)
+    elif case == "converge":
+        def call():
+            return rc.converge_checked(col, alive)
+    else:
+        conv = rc.unstack(rc.converge_checked(col, alive)[0])
+        cg = reng.stack(tomb_gc.Gc(inner=conv, floor=torch.full(
+            (R, 16), -1, dtype=torch.int32, device="cuda")))
+        del col, conv
+
+        def call():
+            return reng.gc_converge_checked(cg, alive)
+
+    return call, checksum([x if x.dim() > 1 else x[None] for x in leaves(call())])
 
 
 def set_call(workload, orset, hu):
@@ -256,12 +376,23 @@ def main() -> int:
             call, total = merge_call(workload, orset, hu)
         elif case.endswith("floor131k"):
             call, total = floor_call(case, of)
+        elif case in UNION_CASES:
+            call, total = union_call(case, workload, rc, hu)
+        elif case == "soak1":
+            call, total = soak_call(hu)
+        elif case in PATH_CASES:
+            call, total = path_call(case, workload, rc)
+        elif case in PAIR_CASES:
+            call, total = pair_call(case, workload, hu)
         else:
             call, total = rseq_call(case, workload, rc, hu)
         times = time_call(call, args.reps)
         lanes = {"set2m": SET_L * SET_REPEAT, "bucket16": SET_L, "bucket32": SET_L,
-                 "merge131k": SET_L, "floor131k": SET_L, "bfloor131k": SET_L}.get(case, R)
-        print(json.dumps({"root": root, "card": card, "case": case, "C": C, "L": lanes,
+                 "merge131k": SET_L, "floor131k": SET_L, "bfloor131k": SET_L,
+                 "soak1": 1}.get(case, R)
+        c = (512 if case == "soak1" else PAIR_CASES[case][2] if case in PAIR_CASES
+             else UNION_CASES.get(case, (C,))[0])
+        print(json.dumps({"root": root, "card": card, "case": case, "C": c, "L": lanes,
                           "median_ms": statistics.median(times), "ms": times,
                           "device_ms": device_ms(call), "checksum": total}), flush=True)
         del call
