@@ -1,7 +1,7 @@
 """Drive the PyTorch port's OpLog, OR-Set and RSeq swarm paths, the OR-Set
 union floors, the counter and register family, the replica-node cluster,
-the join registry and the typed sibling nodes on a CUDA card and check
-them.
+the join registry, the typed sibling nodes and the reference's HTTP
+surface on a CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -56,7 +56,8 @@ Phases (any failure exits non-zero and prints no result):
    (2, 2) at C=2048 and 4096, (5, 2) and (18, 2) at C=64 and 256, planes
    off 16 B alignment, 32 planes,
    all-padding lanes and B inside A (``workload.lexn_pair``), the merge's
-   resident clusters, the striped union at S=C handing the merge's blocks
+   resident clusters, 400 merges each at (18, 2), C=64 and 256 (two of its
+   CTAs an SM: its staging waits for the cluster), the striped union at S=C handing the merge's blocks
    straight to the compaction, and the shared-memory refusals;
 10. RSeq end to end at R=10,240 replicas x C=1024 rows x depth 6:
     ``rseq_columnar.plan`` (must pick the columnar engine) → 3
@@ -116,7 +117,22 @@ Phases (any failure exits non-zero and prints no result):
     (kernels 4 and 5), each join's union == its twin with its event and
     device time and bound, the first auto join split by layer (staging,
     union, floor suppression, unstack), and the set and map soaks at their
-    CLI defaults; one ``{"typed_nodes": ...}`` JSON line.
+    CLI defaults; one ``{"typed_nodes": ...}`` JSON line;
+17. the reference's HTTP surface (budget 60 s): ``api.http_shim``'s
+    ``HttpCluster`` over a ``LocalCluster()`` of 5 replicas on the card,
+    on loopback: (a) 16,384 single-op ``POST /data`` from 8 client threads
+    (replica 4 down for the second quarter, its 502s counted), (b) 114,688
+    writes through ``/ingest/page`` in pages of 512 (429 back-off counted),
+    one profiled burst of 256 concurrent posts, (c) 64 rounds of pulls
+    over HTTP (``GET /gossip?vv=`` → ``POST /push``, each stability header
+    into a ``StabilityTracker``) with a barrier over HTTP (``/vv`` →
+    ``stable_frontier_host`` → ``/compact``) every 8; every acknowledged
+    write read back from all 5 replicas (``GET /data`` == the oracle's
+    fold), every ``GET /gossip`` body == ``gossip_payload_json``, the
+    ``/metrics`` ingest counters == the client's counts, no 5xx but the
+    planned 502s, no hand kernel launched (as predicted); (d) ``python -m
+    crdt_tpu_torch --duration 10`` as a subprocess on the card exits 0
+    converged; one ``{"http_surface": ...}`` JSON line.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -449,7 +465,8 @@ def profile(label: str, fn) -> dict | None:
         f"(idle share {1 - busy_ms / wall_ms:.3f}, under the profiler)")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"  {e.self_device_time_total / 1e3:9.4f} ms  x{e.count:<4d} {e.key[:90]}")
-    return {"busy_ms": busy_ms, "wall_ms": wall_ms, "idle_share": 1 - busy_ms / wall_ms}
+    return {"busy_ms": busy_ms, "wall_ms": wall_ms, "idle_share": 1 - busy_ms / wall_ms,
+            "device_ops": sum(e.count for e in events)}
 
 
 def sync(device) -> None:
@@ -1144,6 +1161,7 @@ def check_rseq_kernels(pool) -> dict:
         "B inside A with all-padding lanes: bit-exact")
     check_lexn_layouts(pool, merge, compact)
     check_stripe_c_hands_over(pool)
+    err["lexn_merge"] = max(err["lexn_merge"], check_merge_cluster_start())
 
     limit = hu.smem_limit(torch.device("cuda"))
     big = [torch.full((2 * SEQ_C, 2), SENTINEL, dtype=torch.int32, device="cuda")] * 20
@@ -1174,6 +1192,32 @@ def check_rseq_kernels(pool) -> dict:
     torch.cuda.synchronize()
     log(f"shared-memory refusals with the figure, limit {limit} B: " + "; ".join(refusals))
     return err
+
+
+MERGE_REPEATS = 400  # launches of each shape in the cluster-start check
+
+
+def check_merge_cluster_start() -> int:
+    """Phase 9: lexn_merge at C=64 and 256, L=10,240, (18, 2), where two
+    of its 1,024-thread CTAs can share an SM and start at different times:
+    MERGE_REPEATS launches of each, every one == the twin.  The kernel's
+    staging writes into the other CTAs of its cluster, so it must reach a
+    cluster barrier first; without it such launches fault now and then.
+    Returns the largest |kernel - twin|."""
+    from crdt_tpu_torch import workload
+    from crdt_tpu_torch.ops import hopper_union as hu
+
+    worst = 0
+    for c in (64, 256):
+        sides = workload.lexn_pair(N_KEYS_SEQ, 2, c, R, SEED + 71 + c, device="cuda")
+        want = tuple(x for t in hu._lexn_merge_plain(*sides) for x in t)
+        for i in range(MERGE_REPEATS):
+            got = hu.lexn_merge_columnar(*sides)
+            worst = max(worst, same(f"lexn_merge C={c} launch {i}", (*got[0], *got[1]), want))
+        torch.cuda.synchronize()
+    log(f"lexn_merge cluster start: {MERGE_REPEATS} launches each at (18, 2), C=64 and 256, "
+        f"L={R} (two 1,024-thread CTAs an SM): every one bit-exact")
+    return worst
 
 
 def check_lexn_layouts(pool, merge, compact) -> None:
@@ -1481,9 +1525,11 @@ def rseq_times(pool, ctx, err, card) -> list:
                                        launches, err[name], ms, plain_ms, n_bytes, n_ops,
                                        None, card))
         del mk, mv
-    log("lexn_merge / lexn_compact library yardstick: none — no single PyTorch call "
-        "does an 18-word lexicographic merge (torch.sort takes one key) or a "
-        "punch-and-compact")
+    log("lexn_merge / lexn_compact / lexn_union at 18 key words, library yardstick: none "
+        "— torch.sort takes one key tensor, and 18 int32 words do not pack into one int64 "
+        "(kernel 1's (2, 2) yardstick packs its 2); the plain twin's "
+        "sorted_union._sort_by_keys is 18 stable sorts, not one call; and no call "
+        "punches duplicates and compacts a batch of lanes")
     # the wide body at the main path's C=1024 (the row: (18, 2), out=C, as
     # gossip and converge call it) and at C=512 on phase 9's draws;
     # bytes: inputs read once, outputs and n_unique written once;
@@ -1786,6 +1832,15 @@ def floor_phases(full: dict, card: str) -> list:
                            warmup=1)
     work = floor_work(c, lanes, c, c)
     bwork = floor_work(c, lanes, wb, c)
+    # the library yardsticks of kernels 2 and 3 on the floors' draw: a
+    # torch.sort of the 2C keys a lane, and one segmented torch.sort of the
+    # (L·B, 2·Wb) bucket rows
+    both = torch.cat([draw[0], draw[2]], dim=0)
+    library_ms = time_ms(lambda: torch.sort(both, dim=0), reps=10)
+    seg_keys = torch.cat([x.reshape(nb, wb, lanes).permute(2, 0, 1).reshape(-1, wb)
+                          for x in (draw[0], draw[2])], dim=1)
+    blibrary_ms = time_ms(lambda: torch.sort(seg_keys, dim=1), reps=10)
+    del both, seg_keys
     log(json.dumps({
         "capacity": c, "lanes": lanes, "n_buckets": nb,
         "floor_ms": floor_ms, "floor_device_ms": floor_dev, "fused_ms": fused_ms,
@@ -1801,15 +1856,17 @@ def floor_phases(full: dict, card: str) -> list:
         "card": card,
     }))
     rows = []
-    for name, replaces, ms, plain_ms, (n_bytes, n_ops) in (
-            ("floor_union", "benches/orset_floor.py:37", floor_ms, floor_plain, work),
+    for name, replaces, ms, plain_ms, (n_bytes, n_ops), lib_ms in (
+            ("floor_union", "benches/orset_floor.py:37", floor_ms, floor_plain, work,
+             library_ms),
             ("bucketed_floor_union", "benches/orset_floor.py:86", bfloor_ms, bfloor_plain,
-             bwork)):
+             bwork, blibrary_ms)):
         rows.append(kernel_row(name, "crdt_tpu_torch/csrc/set_floor.cu", replaces,
                                launches[name], err[name], ms, plain_ms, n_bytes, n_ops,
-                               None, card))
-    log("floor library yardstick: none — no PyTorch call does a butterfly network plus "
-        "the scans")
+                               lib_ms, card))
+    log(f"floor library yardsticks (kernels 2's and 3's): torch.sort of the 2C keys a lane "
+        f"{library_ms:.4f} ms, the segmented sort of the (L·B, 2·Wb) = ({lanes * nb}, "
+        f"{2 * wb}) bucket rows {blibrary_ms:.4f} ms [{card}]")
     del draw
     torch.cuda.empty_cache()
     return rows
@@ -2703,6 +2760,338 @@ def typed_phase(card: str, rows: list, kv: dict) -> None:
         "phase_s": time.perf_counter() - t0, "card": card}}))
 
 
+# ---- phase 17: the reference's HTTP surface on the card ----
+
+# ClusterConfig()'s 5 replicas (the reference's deployment, main.go:316-327)
+# behind api.http_shim on loopback, taking phase 15's traffic shape over
+# HTTP: 131,072 reference-shaped writes (WorkloadGenerator, seed 0) as (a)
+# 16,384 single-op POST /data from 8 client threads, replica 4 down for the
+# second quarter, and (b) 114,688 writes in op pages of 512; then (c) 64
+# rounds of pulls over HTTP (each replica GETs a seeded peer's /gossip?vv=
+# and POSTs it to its own /push), a barrier over HTTP every 8 rounds; and (d)
+# `python -m crdt_tpu_torch` as a subprocess on the card.
+HTTP_BUDGET_S = 60
+HTTP_SINGLE, HTTP_THREADS = 16_384, 8
+HTTP_PAGE_WRITES, HTTP_PAGE = 114_688, 512
+HTTP_ROUNDS, HTTP_BARRIER_EVERY = 64, 8
+HTTP_EXTRA_ROUNDS = 64
+HTTP_BURST = 256
+HTTP_DEAD = 4
+
+
+def http_call(url: str, method: str = "GET", body: bytes | None = None, headers=None) -> tuple:
+    """One request: (status, headers, body, seconds) on a connection of its
+    own (the shim speaks HTTP/1.0)."""
+    import http.client
+    from urllib.parse import urlsplit
+
+    u = urlsplit(url)
+    t0 = time.perf_counter()
+    c = http.client.HTTPConnection(u.hostname, u.port, timeout=120)
+    try:
+        c.request(method, u.path + (f"?{u.query}" if u.query else ""), body=body,
+                  headers=headers or {})
+        r = c.getresponse()
+        data = r.read()
+        return r.status, dict(r.getheaders()), data, time.perf_counter() - t0
+    finally:
+        c.close()
+
+
+class HttpTally:
+    """Every status the phase's client saw, so an unplanned 5xx fails it."""
+
+    def __init__(self):
+        import threading
+
+        self.lock = threading.Lock()
+        self.statuses: dict = {}
+        self.planned_502 = 0
+
+    def note(self, status: int, planned_502: bool = False) -> None:
+        with self.lock:
+            self.statuses[status] = self.statuses.get(status, 0) + 1
+            if status == 502 and planned_502:
+                self.planned_502 += 1
+
+    def check(self) -> None:
+        bad = {s: n for s, n in self.statuses.items() if s >= 500}
+        if bad != ({502: self.planned_502} if self.planned_502 else {}):
+            raise AssertionError(f"unplanned 5xx answers: {bad} (planned 502s "
+                                 f"{self.planned_502})")
+
+
+def post_writes(urls, writes, tally, oracles, down=None) -> list:
+    """POST /data of every (index, cmd, target) in ``writes`` from
+    HTTP_THREADS client threads (thread t takes the writes with index
+    t mod HTTP_THREADS); every 200 is mirrored into its target's oracle.
+    ``down`` is the replica whose 502s are planned.  Returns the per-post
+    seconds."""
+    import threading
+
+    lat, lock, errors = [], threading.Lock(), []
+
+    def client(t):
+        try:
+            for i, cmd, target in writes[t::HTTP_THREADS]:
+                status, hdr, body, sec = http_call(urls[target] + "/data", "POST",
+                                                   json.dumps(cmd).encode())
+                tally.note(status, planned_502=target == down)
+                with lock:
+                    lat.append(sec)
+                    if status == 200:
+                        if body != b"Inserted" or "X-CRDT-Session-Token" not in hdr:
+                            raise AssertionError(f"POST /data answered {body!r}, {hdr}")
+                        oracles[target].add_command(cmd, i)
+                    elif not (status == 502 and target == down):
+                        raise AssertionError(f"POST /data to replica {target}: {status}")
+        except BaseException as e:  # re-raised on the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(t,)) for t in range(HTTP_THREADS)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    if errors:
+        raise errors[0]
+    return lat
+
+
+def series_sum(text: str, name: str, **labels) -> float:
+    """The sum of every series ``name`` in a Prometheus text whose labels
+    include ``labels``."""
+    total = 0.0
+    for line in text.splitlines():
+        if line.startswith(name + "{") or line.startswith(name + " "):
+            key, value = line.rsplit(" ", 1)
+            if all(f'{k}="{v}"' in key for k, v in labels.items()):
+                total += float(value)
+    return total
+
+
+def http_phase(card: str) -> dict:
+    """Phase 17: the reference's surface on the card, over HTTP.  Every
+    acknowledged write read back from all 5 replicas (GET /data == the
+    oracle's fold), every GET /gossip body == its node's
+    gossip_payload_json, the /metrics ingest counters == the client's
+    counts, no 5xx but the planned 502s, no hand kernel launched (the
+    prediction: the node merges with the plain torch sorted union); then
+    one {"http_surface": ...} JSON line."""
+    import copy
+    import random
+    from pathlib import Path
+    from urllib.parse import quote
+
+    from crdt_tpu_torch import workload
+    from crdt_tpu_torch.api.cluster import LocalCluster
+    from crdt_tpu_torch.api.http_shim import HttpCluster
+    from crdt_tpu_torch.api.node import stable_frontier_host
+    from crdt_tpu_torch.consistency.stability import (STABILITY_HEADER, StabilityTracker,
+                                                      decode_summary)
+    from crdt_tpu_torch.oracle import OracleReplica, Quirks
+    from crdt_tpu_torch.ops import hopper_union as hu
+    from crdt_tpu_torch.utils.config import ClusterConfig
+
+    t_phase = time.perf_counter()
+    log(f"phase 17 (the HTTP surface): budget {HTTP_BUDGET_S} s")
+    cfg = ClusterConfig()
+    cluster = LocalCluster(cfg)  # the card: device=None
+    if cluster.nodes[0].log.ts.device.type != "cuda":
+        raise AssertionError("LocalCluster() did not place its logs on the card")
+    server = HttpCluster(cluster)
+    server.start()
+    urls = server.urls
+    oracles = [OracleReplica(r, Quirks()) for r in range(cfg.n_replicas)]
+    gen = workload.WorkloadGenerator(ClusterConfig())  # seed 0
+    tally = HttpTally()
+    predicted = {name: 0 for name in hu.LAUNCHES}  # no hand kernel on this path
+    for name in hu.LAUNCHES:
+        hu.LAUNCHES[name] = 0
+    try:
+        # -- (a) single-op writes, replica 4 down for the second quarter --
+        writes = [(i, *gen.next_command()) for i in range(HTTP_SINGLE)]
+        q = HTTP_SINGLE // 4
+        t0 = time.perf_counter()
+        lat = post_writes(urls, writes[:q], tally, oracles)
+        status = http_call(urls[HTTP_DEAD] + "/condition/false")[0]
+        tally.note(status)
+        lat += post_writes(urls, writes[q:2 * q], tally, oracles, down=HTTP_DEAD)
+        tally.note(http_call(urls[HTTP_DEAD] + "/condition/true")[0])
+        lat += post_writes(urls, writes[2 * q:], tally, oracles)
+        single_s = time.perf_counter() - t0
+        acked_single = sum(len(o.log) for o in oracles)
+        want_502 = sum(1 for _, _, t in writes[q:2 * q] if t == HTTP_DEAD)
+        if tally.planned_502 != want_502 or acked_single != HTTP_SINGLE - want_502:
+            raise AssertionError(f"(a): {tally.planned_502} 502s, {acked_single} acknowledged; "
+                                 f"want {want_502} and {HTTP_SINGLE - want_502}")
+        log(f"(a) {HTTP_SINGLE} single-op POST /data from {HTTP_THREADS} threads: "
+            f"{acked_single} acknowledged, {tally.planned_502} planned 502s (replica "
+            f"{HTTP_DEAD} down), {acked_single / single_s:.1f} acknowledged writes/s; "
+            f"p50 {quantile(lat, 0.5) * 1e3:.3f} ms, p99 {quantile(lat, 0.99) * 1e3:.3f} ms "
+            f"[{card}]")
+
+        # -- (b) op pages of 512, 429s backed off and counted --
+        replay = copy.deepcopy(gen)
+        t0 = time.perf_counter()
+        pages = gen.drive_pages_http(urls, HTTP_PAGE_WRITES, page_size=HTTP_PAGE, timeout=120)
+        pages_s = time.perf_counter() - t0
+        if pages["admitted"] != HTTP_PAGE_WRITES or pages["lost"]:
+            raise AssertionError(f"(b): {pages}")
+        for i in range(HTTP_PAGE_WRITES):
+            cmd, target = replay.next_command()
+            oracles[target].add_command(cmd, HTTP_SINGLE + i)
+        log(f"(b) {HTTP_PAGE_WRITES} writes in {pages['pages']} pages of {HTTP_PAGE}: "
+            f"{pages['admitted']} admitted, {pages['sheds']} sheds (429) backed off, "
+            f"{HTTP_PAGE_WRITES / pages_s:.1f} acknowledged writes/s [{card}]")
+
+        # -- one profiled burst of concurrent posts --
+        burst = [(HTTP_SINGLE + HTTP_PAGE_WRITES + i, *gen.next_command())
+                 for i in range(HTTP_BURST)]
+        prof = profile(f"a burst of {HTTP_BURST} concurrent POST /data",
+                       lambda: post_writes(urls, burst, tally, oracles))
+
+        # -- (c) pull rounds and barriers over HTTP --
+        rng = random.Random(SEED + 17)
+        tracker = StabilityTracker(cluster.nodes[0], urls[1:])
+        pull_ms, gossip_ms, barrier_ms, checked = [], [], [], 0
+
+        def pull(i: int, rnd: int) -> None:
+            nonlocal checked
+            peer = rng.choice([j for j in range(cfg.n_replicas) if j != i])
+            t0 = time.perf_counter()
+            st, _, body, _ = http_call(urls[i] + "/vv")
+            tally.note(st)
+            since = json.loads(body)["vv"]
+            st, hdr, body, sec = http_call(urls[peer] + "/gossip?vv=" + quote(json.dumps(since)),
+                                           headers={"X-CRDT-Trace": f"smoke-{rnd}-{i}"})
+            tally.note(st)
+            gossip_ms.append(sec * 1e3)
+            want = cluster.nodes[peer].gossip_payload_json({int(r): s for r, s in since.items()})
+            if st != 200 or body != want:
+                raise AssertionError(f"GET /gossip of replica {peer}: {st}, body != "
+                                     "gossip_payload_json")
+            checked += 1
+            summary = decode_summary(hdr.get(STABILITY_HEADER))
+            if peer != 0:
+                tracker.note(urls[peer], summary["vv"], summary["frontier"])
+            st = http_call(urls[i] + "/push", "POST", b'{"payload": ' + body + b"}")[0]
+            tally.note(st)
+            if st != 200:
+                raise AssertionError(f"POST /push to replica {i}: {st}")
+            pull_ms.append((time.perf_counter() - t0) * 1e3)
+
+        def barrier() -> dict:
+            t0 = time.perf_counter()
+            snaps = []
+            for u in urls:
+                st, _, body, _ = http_call(u + "/vv")
+                tally.note(st)
+                snaps.append(json.loads(body))
+            frontier = stable_frontier_host(
+                [{int(r): s for r, s in x["vv"].items()} for x in snaps],
+                [{int(r): s for r, s in x["frontier"].items()} for x in snaps])
+            body = json.dumps({"frontier": {str(r): s for r, s in frontier.items()}}).encode()
+            for u in urls:
+                tally.note(http_call(u + "/compact", "POST", body)[0])
+            barrier_ms.append((time.perf_counter() - t0) * 1e3)
+            return frontier
+
+        folds = []
+        for rnd in range(HTTP_ROUNDS):
+            for i in range(cfg.n_replicas):
+                pull(i, rnd)
+            if (rnd + 1) % HTTP_BARRIER_EVERY == 0:
+                folds.append(barrier())
+        extra = 0
+        while not cluster.converged():
+            if extra == HTTP_EXTRA_ROUNDS:
+                raise AssertionError(f"no convergence {HTTP_EXTRA_ROUNDS} rounds after (c)")
+            for i in range(cfg.n_replicas):
+                pull(i, HTTP_ROUNDS + extra)
+            extra += 1
+        # the tracker's frontier, from the headers alone, may lag the
+        # barriers' (its summaries are as old as the last pull) but never
+        # passes what every replica holds
+        minted = tracker.mint()
+        if not minted or any(s > n.version_vector().get(r, -1)
+                             for n in cluster.nodes for r, s in minted.items()):
+            raise AssertionError(f"the stability tracker minted {minted}")
+        log(f"(c) {HTTP_ROUNDS} rounds of HTTP pulls (+{extra} to converge): pull round "
+            f"median {statistics.median(pull_ms):.3f} ms, GET /gossip?vv= p50 "
+            f"{quantile(gossip_ms, 0.5):.3f} ms, {len(folds)} barriers over HTTP median "
+            f"{statistics.median(barrier_ms):.3f} ms; {checked} GET /gossip bodies == "
+            f"gossip_payload_json; the stability tracker minted {len(minted)} writers, "
+            f"lag {tracker.lag_ops()} ops [{card}]")
+
+        # -- every acknowledged write read back from all 5 replicas --
+        want = OracleReplica.converged_state(oracles)
+        get_ms = []
+        for r, u in enumerate(urls):
+            for _ in range(4):
+                st, _, body, sec = http_call(u + "/data")
+                tally.note(st)
+                get_ms.append(sec * 1e3)
+            if st != 200 or json.loads(body) != want:
+                raise AssertionError(f"GET /data of replica {r} != the oracle's fold of the "
+                                     f"acknowledged writes")
+        acked = sum(len(o.log) for o in oracles)
+        metrics = http_call(urls[0] + "/metrics")[2].decode()
+        counts = {
+            "ops": series_sum(metrics, "crdt_ingest_ops_admitted_total", lane="kv"),
+            "pages": series_sum(metrics, "crdt_ingest_pages_total"),
+            "sheds": series_sum(metrics, "crdt_ingest_shed_total", lane="kv"),
+            "duplicates": series_sum(metrics, "crdt_ingest_pages_duplicate_total"),
+        }
+        client = {"ops": HTTP_SINGLE + HTTP_BURST + pages["admitted"],
+                  "pages": pages["pages"] + pages["sheds"], "sheds": pages["sheds"],
+                  "duplicates": 0}
+        if counts != client:
+            raise AssertionError(f"/metrics ingest counters {counts} != the client's {client}")
+        tally.check()
+        launched = {name: hu.LAUNCHES[name] for name in hu.LAUNCHES}
+        if launched != predicted:
+            raise AssertionError(f"hand-kernel launches {launched} != predicted {predicted}")
+        log(f"all 5 replicas' GET /data == the oracle's fold of {acked} acknowledged writes "
+            f"({len(want)} keys); /metrics ingest counters == the client's {client}; "
+            f"statuses {tally.statuses}; hand-kernel launches {launched} as predicted")
+    finally:
+        server.stop()
+    del cluster
+
+    # -- (d) the entry point, on the card --
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "crdt_tpu_torch", "--duration", "10",
+                          "--ephemeral-ports", "--write-ms", "1"],
+                         cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+                         timeout=300)
+    demo_s = time.perf_counter() - t0
+    final = (out.stdout.strip().splitlines() or [""])[-1]
+    if out.returncode != 0 or "converged=True" not in final:
+        raise AssertionError(f"python -m crdt_tpu_torch exited {out.returncode}: {final!r} "
+                             f"{out.stderr[-2000:]}")
+    log(f"(d) python -m crdt_tpu_torch --duration 10 on the card: exit 0, {final!r} "
+        f"({demo_s:.1f} s)")
+
+    line = {
+        "card": card,
+        "post_data_ms_p50": quantile(lat, 0.5) * 1e3, "post_data_ms_p99": quantile(lat, 0.99) * 1e3,
+        "single_writes_per_s": acked_single / single_s, "page_writes_per_s": HTTP_PAGE_WRITES / pages_s,
+        "get_data_ms_p50": quantile(get_ms, 0.5), "get_gossip_vv_ms_p50": quantile(gossip_ms, 0.5),
+        "pull_round_ms": statistics.median(pull_ms), "barrier_ms": statistics.median(barrier_ms),
+        "burst": None if prof is None else {
+            "posts": HTTP_BURST, "busy_share": 1 - prof["idle_share"], "wall_ms": prof["wall_ms"],
+            "device_ops": prof["device_ops"]},
+        "acked": acked, "planned_502": tally.planned_502, "pages": pages,
+        "rounds": HTTP_ROUNDS + extra, "barriers": len(barrier_ms),
+        "hand_kernel_launches": launched, "demo_s": demo_s,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    log(f"phase 17: {line['phase_s']:.1f} s (budget {HTTP_BUDGET_S} s)")
+    log(json.dumps({"http_surface": line}))
+    return line
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2734,6 +3123,7 @@ def main() -> int:
     counter_phases(card)
     kv = kv_phase(card)
     typed_phase(card, rows, kv)
+    http_phase(card)
 
     print(card, flush=True)
     log(json.dumps({"kernels": rows}))

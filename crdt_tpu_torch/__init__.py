@@ -24,22 +24,33 @@ Layout (mirrors ``crdt_tpu``):
   ``ormap`` and ``ormap_gc`` (the OR-Map and its epoch resets) and
   ``composite`` (the four registered composites);
 - ``consistency`` — ``vvclock``, the version-vector watermark lattice;
+  ``session`` (session tokens) and ``stability`` (stability summaries and
+  the ``StabilityTracker``);
 - ``api``      — ``node.ReplicaNode`` and ``cluster.LocalCluster``: the
   reference's own system (writes, delta gossip, compaction barriers,
   revival), host bookkeeping in Python, each replica's log on the card;
   beside each KV node its typed siblings ``setnode.SetNode``,
   ``seqnode.SeqNode`` (their shared floor protocol in ``floornode``) and
-  ``mapnode.MapNode``, with their GC and reset barriers;
-- ``obs``      — the node's metrics registry, trace spans, event log,
-  flight recorder, health gauges and merge attribution;
-- ``oracle``   — the reference-semantics oracle (plain Python);
+  ``mapnode.MapNode``, with their GC and reset barriers; ``http_shim``:
+  the reference's HTTP surface over a cluster (demo mode);
+- ``ingest``   — the front door: the op-page wire format, the admission
+  lanes and the shed policy;
+- ``obs``      — the node's metrics registry and its Prometheus
+  exposition, trace spans, event log, flight recorder, health gauges and
+  samplers, and merge attribution;
+- ``oracle``   — the reference-semantics oracle (plain Python) and
+  ``shim``, its quirk-compat HTTP surface;
 - ``parallel`` — ``swarm`` (anti-entropy over a stacked replica axis, the
   stable frontier and the compaction barrier);
-- ``harness``  — ``gc_soak`` (the OR-Set and OR-Map soaks) and ``seq_soak``
-  (the RSeq allocator and GC soak), checked against Python mirrors;
+- ``harness``  — ``gc_soak`` (the OR-Set and OR-Map soaks), ``seq_soak``
+  (the RSeq allocator and GC soak), checked against Python mirrors, and
+  ``soak`` (the cluster under kill/revive, checked against the oracle);
 - ``convert``  — state carried across from the JAX package as numpy;
 - ``workload`` — seeded reference-shaped writes (for a swarm and for a
-  cluster of nodes), the OR-Set swarm and the RSeq editing history.
+  cluster of nodes, in process or over HTTP), the OR-Set swarm and the
+  RSeq editing history;
+- ``__main__`` — ``python -m crdt_tpu_torch``, the reference's demo
+  deployment on the card.
 
 Device rule: every constructor takes ``device=None``, which resolves to
 the CUDA card (:func:`default_device`); without a card that raises rather

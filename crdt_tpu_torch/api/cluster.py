@@ -14,9 +14,11 @@ Peers are drawn from ``random.Random(config.seed)`` in the JAX package's
 sequence.  Beside the KV nodes each replica holds its typed siblings — a
 ``SetNode``, a ``SeqNode`` and a ``MapNode`` — pulled from the same peer in
 the same round, with their own barriers every ``set_collect_every``,
-``seq_collect_every`` and ``map_reset_every`` ticks.  The JAX cluster's
-ingest front doors (its HTTP admission lanes) are not ported: nothing in
-process calls them.
+``seq_collect_every`` and ``map_reset_every`` ticks.  Each replica also
+has an ingest front door (``ingests``, :mod:`crdt_tpu_torch.ingest`): the
+HTTP surface (``api.http_shim``) sends every write through its admission
+lanes, so a served cluster batches writes into one device merge a drain;
+in-process drivers keep calling ``add_command`` / ``add_commands``.
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ from crdt_tpu_torch.api.node import (
 )
 from crdt_tpu_torch.api.seqnode import SeqNode, seq_barrier
 from crdt_tpu_torch.api.setnode import SetNode, set_barrier
+from crdt_tpu_torch.ingest import front_door_from_config
 from crdt_tpu_torch.obs.trace import mint_trace_id
 from crdt_tpu_torch.utils.clock import HostClock
 from crdt_tpu_torch.utils.config import ClusterConfig
@@ -69,6 +72,13 @@ class LocalCluster:
         self.set_nodes = [SetNode(rid=r, metrics=self.metrics, device=device) for r in rids]
         self.seq_nodes = [SeqNode(rid=r, metrics=self.metrics, device=device) for r in rids]
         self.map_nodes = [MapNode(rid=r, metrics=self.metrics, device=device) for r in rids]
+        # per-replica ingest front doors: the KV lane drains into
+        # add_commands, the map lane into the map sibling's upd_many
+        self.ingests = [
+            front_door_from_config(self.nodes[i], map_node=self.map_nodes[i],
+                                   config=self.config)
+            for i in range(self.config.n_replicas)
+        ]
         self._rng = random.Random(self.config.seed)
         self._ticks = 0
         self._threads: List[threading.Thread] = []

@@ -85,6 +85,18 @@ def _parse_wire_key(k: str) -> Tuple[int, int, int]:
     return int(k), -1, 0  # Go-format key: millisecond timestamp only
 
 
+_WIRE_ESCAPES = {'"': '\\"', "\\": "\\\\", "\b": "\\b", "\f": "\\f", "\n": "\\n",
+                 "\r": "\\r", "\t": "\\t"}
+_WIRE_ESCAPES.update({chr(c): f"\\u{c:04x}" for c in range(0x20) if chr(c) not in _WIRE_ESCAPES})
+_WIRE_ESCAPE_TABLE = str.maketrans(_WIRE_ESCAPES)
+
+
+def _wire_escape(s: str) -> str:
+    """A string escaped as the wire store escapes it (see
+    ``ReplicaNode._wire_json_locked``)."""
+    return s.translate(_WIRE_ESCAPE_TABLE)
+
+
 def stable_frontier_host(vvs, frontiers) -> Dict[int, int]:
     """The host-side stable frontier shared by every barrier scheduler: the
     per-writer min over the member version vectors ``vvs``, valid only if
@@ -102,6 +114,23 @@ def stable_frontier_host(vvs, frontiers) -> Dict[int, int]:
             if frontier.get(r, -1) < s:
                 return {}
     return frontier
+
+
+# One device section at a time on a device.  Torch work issued from several
+# threads at once (the HTTP surface runs each request, and so each drain
+# and each pushed merge, on a thread of its own) contends for the
+# interpreter between the ops of every merge, so concurrent merges of a
+# cluster's replicas each take many times their time alone; taken in
+# turns they run at their own speed (PERF.md, PR 12).
+_DEVICE_LOCKS: Dict[str, threading.Lock] = {}
+_DEVICE_LOCKS_GUARD = threading.Lock()
+
+
+def device_lock(device) -> threading.Lock:
+    """The lock that serializes the nodes' device sections on ``device``
+    (taken inside a node's own lock, never the other way round)."""
+    with _DEVICE_LOCKS_GUARD:
+        return _DEVICE_LOCKS.setdefault(str(torch.device(device)), threading.Lock())
 
 
 def _n_ops(payload: Dict[str, Any]) -> int:
@@ -427,7 +456,7 @@ class ReplicaNode:
         """GET /data: the materialized key-value view (None when down)."""
         if not self.alive:
             return None
-        with self._lock:
+        with self._lock, device_lock(self.device):
             if self._frontier:
                 kv = compactlog.rebuild(self._device_clog_locked())
             else:
@@ -456,6 +485,21 @@ class ReplicaNode:
         held (folded or raw).  The delta-gossip request token."""
         with self._lock:
             return self._version_vector_locked()
+
+    def vv_snapshot(self) -> Tuple[Dict[int, int], Dict[int, int]]:
+        """(version vector, folded frontier) under ONE lock acquisition:
+        barrier coordinators need the pair mutually consistent (a frontier
+        adopted between two reads would run ahead of the vv)."""
+        with self._lock:
+            return self._version_vector_locked(), dict(self._frontier)
+
+    def audit_snapshot(self) -> Tuple[Dict[int, int], Dict[int, int], Optional[str]]:
+        """One-lock (vv, frontier, digest) snapshot, the source of the
+        gossip response's stability header.  The digest is None: the live
+        divergence audit is not ported, and None is what the JAX node
+        returns without one, so the header's bytes are the same."""
+        with self._lock:
+            return self._version_vector_locked(), dict(self._frontier), None
 
     @property
     def frontier(self) -> Dict[int, int]:
@@ -531,13 +575,40 @@ class ReplicaNode:
     def gossip_payload_json(
         self, since: Optional[Dict[int, int]] = None
     ) -> Optional[bytes]:
-        """``gossip_payload`` serialized to UTF-8 JSON bytes (the HTTP
-        serving path)."""
+        """``gossip_payload`` as UTF-8 JSON bytes (the HTTP serving path),
+        the bytes the JAX node serves: while no compaction section is
+        needed, its wire store's compact form (:meth:`_wire_json_locked`);
+        otherwise ``json.dumps`` of the payload.  One lock acquisition
+        either way."""
         if not self.alive:
             return None
         with self._lock:
+            if not self._frontier and not (self.go_compat_gossip and since is None):
+                return self._wire_json_locked(since)
             payload = self._payload_locked(since)
         return json.dumps(payload).encode()
+
+    def _wire_json_locked(self, since: Optional[Dict[int, int]]) -> bytes:
+        """The op payload as the JAX package's native wire store emits it:
+        ``{"ts:rid:seq":{"key":"value",...},...}`` in identity order, no
+        whitespace, strings escaped byte-wise (``\\"``, ``\\\\``, the
+        short escapes of \\b \\f \\n \\r \\t, ``\\u00xx`` for the other
+        control characters, every other character raw UTF-8).  With
+        ``since`` the ops it covers are skipped; rid<0 ops always ride."""
+        epoch = self.clock.epoch_ms
+        if since is None:
+            items = sorted(self._commands.items())
+        else:
+            items = list(self._foreign)
+            for w, lst in self._by_writer.items():
+                if lst:
+                    items += lst[max(since.get(w, -1) + 1 - lst[0][0][2], 0):]
+            items.sort(key=lambda kv: kv[0])
+        ops = (f'"{ts + epoch}:{rid}:{seq}":{{'
+               + ",".join(f'"{_wire_escape(k)}":"{_wire_escape(v)}"' for k, v in cmd.items())
+               + "}"
+               for (ts, rid, seq), cmd in items)
+        return ("{" + ",".join(ops) + "}").encode()
 
     def _decode_payload(self, payload: Dict[str, Any]):
         """Wire payload -> (remote_frontier, remote_summary, op rows),
@@ -714,8 +785,9 @@ class ReplicaNode:
         :meth:`compact` and the adoption-time local fold; the caller owns
         the counter and event."""
         w = self._n_writers()
-        folded = compactlog.compact(self._device_clog_locked(n_writers=w),
-                                    self._frontier_array(merged, w))
+        with device_lock(self.device):
+            folded = compactlog.compact(self._device_clog_locked(n_writers=w),
+                                        self._frontier_array(merged, w))
         self.log = folded.tail
         self._log_rows = None
         self._frontier = merged
@@ -982,6 +1054,10 @@ class ReplicaNode:
     def _merge_batch(self, ops: Dict[str, np.ndarray], fresh: int) -> None:
         """Land one packed op batch in ONE device merge (caller holds the
         lock)."""
+        with device_lock(self.device):
+            self._merge_batch_device(ops, fresh)
+
+    def _merge_batch_device(self, ops: Dict[str, np.ndarray], fresh: int) -> None:
         size = self._log_rows
         if size is None:
             size = int(oplog.size(self.log))

@@ -1,3 +1,4 @@
-"""The consistency plane's lattice: the version-vector watermark
-``vvclock`` (the rest of ``crdt_tpu.consistency`` is host protocol and is
-not ported)."""
+"""The consistency plane's parts the port has: the version-vector
+watermark lattice ``vvclock``, session tokens (``session``) and stability
+summaries (``stability``).  The quorum plane and the leases of
+``crdt_tpu.consistency`` are not ported."""

@@ -256,7 +256,12 @@ lexn_merge_kernel(Params p) {
   const size_t lane = l0 + l;
   const bool lane_ok = lane < lanes;
 
-  // 1. stage rows [r0, r0 + nr) of both operands
+  // 1. stage rows [r0, r0 + nr) of both operands.  The staging writes into
+  // the other CTAs' shared memory, and CUDA promises that every CTA of a
+  // cluster runs only after a cluster barrier: at small C two of these
+  // CTAs share an SM and start at different times (the wide body faulted
+  // now and then without this barrier)
+  cluster.sync();
   stage_rows<kMergeThreads, 1>(p, cluster, sa, sb, s, kp, me, l, g, lane, lane_ok);
   cluster.sync();
 

@@ -1,4 +1,5 @@
-"""Seeded adversarial soaks of the GC'd lattices: ``gc_soak`` (the OR-Set
-and the OR-Map's epoch resets) and ``seq_soak`` (the RSeq allocator and
-its tombstone GC), each checked after every action against a GC-less
-Python mirror."""
+"""Seeded adversarial soaks: ``gc_soak`` (the OR-Set and the OR-Map's
+epoch resets) and ``seq_soak`` (the RSeq allocator and its tombstone GC),
+each checked after every action against a GC-less Python mirror, and
+``soak`` (the KV cluster under kill/revive and barriers, checked against
+the oracle)."""

@@ -5,14 +5,16 @@ the network daemon, not ported).
 Every gossip round, barrier and fault-relevant transition emits one event
 carrying the round's trace ID (:mod:`crdt_tpu_torch.obs.trace`), so an
 incident across nodes reconstructs by searching one ID.  Events are kept
-in a bounded ring; each record is stamped with the schema version ``v``.
+in a bounded ring; each record is stamped with the schema version ``v``
+and, when a driver installs a ``step_clock`` (the soak harness's step
+counter, its deterministic time base), with the driver's ``step``.
 """
 from __future__ import annotations
 
 import collections
 import threading
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 # stamped into every record as "v"; the JAX package's schema version
 SCHEMA_VERSION = 2
@@ -23,8 +25,10 @@ class EventLog:
     the ring-eviction counter ``events_dropped``, so a post-mortem can tell
     a quiet node from a truncated ring."""
 
-    def __init__(self, node: str = "?", capacity: int = 4096, registry=None):
+    def __init__(self, node: str = "?", capacity: int = 4096,
+                 step_clock: Optional[Callable[[], int]] = None, registry=None):
         self.node = str(node)
+        self.step_clock = step_clock
         self.registry = registry
         self.dropped = 0
         self._lock = threading.Lock()
@@ -38,6 +42,8 @@ class EventLog:
             "node": self.node,
             "event": event,
         }
+        if self.step_clock is not None:
+            rec["step"] = int(self.step_clock())
         if trace is not None:
             rec["trace"] = trace
         rec.update(fields)

@@ -1,5 +1,8 @@
-"""Replication-health gauges set on the pull path (own copy of the part of
-``crdt_tpu.obs.health`` that the node's pull rounds call).
+"""Replication-health gauges (own copy of the parts of
+``crdt_tpu.obs.health`` the port's nodes, front doors and ``/metrics``
+use).
+
+Set on the pull path:
 
 * ``peer_ops_behind{peer=}`` / ``convergence_lag_ops``: in delta mode a
   pull's payload size IS how many ops this node was behind that peer; its
@@ -7,6 +10,17 @@
 * ``last_merge_unixtime``: stamped on every fresh merge;
 * ``pull_round_peers_fused`` / ``pull_fused_fanout``: peers merged in one
   device dispatch by a k-way fused pull round.
+
+Sampled at scrape time (``render_node_metrics``, the ``GET /metrics``
+body), so the gauges are always fresh and an idle node pays nothing: the
+KV node's population and frontier (``vv_ops_known``,
+``frontier_folded_ops``, ``oplog_capacity``, ``commands_retained``,
+``summary_keys``, ``node_alive``, ``seconds_since_last_merge``), the
+siblings' GC debt, the ingest lanes' depth and mark, and the union-engine
+tallies.  The samplers of the agent's circuits, the stability tracker,
+the keyspace, the leases and the audit watchdog belong to modules the
+port does not have yet: ``sample_all`` takes those arguments and requires
+them to be None.
 """
 from __future__ import annotations
 
@@ -35,3 +49,113 @@ def observe_fused_pull(registry, node_label: str, n_peers: int) -> None:
     dispatch, and the latest round's width."""
     registry.inc("pull_round_peers_fused", n_peers, node=node_label)
     registry.set_gauge("pull_fused_fanout", n_peers, node=node_label)
+
+
+def sample_kv_node(registry, node) -> None:
+    """KV replica population and frontier gauges."""
+    lab = str(node.rid)
+    vv, frontier = node.vv_snapshot()
+    registry.set_gauge("vv_ops_known", sum(s + 1 for s in vv.values()), node=lab)
+    registry.set_gauge("frontier_folded_ops", sum(s + 1 for s in frontier.values()), node=lab)
+    registry.set_gauge("oplog_capacity", node.log.capacity, node=lab)
+    registry.set_gauge("commands_retained", len(node._commands), node=lab)
+    registry.set_gauge("summary_keys", len(node._summary), node=lab)
+    registry.set_gauge("node_alive", int(node.alive), node=lab)
+    # ring evictions so far (the counter events_dropped is inc'd at
+    # eviction time)
+    registry.set_gauge("events_ring_dropped", node.events.dropped, node=lab)
+    last = registry.gauge_value("last_merge_unixtime", node=lab)
+    if last is not None:
+        registry.set_gauge("seconds_since_last_merge", round(time.time() - last, 3), node=lab)
+
+
+def sample_set_node(registry, sn) -> None:
+    lab = str(sn.rid)
+    registry.set_gauge("set_ops_retained", len(sn._ops), node=lab)
+    registry.set_gauge("set_tombstones", len(sn._tombstoned), node=lab)
+    registry.set_gauge("set_floor_folded_ops", sum(s + 1 for s in sn._floor.values()), node=lab)
+
+
+def sample_seq_node(registry, qn) -> None:
+    lab = str(qn.rid)
+    registry.set_gauge("seq_ops_retained", len(qn._ops), node=lab)
+    registry.set_gauge("seq_tombstones", len(qn._tombstoned), node=lab)
+    registry.set_gauge("seq_floor_folded_ops", sum(s + 1 for s in qn._floor.values()), node=lab)
+
+
+def sample_map_node(registry, mn) -> None:
+    registry.set_gauge("map_records", mn.n_records(), node=str(mn.rid))
+
+
+def sample_ingest(registry, front_door) -> None:
+    """Ingest front-door gauges: each lane's pending-op depth and the
+    high-water mark it sheds against.  The shed and admit counters and the
+    batch-size and admit-latency histograms are recorded at drain time by
+    the lane itself."""
+    for lane in front_door.lanes:
+        registry.set_gauge("ingest_queue_depth", float(lane.depth), lane=lane.name, node=lane.node)
+        registry.set_gauge("ingest_high_water", float(lane.policy.high_water),
+                           lane=lane.name, node=lane.node)
+
+
+def sample_union_paths(registry) -> None:
+    """Delta-converge the process-global union-engine tallies
+    (``ops.union_engine``: which engine served each join, and refused
+    truncations) into THIS registry's monotone counters: each registry
+    inc's only the delta since its own last sample, so
+    ``union_path_total{path=...}`` stays monotone with several nodes
+    scraping one process."""
+    from crdt_tpu_torch.ops import union_engine
+
+    counts = union_engine.union_path_counts()
+    counts.setdefault("sort", 0)  # the series exists from the first scrape
+    for path, total in sorted(counts.items()):
+        registry.inc("union_path", 0, path=path)
+        seen = registry.gauge_value("union_path_sampled", path=path) or 0
+        if total > seen:
+            registry.inc("union_path", total - seen, path=path)
+            registry.set_gauge("union_path_sampled", total, path=path)
+    trunc = union_engine.truncation_count()
+    registry.inc("union_truncations_refused", 0)
+    seen = registry.gauge_value("union_truncations_sampled") or 0
+    if trunc > seen:
+        registry.inc("union_truncations_refused", trunc - seen)
+        registry.set_gauge("union_truncations_sampled", trunc)
+
+
+def sample_all(registry, node, set_node=None, seq_node=None, map_node=None,
+               composite_node=None, agent=None, ingest=None, stability=None,
+               keyspace=None, ks_door=None, leases=None, watchdog=None) -> None:
+    """Every sampler of this node's planes.  The composite node, the
+    network agent, the stability tracker, the keyspace, the leases and the
+    audit watchdog are not ported: those arguments must be None."""
+    missing = [name for name, x in (("composite_node", composite_node), ("agent", agent),
+                                    ("stability", stability), ("keyspace", keyspace),
+                                    ("ks_door", ks_door), ("leases", leases),
+                                    ("watchdog", watchdog)) if x is not None]
+    if missing:
+        raise NotImplementedError(
+            f"sample_all: no sampler for {missing} (their modules are not ported)")
+    sample_kv_node(registry, node)
+    sample_union_paths(registry)
+    if set_node is not None:
+        sample_set_node(registry, set_node)
+    if seq_node is not None:
+        sample_seq_node(registry, seq_node)
+    if map_node is not None:
+        sample_map_node(registry, map_node)
+    if ingest is not None:
+        sample_ingest(registry, ingest)
+
+
+def render_node_metrics(node, set_node=None, seq_node=None, map_node=None,
+                        composite_node=None, agent=None, ingest=None, stability=None,
+                        keyspace=None, ks_door=None, leases=None, watchdog=None) -> str:
+    """The GET /metrics body: sample the health gauges into the node's
+    registry, then render the whole registry as Prometheus text."""
+    registry = node.metrics.registry
+    sample_all(registry, node, set_node=set_node, seq_node=seq_node, map_node=map_node,
+               composite_node=composite_node, agent=agent, ingest=ingest,
+               stability=stability, keyspace=keyspace, ks_door=ks_door, leases=leases,
+               watchdog=watchdog)
+    return registry.render_prometheus()

@@ -1,5 +1,6 @@
 """Cross-node gossip tracing (own copy of ``crdt_tpu.obs.trace``): trace
-IDs minted per gossip round and recorded in both sides' event logs, and
+IDs minted per gossip round, carried over the wire in the ``X-CRDT-Trace``
+header and recorded in both sides' event logs, and
 ``span``, which binds the current ID and opens a same-named
 ``torch.profiler.record_function`` range, so the host-side round and its
 device work line up by name in a captured profile.
@@ -13,6 +14,8 @@ import os
 import threading
 
 import torch
+
+TRACE_HEADER = "X-CRDT-Trace"
 
 # process-unique prefix + atomic counter: IDs are unique across the fleet
 # without coordination

@@ -22,6 +22,7 @@ class ClusterConfig:
     base_port: int = 8080
     friend_range: int = 10          # friends = base_port .. base_port+range-1
     gossip_period_ms: int = 1500
+    write_period_ms: int = 300      # the demo workload's period
     key_alphabet: str = ALPHABET
     delta_min: int = -20            # rand.Intn(10) + 2*(-10) in [-20, -11]
     delta_max: int = -11
@@ -51,6 +52,20 @@ class ClusterConfig:
     # pull min(k, peers) distinct peers a round and merge every payload in
     # one device merge (1 = the reference's one-random-peer round)
     fuse_pull_k: int = 1
+    # ---- the ingest front door (crdt_tpu_torch.ingest) ----
+    # flush-on-size: a drain triggers when this many ops are pending
+    ingest_flush_ops: int = 64
+    # flush-on-deadline: a waiter drains the queue itself after this many
+    # milliseconds even if the size trigger never fires
+    ingest_flush_ms: float = 2.0
+    # backpressure high-water mark (PENDING OPS per lane): a submission
+    # that would exceed it is shed whole (429 + Retry-After)
+    ingest_high_water: int = 4096
+    # advisory Retry-After (seconds) served with a shed
+    ingest_retry_after_s: float = 0.05
+
+    def ports(self) -> List[int]:
+        return [self.base_port + i for i in range(self.n_replicas)]
 
     def friend_ports(self) -> List[int]:
         return [self.base_port + i for i in range(self.friend_range)]

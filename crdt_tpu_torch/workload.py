@@ -15,12 +15,21 @@ path of the rebuild.
 The writes, the editing history and the counter and register banks are
 drawn from numpy generators seeded by the caller, the OR-Set and RSeq
 swarms from a torch.Generator on the device they are built on.
+
+``WorkloadGenerator`` also drives any server of the reference's HTTP
+surface (the port's ``api.http_shim``, the JAX package's, or the Go
+original): single-op ``POST /data``, op pages through ``/ingest/page``
+(429 back-off and page retries), and the typed siblings' routes.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 import random
 import string
+import time
+import urllib.error
+import urllib.request
 from typing import List, Tuple
 
 import numpy as np
@@ -118,6 +127,136 @@ class WorkloadGenerator:
             if gossip_every and (i + 1) % gossip_every == 0:
                 cluster.tick()
         return accepted
+
+    # ---- over HTTP (the port's HttpCluster, the JAX one, or a Go server) ----
+
+    @staticmethod
+    def _post(url: str, body: dict, timeout: float) -> bool:
+        """POST ``body`` as JSON; True on a 200.  A dead replica's answer or
+        a transport failure is skipped, like main.go:301-304."""
+        req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                     headers={"Content-Type": "application/json"},
+                                     method="POST")
+        try:
+            with urllib.request.urlopen(req, timeout=timeout) as res:
+                return res.status == 200
+        except (urllib.error.URLError, OSError):
+            return False
+
+    def drive_http(self, urls: List[str], n_writes: int, timeout: float = 5.0) -> int:
+        """POST n_writes commands to ``/data`` of random replicas; returns
+        the accepted count."""
+        accepted = 0
+        for _ in range(n_writes):
+            cmd, target = self.next_command()
+            accepted += self._post(urls[target % len(urls)] + "/data", cmd, timeout)
+        return accepted
+
+    def next_set_op(self) -> Tuple[str, str, int]:
+        """Returns (op, elem, target): 65% adds, 35% observed-removes over
+        the alphabet's elements."""
+        c = self.config
+        op = "add" if self._rng.random() < 0.65 else "remove"
+        elem = "s" + c.key_alphabet[self._rng.randrange(len(c.key_alphabet))]
+        return op, elem, self._rng.randrange(c.n_replicas)
+
+    def drive_set_http(self, urls: List[str], n_ops: int, timeout: float = 5.0) -> int:
+        """``/set/add`` and ``/set/remove`` on random replicas."""
+        accepted = 0
+        for _ in range(n_ops):
+            op, elem, target = self.next_set_op()
+            accepted += self._post(urls[target % len(urls)] + f"/set/{op}", {"elem": elem},
+                                   timeout)
+        return accepted
+
+    def drive_seq_http(self, urls: List[str], n_ops: int, timeout: float = 5.0) -> int:
+        """70% inserts at a random index (the node clamps), 30% removes."""
+        accepted = 0
+        for _ in range(n_ops):
+            target = self._rng.randrange(self.config.n_replicas)
+            if self._rng.random() < 0.7:
+                body = {"elem": f"q{self._rng.randrange(1 << 20)}",
+                        "index": self._rng.randint(0, 20)}
+                path = "/seq/insert"
+            else:
+                body = {"index": self._rng.randint(0, 20)}
+                path = "/seq/remove"
+            accepted += self._post(urls[target % len(urls)] + path, body, timeout)
+        return accepted
+
+    def drive_map_http(self, urls: List[str], n_ops: int, timeout: float = 5.0) -> int:
+        """75% signed-delta updates on 8 hot keys (the reference's per-key
+        counter shape), 25% observed-removes."""
+        accepted = 0
+        c = self.config
+        for _ in range(n_ops):
+            target = self._rng.randrange(c.n_replicas)
+            key = "m" + c.key_alphabet[self._rng.randrange(min(8, len(c.key_alphabet)))]
+            if self._rng.random() < 0.75:
+                body = {"key": key, "delta": self._rng.randrange(10) - 2 * 10}
+                path = "/map/upd"
+            else:
+                body = {"key": key}
+                path = "/map/rem"
+            accepted += self._post(urls[target % len(urls)] + path, body, timeout)
+        return accepted
+
+    def drive_pages_http(self, urls: List[str], n_writes: int, page_size: int = 256,
+                         timeout: float = 5.0, max_retries: int = 8) -> dict:
+        """The command stream of drive_http batched into columnar op pages,
+        one PageBuilder (writer stream) per replica.  A 429 backs off its
+        Retry-After and resends the same page (the per-origin page_seq
+        watermark makes the retry idempotent).  Returns {"admitted",
+        "pages", "sheds", "lost"}."""
+        from crdt_tpu_torch.ingest import PageBuilder
+
+        builders = [PageBuilder(origin=1000 + i, page_size=page_size) for i in range(len(urls))]
+        out = {"admitted": 0, "pages": 0, "sheds": 0, "lost": 0}
+
+        def post(target: int, raw: bytes) -> None:
+            out["pages"] += 1
+            for _ in range(max_retries):
+                verdict = self._post_page(urls[target], raw, timeout)
+                if verdict.get("shed"):
+                    out["sheds"] += 1
+                    time.sleep(float(verdict.get("retry_after", 0.05)))
+                    continue
+                if verdict.get("ok"):
+                    out["admitted"] += int(verdict.get("admitted", 0))
+                return
+            out["lost"] += 1  # gave up after max_retries sheds (counted)
+
+        for _ in range(n_writes):
+            cmd, target = self.next_command()
+            ((key, value),) = cmd.items()
+            raw = builders[target].add(key, value)
+            if raw is not None:
+                post(target, raw)
+        for target, b in enumerate(builders):
+            raw = b.flush()
+            if raw is not None:
+                post(target, raw)
+        return out
+
+    @staticmethod
+    def _post_page(url: str, raw: bytes, timeout: float) -> dict:
+        req = urllib.request.Request(url + "/ingest/page", data=raw,
+                                     headers={"Content-Type": "application/octet-stream"},
+                                     method="POST")
+        try:
+            with urllib.request.urlopen(req, timeout=timeout) as res:
+                body = res.read()
+        except urllib.error.HTTPError as e:
+            if e.code == 429:
+                retry = e.headers.get("Retry-After")
+                return {"shed": True, "retry_after": float(retry) if retry else 0.05}
+            return {}
+        except (urllib.error.URLError, OSError):
+            return {}  # dead replica: skipped, like main.go:301-304
+        try:
+            return {"ok": True, **json.loads(body)}
+        except ValueError:
+            return {}
 
 
 ODD_NUMERALS = ("007", "+7", "-0", "+0", "000")

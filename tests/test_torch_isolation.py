@@ -65,7 +65,9 @@ def test_scan_sees_the_whole_package():
             "registry.py", "trace.py", "events.py", "provenance.py", "health.py",
             "devtime.py", "vvclock.py", "joins.py", "randstate.py", "ormap.py",
             "algebra.py", "composite.py", "ormap_gc.py", "setnode.py", "seqnode.py",
-            "mapnode.py", "floornode.py", "gc_soak.py", "seq_soak.py"} <= names
+            "mapnode.py", "floornode.py", "gc_soak.py", "seq_soak.py",
+            "http_shim.py", "session.py", "stability.py", "wire.py", "shed.py",
+            "admission.py", "shim.py", "soak.py", "__main__.py"} <= names
 
 
 @pytest.mark.parametrize("make", [

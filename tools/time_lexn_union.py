@@ -31,7 +31,10 @@ route (fused or striped): ``rseq512`` and ``rseq512gc`` ((18, 2) and
 ((18, 2) at C=1024, out=C on phase 9's draw) and ``gc1024`` ((18, 3),
 out=2C, the GC join's shape), and ``soak1`` ((18, 3) at one lane, out=2C:
 the operands of the first join of phase 16's sequence soak at capacity
-512, 4 replicas, seed 0).  ``gossip``, ``converge`` and ``gcconverge`` time
+512, 4 replicas, seed 0); ``merge2k`` times ``lexn_merge`` at that soak's
+C = 2048 shape: one lane, (18, 3), the stripe of 1,024 rows the striped
+union merges (A's first stripe against B's second, as its first merge
+pairs them) on the operands of its first join.  ``gossip``, ``converge`` and ``gcconverge`` time
 the RSeq path's calls on chip_smoke.py phase 10's swarm (R=10,240,
 C=1024, depth 6, replica 7 dead): ``rseq_columnar.gossip_round`` with its
 first peer round, ``converge_checked``, and
@@ -80,7 +83,7 @@ PAIR_CASES = {"pair2k": (2, 2, 2048), "pair4k": (2, 2, 4096), "pair5": (5, 2, 64
               "pair18x64": (18, 2, 64), "pair18x128": (18, 2, 128), "pair18x256": (18, 2, 256)}
 CASES = ("oplog", "merge20", "merge21", "compact20", "compact21", "set2m", "bucket16",
          "bucket32", "merge131k", "floor131k", "bfloor131k", "rseq512", "rseq512gc",
-         "soak1", "rseq1024", "gc1024", "gossip", "converge", "gcconverge",
+         "soak1", "merge2k", "rseq1024", "gc1024", "gossip", "converge", "gcconverge",
          *PAIR_CASES)
 PATH_CASES = ("gossip", "converge", "gcconverge")
 # the union cases through the auto route: (capacity, GC join's src plane,
@@ -197,14 +200,14 @@ def union_call(case: str, workload, rc, hu):
     return call, checksum((*keys, *vals, nu))
 
 
-def soak_call(hu):
-    """The union of the first join of phase 16's sequence soak at capacity
-    512 (4 replicas, seed 0): one lane, 18 key words, (elem, removed, src),
-    out=2C, as ``rseq_engine.gc_merge_checked`` calls it."""
+def soak_sides(capacity: int) -> tuple:
+    """The union operands of the first join of phase 16's sequence soak at
+    ``capacity`` (4 replicas, seed 0): one lane, 18 key words, (elem,
+    removed, src), as ``rseq_engine.gc_merge_checked`` passes them."""
     from crdt_tpu_torch.harness.seq_soak import SeqSoakRunner
     from crdt_tpu_torch.models import rseq_engine as reng
 
-    runner = SeqSoakRunner(n=4, seed=0, capacity=512, device="cuda")
+    runner = SeqSoakRunner(n=4, seed=0, capacity=capacity, device="cuda")
     real, seen = reng.gc_join_checked_auto, []
 
     def spy(a, b):
@@ -223,13 +226,37 @@ def soak_call(hu):
         return (tuple(col.keys), (col.elem, col.removed,
                                   (col.keys[0] != SENTINEL).to(torch.int32) * k))
 
-    sides = (*side(ca.col, 1), *side(cb.col, 2))
+    return (*side(ca.col, 1), *side(cb.col, 2))
+
+
+def soak_call(hu):
+    """The union of the first join of phase 16's sequence soak at capacity
+    512, out=2C."""
+    sides = soak_sides(512)
 
     def call():
         return hu.sorted_union_columnar_lexn_auto(*sides)
 
     keys, vals, nu = call()
     return call, checksum((*keys, *vals, nu))
+
+
+def soak_merge_call(hu):
+    """``lexn_merge`` at the capacity-2048 soak's stripe: A's first 1,024
+    rows against B's second, one lane, (18, 3)."""
+    ka, va, kb, vb = soak_sides(2048)
+    s = 1024
+
+    def rows(planes, lo):
+        return tuple(p[lo:lo + s].contiguous() for p in planes)
+
+    sides = (rows(ka, 0), rows(va, 0), rows(kb, s), rows(vb, s))
+
+    def call():
+        return hu.lexn_merge_columnar(*sides)
+
+    keys, vals = call()
+    return call, checksum((*keys, *vals))
 
 
 def pair_call(case: str, workload, hu):
@@ -380,6 +407,8 @@ def main() -> int:
             call, total = union_call(case, workload, rc, hu)
         elif case == "soak1":
             call, total = soak_call(hu)
+        elif case == "merge2k":
+            call, total = soak_merge_call(hu)
         elif case in PATH_CASES:
             call, total = path_call(case, workload, rc)
         elif case in PAIR_CASES:
@@ -389,8 +418,8 @@ def main() -> int:
         times = time_call(call, args.reps)
         lanes = {"set2m": SET_L * SET_REPEAT, "bucket16": SET_L, "bucket32": SET_L,
                  "merge131k": SET_L, "floor131k": SET_L, "bfloor131k": SET_L,
-                 "soak1": 1}.get(case, R)
-        c = (512 if case == "soak1" else PAIR_CASES[case][2] if case in PAIR_CASES
+                 "soak1": 1, "merge2k": 1}.get(case, R)
+        c = (512 if case == "soak1" else 1024 if case == "merge2k" else PAIR_CASES[case][2] if case in PAIR_CASES
              else UNION_CASES.get(case, (C,))[0])
         print(json.dumps({"root": root, "card": card, "case": case, "C": c, "L": lanes,
                           "median_ms": statistics.median(times), "ms": times,
