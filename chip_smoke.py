@@ -1,7 +1,7 @@
 """Drive the PyTorch port's OpLog, OR-Set and RSeq swarm paths, the OR-Set
 union floors, the counter and register family, the replica-node cluster,
-the join registry, the typed sibling nodes and the reference's HTTP
-surface on a CUDA card and check them.
+the join registry, the typed sibling nodes, the reference's HTTP surface
+and the network daemon on a CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -105,8 +105,8 @@ Phases (any failure exits non-zero and prints no result):
     trials: the four laws, == the join on the CPU copies, ``converge`` by
     name == on the CPU, ``bucketed_union`` launched; (b) a
     ``LocalCluster`` of 5 replicas with the siblings' barriers (set and
-    sequence GC every 8 ticks, map reset every 16) takes 16,384 map, 16,384
-    set, 8,192 sequence and 4,096 KV ops in 32 rounds (replica 4 down for
+    sequence GC every 8 ticks, map reset every 16) takes 8,192 map, 8,192
+    set, 4,096 sequence and 2,048 KV ops in 32 rounds (replica 4 down for
     rounds 8-15) and ticks to convergence: all four views equal on every
     replica and == the same schedule's CPU run (after the card's), the
     barriers ran, the map reset was skipped
@@ -120,8 +120,8 @@ Phases (any failure exits non-zero and prints no result):
     CLI defaults; one ``{"typed_nodes": ...}`` JSON line;
 17. the reference's HTTP surface (budget 60 s): ``api.http_shim``'s
     ``HttpCluster`` over a ``LocalCluster()`` of 5 replicas on the card,
-    on loopback: (a) 16,384 single-op ``POST /data`` from 8 client threads
-    (replica 4 down for the second quarter, its 502s counted), (b) 114,688
+    on loopback: (a) 8,192 single-op ``POST /data`` from 8 client threads
+    (replica 4 down for the second quarter, its 502s counted), (b) 122,880
     writes through ``/ingest/page`` in pages of 512 (429 back-off counted),
     one profiled burst of 256 concurrent posts, (c) 64 rounds of pulls
     over HTTP (``GET /gossip?vv=`` → ``POST /push``, each stability header
@@ -132,7 +132,30 @@ Phases (any failure exits non-zero and prints no result):
     ``/metrics`` ingest counters == the client's counts, no 5xx but the
     planned 502s, no hand kernel launched (as predicted); (d) ``python -m
     crdt_tpu_torch --duration 10`` as a subprocess on the card exits 0
-    converged; one ``{"http_surface": ...}`` JSON line.
+    converged; one ``{"http_surface": ...}`` JSON line;
+18. the network daemon (budget 120 s): (a) five ``python -m crdt_tpu_torch
+    --daemon`` processes on the card (rids 0-4 on loopback ports picked up
+    front, each with its checkpoint dir and event log under
+    ``build/daemons``, daemon 0 the coordinator with ``--compact-every
+    8``, gossip every 1500 ms) take 2,048 single-op ``POST /data`` from 8
+    threads and 129,024 writes in op pages of 512 (a client thread a
+    daemon); at the halfway point daemon 3 takes ``POST
+    /admin/checkpoint`` and a SIGKILL, and restarts on the same directory
+    restored at incarnation 1 (rid 67), serving and taking writes; then
+    ``POST /admin/pull`` rounds on every daemon (``/admin/barrier`` every
+    8) until all five ``GET /data`` are equal: each == the oracle's fold of
+    the 131,072 acknowledged writes, every ``/audit`` clean, the stability
+    headers' digests equal at equal frontiers, each daemon's ``/metrics``
+    ingest counter == the client's count for its boot and its
+    ``net_gossip_*`` outcomes == the pull-round events in its JSONL log,
+    no 5xx; writes/s, pull p50/p99, barrier, checkpoint ms and bytes,
+    restart-to-serving, rounds and seconds to converge, card memory; (b)
+    ``harness.soak.NetworkSoakRunner`` on the card (5 hosts, seed 0, 400
+    steps, a quarter of the writes paged) healed and checked, no hand
+    kernel launched (as predicted); (c) a node's snapshot on the card
+    restores into a fresh node with equal state, vv, frontier, summary
+    and digest, and a corrupted ``log.npz`` generation is quarantined and
+    the one before it restored; one ``{"network_daemon": ...}`` JSON line.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -145,6 +168,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -2356,7 +2380,10 @@ REGISTRY_TRIALS = 12
 # automerge-perf editing trace's mix (182,315 inserts, 77,463 deletes); and
 # the reference's KV writes (WorkloadGenerator).  32 rounds, replica 4 down
 # for rounds 8-15, then ticks to convergence.
-TYPED_MAP, TYPED_SET, TYPED_SEQ, TYPED_KV = 16_384, 16_384, 8_192, 4_096
+# (half of the 16,384 / 16,384 / 8,192 / 4,096 this phase once took, to
+# keep the smoke in half its time limit: that card run and its CPU twin
+# took 280 s)
+TYPED_MAP, TYPED_SET, TYPED_SEQ, TYPED_KV = 8_192, 8_192, 4_096, 2_048
 TYPED_ROUNDS, TYPED_DEAD, TYPED_DOWN, TYPED_UP = 32, 4, 8, 16
 TYPED_UNIVERSE, TYPED_EXTRA_TICKS = 4_096, 64
 TYPED_BARRIERS = dict(set_collect_every=8, seq_collect_every=8, map_reset_every=16)
@@ -2765,14 +2792,14 @@ def typed_phase(card: str, rows: list, kv: dict) -> None:
 # ClusterConfig()'s 5 replicas (the reference's deployment, main.go:316-327)
 # behind api.http_shim on loopback, taking phase 15's traffic shape over
 # HTTP: 131,072 reference-shaped writes (WorkloadGenerator, seed 0) as (a)
-# 16,384 single-op POST /data from 8 client threads, replica 4 down for the
-# second quarter, and (b) 114,688 writes in op pages of 512; then (c) 64
+# 8,192 single-op POST /data from 8 client threads, replica 4 down for the
+# second quarter, and (b) 122,880 writes in op pages of 512; then (c) 64
 # rounds of pulls over HTTP (each replica GETs a seeded peer's /gossip?vv=
 # and POSTs it to its own /push), a barrier over HTTP every 8 rounds; and (d)
 # `python -m crdt_tpu_torch` as a subprocess on the card.
 HTTP_BUDGET_S = 60
-HTTP_SINGLE, HTTP_THREADS = 16_384, 8
-HTTP_PAGE_WRITES, HTTP_PAGE = 114_688, 512
+HTTP_SINGLE, HTTP_THREADS = 8_192, 8   # 16,384 took 90 s at ~180/s
+HTTP_PAGE_WRITES, HTTP_PAGE = 122_880, 512
 HTTP_ROUNDS, HTTP_BARRIER_EVERY = 64, 8
 HTTP_EXTRA_ROUNDS = 64
 HTTP_BURST = 256
@@ -3092,6 +3119,489 @@ def http_phase(card: str) -> dict:
     return line
 
 
+# ---- phase 18: the network daemon ----
+
+NET_BUDGET_S = 120
+NET_REPLICAS = 5
+NET_SINGLE, NET_THREADS = 2_048, 8
+NET_PAGE_WRITES, NET_PAGE = 129_024, 512
+NET_CRASHED = 3                         # the daemon killed and restored
+NET_STRIDE = 64                         # --rid-stride (the CLI default)
+NET_BARRIER_EVERY = 8                   # /admin/barrier on daemon 0, in rounds
+NET_MAX_ROUNDS = 64
+NET_SOAK_STEPS, NET_SOAK_PAGED = 400, 0.25
+NET_SNAP_WRITES = 16_384                # part (c)'s node
+NET_RUN_DIR = "build/daemons"           # git-ignored: checkpoints, event logs
+
+
+def free_ports(n: int) -> list:
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    return ports
+
+
+class Daemons:
+    """``python -m crdt_tpu_torch --daemon`` processes on the card, one per
+    replica, each with its checkpoint dir, event log and stderr file under
+    NET_RUN_DIR; daemon 0 coordinates (--compact-every 8); gossip every
+    1500 ms, the reference's period."""
+
+    def __init__(self, root, n: int):
+        self.root, self.n = root, n
+        self.ports = free_ports(n)
+        self.urls = [f"http://127.0.0.1:{p}" for p in self.ports]
+        self.procs = [None] * n
+        self.boots = [0] * n
+
+    def start(self, i: int):
+        args = [sys.executable, "-m", "crdt_tpu_torch", "--daemon", "--rid", str(i),
+                "--port", str(self.ports[i]),
+                "--peers", ",".join(u for j, u in enumerate(self.urls) if j != i),
+                "--checkpoint-dir", str(self.root / f"ckpt{i}"),
+                "--event-log", str(self.root / f"events{i}.jsonl"),
+                "--rid-stride", str(NET_STRIDE), "--gossip-ms", "1500"]
+        if i == 0:
+            args += ["--coordinator", "--compact-every", "8"]
+        err = open(self.root / f"stderr{i}-{self.boots[i]}.txt", "w")
+        self.boots[i] += 1
+        self.procs[i] = subprocess.Popen(args, cwd=Path(__file__).resolve().parent,
+                                         stdout=subprocess.PIPE, stderr=err, text=True)
+        return self.procs[i]
+
+    def serving(self, i: int) -> str:
+        """The daemon's 'serving on' line (blocks until it prints)."""
+        line = self.procs[i].stdout.readline()
+        if " serving on " not in line:
+            raise AssertionError(f"daemon {i} exited {self.procs[i].poll()} before serving: "
+                                 f"{line!r}; stderr in {self.root}")
+        return line.strip()
+
+    def kill9(self, i: int) -> None:
+        self.procs[i].kill()
+        self.procs[i].wait(60)
+
+    def stop(self) -> list:
+        """SIGINT every live daemon (host.stop(), then exit 0); returns the
+        exit codes."""
+        import signal
+
+        live = [p for p in self.procs if p is not None and p.poll() is None]
+        for p in live:
+            p.send_signal(signal.SIGINT)
+        codes = []
+        for p in self.procs:
+            if p is None:
+                continue
+            try:
+                codes.append(p.wait(120))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                codes.append(p.wait())
+        return codes
+
+
+def card_memory_by_pid() -> dict:
+    """{pid: MiB} of the card's compute processes, as ``nvidia-smi
+    --query-compute-apps`` lists them (its pids may be another pid
+    namespace's than this process sees)."""
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                              "--format=csv,noheader,nounits"], capture_output=True,
+                             text=True, timeout=30).stdout
+    except (OSError, subprocess.SubprocessError):
+        return {}
+    mem = {}
+    for line in out.splitlines():
+        parts = [x.strip() for x in line.split(",")]
+        if len(parts) == 2 and parts[0].isdigit():
+            mem[int(parts[0])] = parts[1]
+    return mem
+
+
+def post_pages(urls, batches, tally, oracles) -> dict:
+    """Each target daemon's commands as op pages of NET_PAGE from a client
+    thread of its own (PageBuilder origin 1000 + target); a 429 backs off
+    its Retry-After and resends the same page.  Every admitted page is
+    mirrored into its target's oracle."""
+    import threading
+
+    out = {"admitted": [0] * len(urls), "pages": [0] * len(urls), "sheds": [0] * len(urls)}
+    errors = []
+
+    def client(target, cmds, builder):
+        try:
+            def send(raw, chunk):
+                while True:
+                    st, hdr, body, _ = http_call(urls[target] + "/ingest/page", "POST", raw,
+                                                 {"Content-Type": "application/octet-stream"})
+                    tally.note(st)
+                    out["pages"][target] += 1
+                    if st == 429:
+                        out["sheds"][target] += 1
+                        time.sleep(float(hdr.get("Retry-After", "0.05")))
+                        continue
+                    if st != 200 or json.loads(body)["admitted"] != len(chunk):
+                        raise AssertionError(f"page to daemon {target}: {st} {body[:200]!r}")
+                    out["admitted"][target] += len(chunk)
+                    for i, cmd in chunk:
+                        oracles[target].add_command(cmd, i)
+                    return
+
+            chunk = []
+            for i, cmd in cmds:
+                ((key, value),) = cmd.items()
+                chunk.append((i, cmd))
+                raw = builder.add(key, value)
+                if raw is not None:
+                    send(raw, chunk)
+                    chunk = []
+            raw = builder.flush()
+            if raw is not None:
+                send(raw, chunk)
+        except BaseException as e:  # re-raised on the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(t, cmds, b))
+               for t, (cmds, b) in batches.items() if cmds]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    if errors:
+        raise errors[0]
+    return out
+
+
+def net_phase_daemons(card: str, root) -> dict:
+    """Phase 18 (a): five daemon processes, 131,072 writes, a kill -9 and
+    a restore, convergence, and the checks."""
+    from urllib.parse import quote
+
+    from crdt_tpu_torch import workload
+    from crdt_tpu_torch.ingest import PageBuilder
+    from crdt_tpu_torch.obs.events import read_jsonl
+    from crdt_tpu_torch.oracle import OracleReplica, Quirks
+    from crdt_tpu_torch.utils.config import ClusterConfig
+
+    n = NET_REPLICAS
+    fleet = Daemons(root, n)
+    oracles = [OracleReplica(r, Quirks()) for r in range(n)]
+    tally = HttpTally()
+    gen = workload.WorkloadGenerator(ClusterConfig())  # seed 0
+    # client-side counts per daemon boot: the ingest counters a daemon's
+    # /metrics must equal (a restarted daemon's registry starts at 0)
+    acked = [0] * n
+    out = {}
+    free_before = torch.cuda.mem_get_info()[0]
+    try:
+        t0 = time.perf_counter()
+        for i in range(n):
+            fleet.start(i)
+        lines = [fleet.serving(i) for i in range(n)]
+        out["boot_s"] = time.perf_counter() - t0
+        for i, line in enumerate(lines):
+            if f"rid={i} (base {i}, incarnation 0, restored=False)" not in line:
+                raise AssertionError(f"daemon {i}: {line}")
+        log(f"(a) {n} daemons serving in {out['boot_s']:.2f} s: {fleet.urls}")
+
+        half = (NET_SINGLE + NET_PAGE_WRITES) // 2
+        writes = [(i, *gen.next_command()) for i in range(NET_SINGLE + NET_PAGE_WRITES)]
+        # -- single-op POST /data from 8 threads (the first half of the stream) --
+        single = writes[:NET_SINGLE]
+        t0 = time.perf_counter()
+        lat = post_writes(fleet.urls, single, tally, oracles)
+        out["single_s"] = time.perf_counter() - t0
+        for _, _, target in single:
+            acked[target] += 1
+        log(f"    {NET_SINGLE} single-op POST /data from {NET_THREADS} threads: "
+            f"{NET_SINGLE / out['single_s']:.1f} acknowledged writes/s, p50 "
+            f"{quantile(lat, 0.5) * 1e3:.3f} ms, p99 {quantile(lat, 0.99) * 1e3:.3f} ms [{card}]")
+
+        def pages(batch):
+            by_target = {t: [] for t in range(n)}
+            for i, cmd, target in batch:
+                by_target[target].append((i, cmd))
+            return {t: (cmds, builders[t]) for t, cmds in by_target.items()}
+
+        builders = [PageBuilder(origin=1000 + t, page_size=NET_PAGE) for t in range(n)]
+        paged_s, page_out = 0.0, []
+        t0 = time.perf_counter()
+        page_out.append(post_pages(fleet.urls, pages(writes[NET_SINGLE:half]), tally,
+                                   oracles))
+        paged_s += time.perf_counter() - t0
+        for t in range(n):
+            acked[t] += page_out[-1]["admitted"][t]
+
+        # -- daemon 3: checkpoint, kill -9, restart on the same dir --
+        st, _, body, sec = http_call(fleet.urls[NET_CRASHED] + "/admin/checkpoint", "POST",
+                                     b"{}")
+        tally.note(st)
+        if st != 200:
+            raise AssertionError(f"/admin/checkpoint: {st} {body!r}")
+        snap = Path(json.loads(body)["snapshot"])
+        out["checkpoint_ms"] = sec * 1e3
+        out["snapshot_bytes"] = sum(f.stat().st_size for f in snap.iterdir())
+        fleet.kill9(NET_CRASHED)
+        t0 = time.perf_counter()
+        fleet.start(NET_CRASHED)
+        line = fleet.serving(NET_CRASHED)
+        out["restart_to_serving_s"] = time.perf_counter() - t0
+        want_rid = NET_CRASHED + NET_STRIDE
+        if f"rid={want_rid} (base {NET_CRASHED}, incarnation 1, restored=True)" not in line:
+            raise AssertionError(f"restarted daemon {NET_CRASHED}: {line}")
+        st = http_call(fleet.urls[NET_CRASHED] + "/ping")[0]
+        tally.note(st)
+        if st != 200:
+            raise AssertionError(f"restarted daemon's /ping: {st}")
+        acked[NET_CRASHED] = 0  # its new registry counts from its reboot
+        log(f"    daemon {NET_CRASHED}: /admin/checkpoint {out['checkpoint_ms']:.3f} ms "
+            f"({out['snapshot_bytes']} bytes), kill -9, restarted serving in "
+            f"{out['restart_to_serving_s']:.2f} s at incarnation 1 (rid {want_rid}), restored")
+
+        # -- the second half, every daemon (the restarted one included) --
+        t_restart = time.perf_counter()
+        t0 = time.perf_counter()
+        page_out.append(post_pages(fleet.urls, pages(writes[half:]), tally, oracles))
+        paged_s += time.perf_counter() - t0
+        for t in range(n):
+            acked[t] += page_out[-1]["admitted"][t]
+        if page_out[-1]["admitted"][NET_CRASHED] == 0:
+            raise AssertionError("the restarted daemon took no writes")
+        sheds = sum(sum(p["sheds"]) for p in page_out)
+        out["paged_s"] = paged_s
+        log(f"    {NET_PAGE_WRITES} writes in op pages of {NET_PAGE} (one client thread a "
+            f"daemon): {NET_PAGE_WRITES / paged_s:.1f} acknowledged writes/s, {sheds} sheds "
+            f"backed off [{card}]")
+
+        # -- convergence: /admin/pull rounds, a barrier every 8 --
+        pull_ms, barrier_ms, client_pulls = [], [], [0] * n
+        rounds = 0
+        want = OracleReplica.converged_state(oracles)
+        while True:
+            states = []
+            for u in fleet.urls:
+                st, _, body, _ = http_call(u + "/data")
+                tally.note(st)
+                states.append(json.loads(body))
+            if all(s == states[0] for s in states):
+                break
+            if rounds == NET_MAX_ROUNDS:
+                raise AssertionError(f"no convergence in {NET_MAX_ROUNDS} rounds")
+            for i, u in enumerate(fleet.urls):
+                st, _, body, sec = http_call(u + "/admin/pull", "POST", b"{}")
+                tally.note(st)
+                if st != 200:
+                    raise AssertionError(f"/admin/pull on daemon {i}: {st} {body!r}")
+                pull_ms.append(sec * 1e3)
+                client_pulls[i] += 1
+            rounds += 1
+            if rounds % NET_BARRIER_EVERY == 0:
+                st, _, body, sec = http_call(fleet.urls[0] + "/admin/barrier", "POST", b"{}")
+                tally.note(st)
+                barrier_ms.append(sec * 1e3)
+        out["converge_rounds"] = rounds
+        out["converge_s"] = time.perf_counter() - t_restart
+        # a final barrier, and one pull each so every member adopts it
+        st, _, body, sec = http_call(fleet.urls[0] + "/admin/barrier", "POST", b"{}")
+        tally.note(st)
+        barrier_ms.append(sec * 1e3)
+        for i, u in enumerate(fleet.urls):
+            st = http_call(u + "/admin/pull", "POST", b"{}")[0]
+            tally.note(st)
+            client_pulls[i] += 1
+        log(f"    converged {rounds} /admin/pull rounds after the restart "
+            f"({out['converge_s']:.2f} s after it, the second half's writes included); "
+            f"/admin/pull p50 {quantile(pull_ms, 0.5):.3f} ms p99 "
+            f"{quantile(pull_ms, 0.99):.3f} ms, /admin/barrier median "
+            f"{statistics.median(barrier_ms):.3f} ms over {len(barrier_ms)} [{card}]")
+
+        # -- every acknowledged write from all five --
+        for i, u in enumerate(fleet.urls):
+            st, _, body, _ = http_call(u + "/data")
+            tally.note(st)
+            if st != 200 or json.loads(body) != want:
+                raise AssertionError(f"GET /data of daemon {i} != the oracle's fold of the "
+                                     "acknowledged writes")
+        n_acked = sum(len(o.log) for o in oracles)
+        if n_acked != NET_SINGLE + NET_PAGE_WRITES:
+            raise AssertionError(f"{n_acked} writes acknowledged of "
+                                 f"{NET_SINGLE + NET_PAGE_WRITES}")
+        # -- the audit reports and the stability headers' digests --
+        by_frontier = {}
+        for i, u in enumerate(fleet.urls):
+            st, _, body, _ = http_call(u + "/audit")
+            tally.note(st)
+            rep = json.loads(body)
+            if rep["state"] == 2 or rep["divergences"] or rep["scrub_drifts"]:
+                raise AssertionError(f"daemon {i}'s audit report: {rep}")
+            st, hdr, _, _ = http_call(u + "/gossip?vv=" + quote(json.dumps({})))
+            tally.note(st)
+            summary = json.loads(hdr["X-CRDT-Stability"])
+            by_frontier.setdefault(json.dumps(summary["frontier"], sort_keys=True),
+                                   []).append(summary["digest"])
+        if any(len(set(d)) != 1 for d in by_frontier.values()) or \
+                max(len(d) for d in by_frontier.values()) < 2:
+            raise AssertionError(f"stability-header digests at equal frontiers: {by_frontier}")
+        # -- the /metrics counters --
+        gossip_total = 0
+        for i, u in enumerate(fleet.urls):
+            st, _, body, _ = http_call(u + "/metrics")
+            tally.note(st)
+            text = body.decode()
+            ops = series_sum(text, "crdt_ingest_ops_admitted_total", lane="kv")
+            if ops != acked[i]:
+                raise AssertionError(f"daemon {i}: ingest ops admitted {ops} != the client's "
+                                     f"{acked[i]}")
+            outcomes = {k: series_sum(text, f"crdt_net_gossip_{k}_total")
+                        for k in ("rounds", "noop", "skipped", "quarantined")}
+            # the crashed daemon's log spans both boots: count this boot's
+            recs = read_jsonl(str(root / f"events{i}.jsonl"))
+            last_boot = max(k for k, e in enumerate(recs) if e.get("event") == "boot")
+            events = [e for e in recs[last_boot:] if e.get("event") in (
+                "pull_merge", "pull_noop", "pull_skip", "payload_quarantine")]
+            if sum(outcomes.values()) != len(events) or outcomes["quarantined"]:
+                raise AssertionError(f"daemon {i}: net_gossip outcomes {outcomes} vs "
+                                     f"{len(events)} round events in its log")
+            if sum(outcomes.values()) < client_pulls[i]:
+                raise AssertionError(f"daemon {i}: {outcomes} below the client's "
+                                     f"{client_pulls[i]} pulls")
+            gossip_total += sum(outcomes.values())
+        tally.check()
+        # the card's memory in use by the five daemons, all told (this
+        # process's own allocations do not change across the window)
+        out["card_mib_all_daemons"] = (free_before - torch.cuda.mem_get_info()[0]) / 2**20
+        mem = card_memory_by_pid()
+        out["card_mib"] = {str(i): mem.get(p.pid) for i, p in enumerate(fleet.procs)}
+        if not any(out["card_mib"].values()):
+            # nvidia-smi names its processes by pids of another namespace:
+            # every compute process's MiB, this one's among them
+            out["card_mib"] = {"by_process": sorted(mem.values(), key=float),
+                               "this_process_allocated": torch.cuda.memory_allocated() >> 20}
+        log(f"    all {n} GET /data == the oracle's fold of {n_acked} acknowledged writes "
+            f"({len(want)} keys); audits clean; digests equal at each frontier "
+            f"({[len(d) for d in by_frontier.values()]} daemons a frontier); /metrics "
+            f"ingest ops == the client's per "
+            f"daemon; net_gossip outcomes == the event logs' ({gossip_total}, client pulls "
+            f"{sum(client_pulls)}); statuses {tally.statuses}; card memory "
+            f"{out['card_mib_all_daemons']:.0f} MiB for the {n} daemons, by process "
+            f"{out['card_mib']} MiB")
+        out.update({
+            "single_writes_per_s": NET_SINGLE / out["single_s"],
+            "paged_writes_per_s": NET_PAGE_WRITES / paged_s,
+            "post_data_ms_p50": quantile(lat, 0.5) * 1e3,
+            "post_data_ms_p99": quantile(lat, 0.99) * 1e3,
+            "pull_ms_p50": quantile(pull_ms, 0.5), "pull_ms_p99": quantile(pull_ms, 0.99),
+            "barrier_ms": statistics.median(barrier_ms), "acked": n_acked,
+            "sheds": sheds, "statuses": {str(k): v for k, v in tally.statuses.items()},
+        })
+    finally:
+        codes = fleet.stop()
+    if any(c != 0 for c in codes):
+        raise AssertionError(f"daemon exit codes {codes} (a nonzero code: a failure raised by "
+                             f"stop(); stderr in {root})")
+    return out
+
+
+def net_phase_soak(card: str) -> dict:
+    """Phase 18 (b): one NetworkSoakRunner on the card (5 replicas, seed 0,
+    400 steps, a quarter of the writes as op pages), healed and checked by
+    its oracle; no hand kernel launched."""
+    from crdt_tpu_torch.harness.soak import NetworkSoakRunner
+    from crdt_tpu_torch.ops import hopper_union as hu
+
+    for name in hu.LAUNCHES:
+        hu.LAUNCHES[name] = 0
+    t0 = time.perf_counter()
+    runner = NetworkSoakRunner(n=NET_REPLICAS, seed=0, p_page=NET_SOAK_PAGED)
+    if runner.hosts[0].node.log.ts.device.type != "cuda":
+        raise AssertionError("NetworkSoakRunner's hosts are not on the card")
+    report = runner.run(NET_SOAK_STEPS)
+    soak_s = time.perf_counter() - t0
+    launched = {k: v for k, v in hu.LAUNCHES.items() if v}
+    if launched:
+        raise AssertionError(f"the soak launched hand kernels {launched}; predicted none")
+    log(f"(b) {report} ({soak_s:.2f} s on the card); no hand kernel launched, as predicted")
+    return {"soak_s": soak_s, "steps": report.steps, "writes": report.writes_accepted,
+            "pages": report.pages_admitted, "kills": report.kills,
+            "rounds_to_converge": report.rounds_to_converge}
+
+
+def net_phase_restore(card: str, root) -> dict:
+    """Phase 18 (c): a snapshot written by a port node on the card restores
+    into a fresh node on the card with equal state, vv, frontier, summary
+    and audit digest; a corrupted log.npz generation is quarantined by
+    load_latest_node and the generation before it restored."""
+    from crdt_tpu_torch import workload
+    from crdt_tpu_torch.api.node import ReplicaNode
+    from crdt_tpu_torch.obs import audit
+    from crdt_tpu_torch.utils import checkpoint as ckpt
+    from crdt_tpu_torch.utils.config import ClusterConfig
+
+    def view(node):
+        return (node.get_state(), node.version_vector(), node.frontier, node._summary,
+                node._seq.count, audit.store_digest_hex(node))
+
+    gen = workload.WorkloadGenerator(ClusterConfig(), seed=18)
+    node = ReplicaNode(rid=2)  # the card
+    half = NET_SNAP_WRITES // 2
+    node.add_commands([gen.next_command()[0] for _ in range(half)])
+    node.compact({2: half // 2 - 1})
+    d = root / "restore"
+    t0 = time.perf_counter()
+    ckpt.save_node_atomic(str(d), node)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    gen0 = view(node)
+    node.add_commands([gen.next_command()[0] for _ in range(half)])
+    ckpt.save_node_atomic(str(d), node)
+    fresh = ReplicaNode(rid=2)
+    t0 = time.perf_counter()
+    if not ckpt.load_latest_node(str(d), fresh):
+        raise AssertionError("no snapshot restored")
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    if view(fresh) != view(node) or fresh.log.ts.device.type != "cuda":
+        raise AssertionError("the restored node != the node that wrote the snapshot")
+    raw = bytearray((d / "snap-00000001" / "log.npz").read_bytes())
+    raw[len(raw) // 2] ^= 0xFF
+    (d / "snap-00000001" / "log.npz").write_bytes(bytes(raw))
+    older = ReplicaNode(rid=2)
+    if not ckpt.load_latest_node(str(d), older) or view(older) != gen0:
+        raise AssertionError("the corrupted generation was not replaced by the one before it")
+    quarantined = [e["snap"] for e in older.events.find(event="snapshot_quarantine")]
+    if quarantined != ["snap-00000001"] or not (d / "quarantine-snap-00000001").is_dir():
+        raise AssertionError(f"quarantine events {quarantined}")
+    log(f"(c) a port snapshot of {NET_SNAP_WRITES} writes on the card (save "
+        f"{save_ms:.3f} ms, restore {restore_ms:.3f} ms) == the writer in state, vv, frontier, "
+        f"summary and digest; the corrupted generation quarantined and the one before "
+        f"restored [{card}]")
+    return {"save_ms": save_ms, "restore_ms": restore_ms}
+
+
+def net_phase(card: str) -> dict:
+    """Phase 18: the network daemon on the card, then one
+    {"network_daemon": ...} JSON line."""
+    import shutil
+
+    t_phase = time.perf_counter()
+    log(f"phase 18 (the network daemon): budget {NET_BUDGET_S} s")
+    root = Path(__file__).resolve().parent / NET_RUN_DIR
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    line = {"card": card}
+    line["daemons"] = net_phase_daemons(card, root)
+    line["soak"] = net_phase_soak(card)
+    line["restore"] = net_phase_restore(card, root)
+    line["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 18: {line['phase_s']:.1f} s (budget {NET_BUDGET_S} s)")
+    log(json.dumps({"network_daemon": line}))
+    return line
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3124,6 +3634,7 @@ def main() -> int:
     kv = kv_phase(card)
     typed_phase(card, rows, kv)
     http_phase(card)
+    net_phase(card)
 
     print(card, flush=True)
     log(json.dumps({"kernels": rows}))

@@ -31,26 +31,34 @@ Layout (mirrors ``crdt_tpu``):
   revival), host bookkeeping in Python, each replica's log on the card;
   beside each KV node its typed siblings ``setnode.SetNode``,
   ``seqnode.SeqNode`` (their shared floor protocol in ``floornode``) and
-  ``mapnode.MapNode``, with their GC and reset barriers; ``http_shim``:
-  the reference's HTTP surface over a cluster (demo mode);
+  ``mapnode.MapNode``, with their GC and reset barriers, and
+  ``compositenode.CompositeNode`` (the served ``mapof(pncounter)``);
+  ``http_shim``: the reference's HTTP surface over a cluster (demo mode)
+  or a daemon; ``net``: the network daemon (``RemotePeer``,
+  ``NetworkAgent``, ``NodeHost``);
 - ``ingest``   — the front door: the op-page wire format, the admission
   lanes and the shed policy;
 - ``obs``      — the node's metrics registry and its Prometheus
-  exposition, trace spans, event log, flight recorder, health gauges and
-  samplers, and merge attribution;
+  exposition, trace spans, event log (with its JSONL sink), flight
+  recorder, health gauges and samplers, merge attribution, and ``audit``
+  (the live divergence audit: the frontier-clamped digest of
+  ``ops/digest`` and the watchdog);
 - ``oracle``   — the reference-semantics oracle (plain Python) and
   ``shim``, its quirk-compat HTTP surface;
 - ``parallel`` — ``swarm`` (anti-entropy over a stacked replica axis, the
   stable frontier and the compaction barrier);
 - ``harness``  — ``gc_soak`` (the OR-Set and OR-Map soaks), ``seq_soak``
   (the RSeq allocator and GC soak), checked against Python mirrors, and
-  ``soak`` (the cluster under kill/revive, checked against the oracle);
+  ``soak`` (the cluster and the network daemons under kill/revive,
+  checked against the oracle);
 - ``convert``  — state carried across from the JAX package as numpy;
 - ``workload`` — seeded reference-shaped writes (for a swarm and for a
   cluster of nodes, in process or over HTTP), the OR-Set swarm and the
   RSeq editing history;
+- ``utils``    — also ``checkpoint``: crash-safe snapshots in the JAX
+  package's file format;
 - ``__main__`` — ``python -m crdt_tpu_torch``, the reference's demo
-  deployment on the card.
+  deployment on the card, or one network daemon (``--daemon``).
 
 Device rule: every constructor takes ``device=None``, which resolves to
 the CUDA card (:func:`default_device`); without a card that raises rather

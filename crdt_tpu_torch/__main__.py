@@ -1,31 +1,40 @@
-"""The runnable demo: ``python -m crdt_tpu_torch`` (own copy of the demo
-mode of ``python -m crdt_tpu``), the reference's ``go run main.go``
-(its main.go:316-327) with every replica's log on the CUDA card.
+"""``python -m crdt_tpu_torch`` (own copy of ``python -m crdt_tpu``): the
+demo swarm, or one network daemon, with every replica's log on the CUDA
+card.
 
-N replicas serve the reference's HTTP surface on consecutive ports
+The demo is the reference's ``go run main.go`` (its main.go:316-327): N
+replicas serve the reference's HTTP surface on consecutive ports
 (``api.http_shim``), gossip in the background, and the reference's
-workload POSTs to random replicas, with a periodic convergence report the
-reference never had (it was checked by polling GET /data by hand).  The
-final report drives the cluster to its fixpoint; the exit code is 0 only
-when every surface converged.
+workload POSTs to random replicas, with a periodic convergence report.
+The final report drives the cluster to its fixpoint; the exit code is 0
+only when every surface converged.
 
     python -m crdt_tpu_torch --duration 10 --ephemeral-ports
 
+``--daemon`` runs ONE replica as its own process (``api.net.NodeHost``):
+it serves on ``--port``, pulls a random one of ``--peers`` every
+``--gossip-ms``, and with ``--checkpoint-dir`` restores its newest
+snapshot at boot under a fresh incarnation rid (rid + stride x
+incarnation).  A fleet is one such process per replica:
+
+    python -m crdt_tpu_torch --daemon --rid 0 --port 8080 \
+        --peers http://127.0.0.1:8081,http://127.0.0.1:8082 --coordinator \
+        --compact-every 8 --checkpoint-dir ckpt/0 --event-log ckpt/0.jsonl
+
 ``--device`` picks the torch device (default: the CUDA card; without one
-the command fails rather than fall back; ``--device cpu`` is for the
-tests).  ``--daemon`` (one network replica, the JAX package's NodeHost)
-is not ported: ROADMAP Queue 1 item 2.
+the command exits 2 rather than fall back; ``--device cpu`` is for the
+tests).  ``--keyspace-shards`` above 0 exits 2: the keyspace tier is not
+ported (ROADMAP Queue 1 item 3).
 """
 from __future__ import annotations
 
 import argparse
 import json
 import sys
+import threading
 import time
 
-DAEMON_NOT_PORTED = (
-    "python -m crdt_tpu_torch: --daemon is not ported (ROADMAP Queue 1 item 2, "
-    "the network daemon: api/net.py's NodeHost)")
+INT32_MAX = 2**31 - 1
 
 
 def run_demo(args, device) -> int:
@@ -151,11 +160,112 @@ def run_demo(args, device) -> int:
     return 0 if ok and set_ok and seq_ok and map_ok else 1
 
 
+def run_daemon(args, device) -> int:
+    from crdt_tpu_torch.api.net import NodeHost
+    from crdt_tpu_torch.utils.config import ClusterConfig
+
+    if args.keyspace_shards:
+        print(f"--keyspace-shards {args.keyspace_shards}: the sharded keyspace tier is not "
+              "ported (ROADMAP Queue 1 item 3)", file=sys.stderr)
+        return 2
+    if args.compact_every and not args.coordinator:
+        # barriers come from exactly one member (network_compact's
+        # single-scheduler rule); a non-coordinator still folds when the
+        # coordinator's barrier reaches it
+        print("--compact-every in --daemon mode requires --coordinator "
+              "(exactly one daemon in the fleet schedules barriers)",
+              file=sys.stderr)
+        return 2
+    if args.go_compat_gossip and (args.compact_every or args.full_gossip):
+        print("--go-compat-gossip forbids --compact-every and --full-gossip "
+              "(summary sections / lossy full dumps are for Go peers only)",
+              file=sys.stderr)
+        return 2
+    if args.set_collect_every and not args.coordinator:
+        print("--set-collect-every in --daemon mode requires --coordinator "
+              "(exactly one daemon schedules set GC barriers)",
+              file=sys.stderr)
+        return 2
+    if args.seq_collect_every and not args.coordinator:
+        print("--seq-collect-every in --daemon mode requires --coordinator "
+              "(exactly one daemon schedules seq GC barriers)",
+              file=sys.stderr)
+        return 2
+    if args.map_reset_every and not args.coordinator:
+        print("--map-reset-every in --daemon mode requires --coordinator "
+              "(exactly one daemon schedules map reset barriers)",
+              file=sys.stderr)
+        return 2
+    cfg = ClusterConfig(
+        gossip_period_ms=args.gossip_ms,
+        compact_every=args.compact_every,
+        delta_gossip=not args.full_gossip,
+        go_compat_gossip=args.go_compat_gossip,
+        set_collect_every=args.set_collect_every,
+        seq_collect_every=args.seq_collect_every,
+        map_reset_every=args.map_reset_every,
+    )
+    peers = [u for u in (args.peers or "").split(",") if u]
+    rid = args.rid
+    incarnation = 0
+    if args.checkpoint_dir:
+        # crash recovery: claim a fresh boot incarnation (persisted before
+        # serving) and write under a per-incarnation rid, so a restored
+        # daemon never re-mints (rid, seq) pairs its dead predecessor may
+        # have gossiped out (utils/checkpoint.py's module docstring)
+        if not 0 <= args.rid < args.rid_stride:
+            # rid >= stride would alias another slot's incarnation rid
+            print(f"--checkpoint-dir requires 0 <= --rid < --rid-stride "
+                  f"(got rid={args.rid}, stride={args.rid_stride}): base "
+                  "rids share the incarnation id space", file=sys.stderr)
+            return 2
+        from crdt_tpu_torch.utils.checkpoint import bump_incarnation
+
+        incarnation = bump_incarnation(args.checkpoint_dir)
+        rid = args.rid + args.rid_stride * incarnation
+        if rid > INT32_MAX:
+            # the node's rid plane is int32
+            print(f"incarnation {incarnation} of rid {args.rid} (stride "
+                  f"{args.rid_stride}) is rid {rid}, past the int32 rid plane",
+                  file=sys.stderr)
+            return 2
+    host = NodeHost(
+        rid=rid, peers=peers, port=args.port, config=cfg,
+        coordinator=args.coordinator,
+        checkpoint_dir=args.checkpoint_dir,
+        checkpoint_every_s=args.checkpoint_every_s,
+        event_log=args.event_log,
+        device=device,
+    )
+    host.start()
+    # run the sequence lattice's device paths once in the background, so
+    # a daemon's first /seq ingest pays no one-time setup inside a peer's
+    # request deadline; a KV-only fleet's boot never waits on it
+    warm_t = threading.Thread(target=host.seq_node.warmup, daemon=True)
+    warm_t.start()
+    print(f"replica rid={rid} (base {args.rid}, incarnation {incarnation}, "
+          f"restored={host.restored}) serving on {host.url}, "
+          f"{len(peers)} peer(s)", flush=True)
+    t_end = time.time() + args.duration if args.duration else None
+    try:
+        while t_end is None or time.time() < t_end:
+            time.sleep(0.2)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        warm_t.join(timeout=120)
+        host.stop()
+    state = host.node.get_state()
+    print(f"final: state_keys={len(state) if state else 0}")
+    if args.dump_state and state:
+        print(json.dumps(state, sort_keys=True))
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m crdt_tpu_torch",
-        description="The CRDT store on a CUDA card: the demo swarm (the network daemon is "
-                    "not ported).",
+        description="The CRDT store on a CUDA card: the demo swarm or one network daemon.",
     )
     ap.add_argument("--replicas", type=int, default=5,
                     help="demo: replica count (reference: 5, main.go:319)")
@@ -206,17 +316,44 @@ def main(argv=None) -> int:
                          "gossip rounds (demo: needs --with-maps; daemon: "
                          "coordinator only; 0 = only explicit "
                          "POST /admin/map_barrier)")
+    ap.add_argument("--go-compat-gossip", action="store_true",
+                    help="daemon: emit full-dump gossip with bare integer-ms "
+                         "keys so an ORIGINAL Go peer can pull from this "
+                         "node (lossy: last-writer-per-ms)")
     ap.add_argument("--dump-state", action="store_true")
     ap.add_argument("--daemon", action="store_true",
-                    help="one network replica (not ported: exits non-zero)")
+                    help="run ONE network replica instead of the demo swarm")
+    ap.add_argument("--rid", type=int, default=0,
+                    help="daemon: globally unique writer id")
+    ap.add_argument("--port", type=int, default=8080,
+                    help="daemon: listen port (0 = ephemeral)")
+    ap.add_argument("--peers", type=str, default="",
+                    help="daemon: comma-separated peer base URLs")
+    ap.add_argument("--coordinator", action="store_true",
+                    help="daemon: schedule cross-fleet barriers from this "
+                         "process (exactly one per fleet)")
+    ap.add_argument("--checkpoint-dir", type=str, default=None,
+                    help="daemon: crash-safe snapshot directory; on boot, "
+                         "restore the newest snapshot and claim a fresh "
+                         "incarnation (rid += stride * incarnation)")
+    ap.add_argument("--checkpoint-every-s", type=float, default=0,
+                    help="daemon: periodic snapshot interval (0 = only "
+                         "explicit POST /admin/checkpoint)")
+    ap.add_argument("--rid-stride", type=int, default=64,
+                    help="daemon: writer-id stride between boot "
+                         "incarnations of one checkpoint dir")
+    ap.add_argument("--event-log", type=str, default=None,
+                    help="daemon: JSONL event-log path (one line per "
+                         "gossip round, barrier and fault transition, with "
+                         "the round's X-CRDT-Trace ID)")
+    ap.add_argument("--keyspace-shards", type=int, default=0,
+                    help="daemon: the sharded keyspace tier's shard count; "
+                         "not ported, so anything above 0 exits 2")
     ap.add_argument("--device", default=None,
                     help="torch device of every replica's state (default: the "
                          "CUDA card; the command fails without one rather than "
                          "fall back; cpu is for the tests)")
     args = ap.parse_args(argv)
-    if args.daemon:
-        print(DAEMON_NOT_PORTED, file=sys.stderr)
-        return 2
     from crdt_tpu_torch import default_device
 
     try:
@@ -224,7 +361,7 @@ def main(argv=None) -> int:
     except RuntimeError as e:
         print(f"python -m crdt_tpu_torch: {e}", file=sys.stderr)
         return 2
-    return run_demo(args, device)
+    return run_daemon(args, device) if args.daemon else run_demo(args, device)
 
 
 if __name__ == "__main__":

@@ -1,6 +1,7 @@
 """HTTP shim: the reference's REST surface over the port's replicas (own
-copy of ``crdt_tpu.api.http_shim`` in demo mode: the same routes, status
-codes, bodies, headers and content types).
+copy of ``crdt_tpu.api.http_shim``: the same routes, status codes,
+bodies, headers and content types), in demo mode over a LocalCluster and
+in daemon mode over a network daemon's ``NodeHost``.
 
 The reference's five routes (its main.go:262-266):
   GET  /gossip                  the op log as JSON         (main.go:154-171)
@@ -27,10 +28,14 @@ Extensions, as in the JAX package:
   GET  /metrics                 Prometheus text exposition (the node's
                                 registry and the health gauges, sampled at
                                 scrape time)
-  /set/*, /seq/*, /map/*        the typed siblings of the cluster's replica
-                                (GET view, gossip[?vv=], vv; POST add /
-                                remove / collect, insert / remove /
-                                collect, upd / rem / reset)
+  /set/*, /seq/*, /map/*        the typed siblings of the replica (GET
+                                view, gossip[?vv=], vv; POST add / remove /
+                                collect, insert / remove / collect, upd /
+                                rem / reset)
+  GET  /composite               the composite sibling's {"items"} (daemon
+                                mode), /composite/gossip its full state dump
+  POST /composite/upd           {"key", "delta"} -> {"value"}; /composite/rem
+                                {"key"} -> {"removed"}
 
 ``POST /data`` goes through the replica's ingest front door: concurrent
 posters fuse into one ``add_commands`` (one device merge) a drain, and the
@@ -38,13 +43,28 @@ answer carries the write's ``X-CRDT-Session-Token`` (its vv watermark).
 The body stays the reference's ``Inserted``; an unparseable body is the
 reference's 500.
 
-Demo mode only.  As in the JAX package's demo mode, ``/read``, ``/cas``,
-``/lease/grant``, ``/ks/*``, ``/composite/*`` and ``/audit`` answer 404
-(the consistency plane, the leases, the keyspace, the composite node and
-the audit watchdog live on a network daemon's host).  ``/fleet`` answers
-404 here, where the JAX package's demo mode serves its fleet rollup: the
-fleet tier is not ported (ROADMAP Queue 1 item 3).  ``admin=`` (a daemon's
-host, ROADMAP Queue 1 item 2) raises NotImplementedError.
+Daemon mode (the handler built with ``admin=``, a NodeHost) adds:
+
+  POST /admin/pull              {"peer": url?} -> one gossip pull now
+  POST /admin/barrier           one compaction barrier now (coordinator)
+  POST /admin/stability_gc      one stability-frontier GC round now
+  POST /admin/checkpoint        a crash-safe snapshot now
+  POST /admin/{set,seq,map,composite}_pull, /admin/{set,seq,map}_barrier
+                                the siblings' pulls and barriers
+  GET  /audit                   the audit watchdog's report (obs.audit)
+
+and every GET /gossip answer's stability header carries the node's
+audit digest, clamped at the summary's frontier.
+
+As in the JAX package's demo mode, ``/read``, ``/cas``, ``/lease/grant``,
+``/ks/*``, ``/composite/*``, ``/admin/*`` and ``/audit`` answer 404 in
+demo mode.  Where the port differs from the JAX package, each route
+answers 404 with a body naming ROADMAP Queue 1 item 3 (the fleet tier:
+keyspace, leases, consistency plane, fleet rollup): ``/fleet`` in demo
+mode (the JAX demo serves its rollup), and on a daemon ``/read``,
+``/cas``, ``/lease/grant``, ``/admin/ks_pull``, ``/admin/ks_gc`` and
+``/admin/ks_reshard`` (a JAX daemon serves them from its consistency
+plane, leases and keyspace); a daemon's ``/push`` checks no fence stamp.
 
 The /condition route takes the flag as a path segment (or
 ``?alive_status=``); the reference registered it without its parameter,
@@ -71,10 +91,10 @@ JSON = "application/json"
 # only labels the front door's shed and quarantine accounting
 TENANT_HEADER = "X-CRDT-Tenant"
 
-ADMIN_NOT_PORTED = (
-    "admin= (a network daemon's NodeHost) is not ported: ROADMAP Queue 1 item 2, "
-    "the network daemon (api/net.py)")
 FLEET_NOT_PORTED = "fleet rollup not ported (ROADMAP Queue 1 item 3: obs/fleet)"
+TIER_NOT_PORTED = ("not ported: the consistency plane, leases and keyspace of a "
+                   "daemon (ROADMAP Queue 1 item 3)")
+KS_ADMIN = ("/admin/ks_pull", "/admin/ks_gc", "/admin/ks_reshard")
 
 
 def _ranks(d) -> dict:
@@ -88,10 +108,14 @@ def _int_map(d) -> dict:
 
 
 def _make_handler(cluster, idx: int, admin=None):
-    if admin is not None:
-        raise NotImplementedError(ADMIN_NOT_PORTED)
+    """The request handler of replica ``idx`` of ``cluster``; ``admin``
+    (a NodeHost, which also serves as the one-node ``cluster``) adds the
+    daemon's routes and siblings."""
+    agent = getattr(admin, "agent", None)
 
     def sibling(kind: str):
+        if admin is not None:
+            return getattr(admin, f"{kind}_node", None)
         nodes = getattr(cluster, f"{kind}_nodes", None)
         return nodes[idx] if nodes else None
 
@@ -105,6 +129,8 @@ def _make_handler(cluster, idx: int, admin=None):
         def ingest(self):
             """The replica's ingest front door, or None (the routes then
             write directly)."""
+            if admin is not None:
+                return getattr(admin, "ingest", None)
             doors = getattr(cluster, "ingests", None)
             return doors[idx] if doors else None
 
@@ -293,14 +319,24 @@ def _make_handler(cluster, idx: int, admin=None):
                 if sib is not None:
                     self._sibling_get(parts[0], sib, url)
                     return
+            if parts and parts[0] == "composite" and sibling("composite") is not None:
+                self._composite_get(sibling("composite"), url.path)
+                return
             if url.path == "/metrics":
                 self._send(200, health.render_node_metrics(
                     self.node, set_node=sibling("set"), seq_node=sibling("seq"),
-                    map_node=sibling("map"), ingest=self.ingest), PROM_CTYPE)
+                    map_node=sibling("map"), composite_node=sibling("composite"),
+                    agent=agent, ingest=self.ingest,
+                    stability=getattr(agent, "stability", None),
+                    watchdog=getattr(agent, "watchdog", None)), PROM_CTYPE)
             elif url.path == "/fleet":
                 self._send(404, FLEET_NOT_PORTED)
             elif url.path == "/audit":
-                self._send(404, "no audit watchdog on this node")
+                wd = getattr(agent, "watchdog", None)
+                if wd is None:
+                    self._send(404, "no audit watchdog on this node")
+                else:
+                    self._send_bytes(200, wd.report_json(), JSON)
             elif url.path == "/ping":
                 if self.node.ping():
                     self._send(200, "Pong")
@@ -315,7 +351,8 @@ def _make_handler(cluster, idx: int, admin=None):
             elif url.path == "/gossip":
                 self._gossip(url)
             elif url.path == "/read":
-                self._send(404, "no consistency plane on this node")
+                self._send(404, TIER_NOT_PORTED if admin is not None
+                           else "no consistency plane on this node")
             elif url.path == "/vv":
                 if not self.node.alive:
                     self._send(502, "Unreachable")
@@ -330,6 +367,23 @@ def _make_handler(cluster, idx: int, admin=None):
                     return
                 self.node.set_alive(flag.lower() in ("true", "1"))
                 self._send(200, "OK")
+            else:
+                self._send(404, "not found")
+
+        def _composite_get(self, cn, path: str) -> None:
+            if path == "/composite":
+                items = cn.items()
+                if items is None:
+                    self._send(502, "Unreachable")
+                else:
+                    self._send_json(200, {"items": items})
+            elif path == "/composite/gossip":
+                # state-based: the full trimmed dump, no vv query
+                payload = cn.gossip_payload()
+                if payload is None:
+                    self._send(502, "Unreachable")
+                else:
+                    self._send_json(200, payload)
             else:
                 self._send(404, "not found")
 
@@ -368,12 +422,18 @@ def _make_handler(cluster, idx: int, admin=None):
             if path == "/ingest/page":
                 self._ingest_page()
                 return
+            if path.startswith("/admin/") and admin is not None:
+                self._admin(path)
+                return
             kind = path.split("/")[1] if path.count("/") > 1 else ""
             if kind in ("set", "seq", "map"):
                 sib = sibling(kind)
                 if sib is not None:
                     self._sibling_post(kind, sib, path)
                     return
+            if kind == "composite" and sibling("composite") is not None:
+                self._composite_post(sibling("composite"), path)
+                return
             if path in ("/ks/compact", "/ks/migrate"):
                 self._send(404, "no keyspace tier on this node")
             elif path == "/compact":
@@ -381,13 +441,94 @@ def _make_handler(cluster, idx: int, admin=None):
             elif path == "/push":
                 self._push()
             elif path == "/lease/grant":
-                self._send(404, "no lease manager on this node")
+                self._send(404, TIER_NOT_PORTED if admin is not None
+                           else "no lease manager on this node")
             elif path == "/cas":
-                self._send(404, "no consistency plane on this node")
+                self._send(404, TIER_NOT_PORTED if admin is not None
+                           else "no consistency plane on this node")
             elif path != "/data":
                 self._send(404, "not found")
             else:
                 self._post_data()
+
+        def _admin(self, path: str) -> None:
+            """POST /admin/*: drive the daemon's pulls, barriers and
+            checkpoints (a failure answers 500 naming it, never a silent
+            skip)."""
+            try:
+                body = json.loads(self._body() or b"{}")
+            except ValueError:
+                self._send(400, "invalid body")
+                return
+            if path in KS_ADMIN:
+                self._send(404, TIER_NOT_PORTED)
+                return
+            pulls = {"/admin/pull": admin.admin_pull, "/admin/set_pull": admin.admin_set_pull,
+                     "/admin/seq_pull": admin.admin_seq_pull,
+                     "/admin/map_pull": admin.admin_map_pull,
+                     "/admin/composite_pull": admin.admin_composite_pull}
+            try:
+                if path in pulls:
+                    self._send_json(200, {"pulled": bool(pulls[path](body.get("peer")))})
+                elif path in ("/admin/barrier", "/admin/stability_gc"):
+                    frontier = (admin.admin_barrier() if path == "/admin/barrier"
+                                else admin.admin_stability_gc())
+                    self._send_json(200, {"frontier": _ranks(frontier)})
+                elif path == "/admin/checkpoint":
+                    snap = admin.checkpoint_now()
+                    if snap is None:
+                        self._send(400, "no checkpoint dir configured")
+                    else:
+                        self._send_json(200, {"snapshot": snap})
+                elif path in ("/admin/set_barrier", "/admin/seq_barrier"):
+                    floor = (admin.admin_set_barrier() if path == "/admin/set_barrier"
+                             else admin.admin_seq_barrier())
+                    self._send_json(200, {"floor": _ranks(floor)})
+                elif path == "/admin/map_barrier":
+                    out = admin.admin_map_barrier()
+                    self._send_json(200, {"epochs": {str(k): int(e)
+                                                     for k, e in out["epochs"].items()},
+                                          "status": out["status"]})
+                else:
+                    self._send(404, "not found")
+            except Exception as e:  # noqa: BLE001 — answered, never a silent skip
+                self._send(500, f"{type(e).__name__}: {e}")
+
+        def _composite_post(self, cn, path: str) -> None:
+            try:
+                body = json.loads(self._body() or b"{}")
+                assert isinstance(body, dict)
+            except Exception:
+                self._send(400, "invalid body")
+                return
+            if path == "/composite/upd":
+                try:
+                    delta = int(body.get("delta"))
+                except (TypeError, ValueError):
+                    self._send(400, "invalid delta")
+                    return
+                front = self.ingest
+                key = str(body.get("key", ""))
+                if front is not None and front.composite is not None:
+                    try:
+                        value = front.admit_composite_upd(key, delta)
+                    except ShedError as e:
+                        self._send_shed(e)
+                        return
+                else:
+                    value = cn.upd(key, delta)
+                if value is None:
+                    self._send(502, "Unreachable")
+                else:
+                    self._send_json(200, {"value": value})
+            elif path == "/composite/rem":
+                removed = cn.rem(str(body.get("key", "")))
+                if removed is None:
+                    self._send(502, "Unreachable")
+                else:
+                    self._send_json(200, {"removed": removed})
+            else:
+                self._send(404, "not found")
 
         def _ingest_page(self) -> None:
             front = self.ingest
@@ -487,9 +628,7 @@ def _make_handler(cluster, idx: int, admin=None):
 class HttpCluster:
     """Serve every node of a LocalCluster on its own port."""
 
-    def __init__(self, cluster, host: str = "127.0.0.1", admin=None):
-        if admin is not None:
-            raise NotImplementedError(ADMIN_NOT_PORTED)
+    def __init__(self, cluster, host: str = "127.0.0.1"):
         self.cluster = cluster
         self.host = host
         self.servers: List[ThreadingHTTPServer] = []

@@ -18,10 +18,14 @@ version vector, the compaction frontier and its wire-shaped summary) is
 plain Python; the device holds the op log and runs its merge, the
 compaction fold and the rebuild (``models.oplog``, ``models.compactlog``).
 
+The live divergence audit (``enable_audit``) keeps an incremental digest
+of the node's winner rows on the host (:mod:`crdt_tpu_torch.obs.audit`);
+its hooks sit inside the node's locked sections and never take the device
+lock.  Checkpoints are :mod:`crdt_tpu_torch.utils.checkpoint`.
+
 Not ported (each raises when asked for): the native C++ interner and wire
-store (``use_native=True``), the live divergence audit
-(``enable_audit``), and with it the mesh digest check of
-``PendingMerge.commit``; checkpoint save and restore.
+store (``use_native=True``), and the device-mesh digest check of
+``PendingMerge.commit(digest=)`` (ROADMAP Queue 1 item 6).
 """
 from __future__ import annotations
 
@@ -137,29 +141,43 @@ def _n_ops(payload: Dict[str, Any]) -> int:
     return sum(1 for k in payload if k not in (FRONTIER_KEY, SUMMARY_KEY))
 
 
+def _quarantined(node, metrics, prefix: str, tid, error: str, **who) -> bool:
+    """Count and log a malformed payload; the round is skipped."""
+    metrics.inc(f"{prefix}_quarantined")
+    node.events.emit("payload_quarantine", trace=tid, surface=prefix,
+                     error=error[:200], **who)
+    return False
+
+
 def pull_round(node: "ReplicaNode", fetch_payload, metrics, delta: bool,
-               peer: Optional[str] = None, trace: Optional[str] = None) -> bool:
+               prefix: str = "gossip", peer: Optional[str] = None,
+               trace: Optional[str] = None, quarantine: bool = False) -> bool:
     """One anti-entropy pull into ``node``: ask the peer for a (delta)
-    payload, merge it, and keep the skip/noop/fresh counters consistent.
+    payload, merge it, and keep the skip/noop/fresh counters (named
+    ``{prefix}_*``) consistent across transports.
 
     ``fetch_payload(since)`` returns the peer's payload dict, or None for
     an unreachable or dead peer (the reference's 502-skip,
     main.go:235-239).  The outcome is emitted to ``node.events`` under the
     round's trace ID, and the delta payload's op count is recorded as the
-    lag-behind-``peer`` gauge.  A malformed payload raises: in process
-    it is a local bug (the JAX package's network agents quarantine it
-    instead; they are not ported).
+    lag-behind-``peer`` gauge.
+
+    ``quarantine=True`` (the network agent) turns a MALFORMED payload (bad
+    wire keys, out-of-window timestamps, a truncated summary section,
+    non-dict commands) into a skipped round: ``{prefix}_quarantined`` and
+    a ``payload_quarantine`` event, nothing merged.  In process the
+    default raises: there a malformed payload is a local bug.
     """
     lab = str(node.rid)
     if not node.alive:
-        metrics.inc("gossip_skipped")
+        metrics.inc(f"{prefix}_skipped")
         node.events.emit("pull_skip", trace=trace, peer=peer, reason="down")
         return False
-    with span("crdt.pull_round.gossip", trace) as tid:
+    with span(f"crdt.pull_round.{prefix}", trace) as tid:
         since = node.version_vector() if delta else None
         payload = fetch_payload(since)
         if payload is None:
-            metrics.inc("gossip_skipped")
+            metrics.inc(f"{prefix}_skipped")
             node.events.emit("pull_skip", trace=tid, peer=peer,
                              reason="peer_unreachable")
             return False
@@ -167,38 +185,47 @@ def pull_round(node: "ReplicaNode", fetch_payload, metrics, delta: bool,
         if delta:
             health.observe_pull_lag(metrics.registry, lab, peer or "?", n_ops)
         if not payload:  # delta mode: peer had nothing we lack, no merge
-            metrics.inc("gossip_noop")
+            metrics.inc(f"{prefix}_noop")
             node.events.emit("pull_noop", trace=tid, peer=peer)
             return False
-        metrics.inc("gossip_payload_ops", n_ops)
-        fresh = node.receive(payload)
+        metrics.inc(f"{prefix}_payload_ops", n_ops)
+        try:
+            fresh = node.receive(payload)
+        except (ValueError, KeyError, TypeError) as e:
+            if not quarantine:
+                raise
+            return _quarantined(node, metrics, prefix, tid,
+                                f"{type(e).__name__}: {e}", peer=peer)
         if not fresh:  # payload was all re-deliveries
-            metrics.inc("gossip_noop")
+            metrics.inc(f"{prefix}_noop")
             node.events.emit("pull_noop", trace=tid, peer=peer, ops=n_ops)
             return False
-        metrics.inc("gossip_rounds")
+        metrics.inc(f"{prefix}_rounds")
         health.mark_merge(metrics.registry, lab)
         node.events.emit("pull_merge", trace=tid, peer=peer, ops=n_ops, fresh=fresh)
         return True
 
 
 def fused_pull_round(node: "ReplicaNode", fetched, metrics, delta: bool,
-                     trace: Optional[str] = None) -> bool:
+                     prefix: str = "gossip", trace: Optional[str] = None,
+                     quarantine: bool = False) -> bool:
     """The k-way sibling of :func:`pull_round`.  ``fetched`` is a list of
     ``(peer_label, payload_or_None)`` pairs the caller already collected
     against the SAME pre-round version vector; every non-empty payload is
     merged in ONE device merge via :meth:`ReplicaNode.receive_many`.
-    Per-peer skip/noop accounting matches the sequential path exactly."""
+    Per-peer skip/noop accounting matches the sequential path exactly;
+    with ``quarantine=True`` a malformed payload is quarantined alone
+    (validated before the merge) and the others still merge."""
     lab = str(node.rid)
     if not node.alive:
-        metrics.inc("gossip_skipped")
+        metrics.inc(f"{prefix}_skipped")
         node.events.emit("pull_skip", trace=trace, reason="down")
         return False
-    with span("crdt.fused_pull_round.gossip", trace) as tid:
+    with span(f"crdt.fused_pull_round.{prefix}", trace) as tid:
         payloads, labels, total_ops = [], [], 0
         for peer, payload in fetched:
             if payload is None:
-                metrics.inc("gossip_skipped")
+                metrics.inc(f"{prefix}_skipped")
                 node.events.emit("pull_skip", trace=tid, peer=peer,
                                  reason="peer_unreachable")
                 continue
@@ -206,22 +233,33 @@ def fused_pull_round(node: "ReplicaNode", fetched, metrics, delta: bool,
             if delta:
                 health.observe_pull_lag(metrics.registry, lab, peer or "?", n_ops)
             if not payload:  # delta mode: this peer had nothing we lack
-                metrics.inc("gossip_noop")
+                metrics.inc(f"{prefix}_noop")
                 node.events.emit("pull_noop", trace=tid, peer=peer)
                 continue
+            if quarantine:
+                bad = node.validate_payload(payload)
+                if bad is not None:
+                    _quarantined(node, metrics, prefix, tid, bad, peer=peer)
+                    continue
             payloads.append(payload)
             labels.append(peer)
             total_ops += n_ops
         if not payloads:
             return False
         health.observe_fused_pull(metrics.registry, lab, len(payloads))
-        metrics.inc("gossip_payload_ops", total_ops)
-        fresh = node.receive_many(payloads)
+        metrics.inc(f"{prefix}_payload_ops", total_ops)
+        try:
+            fresh = node.receive_many(payloads)
+        except (ValueError, KeyError, TypeError) as e:
+            if not quarantine:
+                raise
+            return _quarantined(node, metrics, prefix, tid,
+                                f"{type(e).__name__}: {e}", peers=labels)
         if not fresh:  # every payload was re-deliveries
-            metrics.inc("gossip_noop")
+            metrics.inc(f"{prefix}_noop")
             node.events.emit("pull_noop", trace=tid, peers=labels, ops=total_ops)
             return False
-        metrics.inc("gossip_rounds")
+        metrics.inc(f"{prefix}_rounds")
         health.mark_merge(metrics.registry, lab)
         node.events.emit("pull_merge_fused", trace=tid, peers=labels,
                          ops=total_ops, fresh=fresh)
@@ -253,7 +291,7 @@ class PendingMerge:
     """
 
     __slots__ = ("node", "ops", "fresh", "adopted", "rows", "births",
-                 "vv_before", "done")
+                 "vv_before", "done", "dig", "dig_sum")
 
     def __init__(self, node: "ReplicaNode"):
         self.node = node
@@ -268,6 +306,11 @@ class PendingMerge:
         # visibility is birth, not propagation)
         self.vv_before: Optional[Dict[int, int]] = None
         self.done = False
+        # audit-digest lanes of the packed batch (fresh, 4 uint32) and
+        # their host-side sum, as the JAX package carries them for its
+        # device-mesh fold's check
+        self.dig: Optional[np.ndarray] = None
+        self.dig_sum: Optional[np.ndarray] = None
 
     def rows_held(self) -> int:
         """Live log rows of the plane (the lock is held, so it is stable)."""
@@ -277,11 +320,18 @@ class PendingMerge:
             self.node._log_rows = n
         return n
 
-    def commit(self, merged_log: oplog.OpLog, n_unique: int) -> int:
+    def commit(self, merged_log: oplog.OpLog, n_unique: int, digest=None) -> int:
         """Finish the deferred merge with the caller's merged log: rebind
         the log, finish accounting, release the node lock.  ``n_unique``
-        must already be a host int."""
+        must already be a host int.  ``digest`` (the device-mesh plane's
+        folded digest lanes, checked against :attr:`dig_sum`) is not
+        ported and raises."""
         node = self.node
+        if digest is not None:
+            self.abort()
+            raise NotImplementedError(
+                "PendingMerge.commit(digest=): the device-mesh digest check is not "
+                "ported (ROADMAP Queue 1 item 6)")
         try:
             if self.fresh:
                 assert n_unique <= merged_log.ts.shape[-1], (
@@ -356,6 +406,10 @@ class ReplicaNode:
         # millisecond collapse to the highest (rid, seq).  Compaction is
         # forbidden (summary sections are not Go-parseable).
         self.go_compat_gossip = bool(go_compat_gossip)
+        # the live divergence audit's incremental digest (obs.audit),
+        # opt-in via enable_audit(): a bare node pays one None check on
+        # the ingest paths
+        self.digest = None
         self.clock = clock or HostClock()
         self.metrics = metrics or Metrics()
         # convergence flight recorder: birth stamps on the write path,
@@ -494,12 +548,16 @@ class ReplicaNode:
             return self._version_vector_locked(), dict(self._frontier)
 
     def audit_snapshot(self) -> Tuple[Dict[int, int], Dict[int, int], Optional[str]]:
-        """One-lock (vv, frontier, digest) snapshot, the source of the
-        gossip response's stability header.  The digest is None: the live
-        divergence audit is not ported, and None is what the JAX node
-        returns without one, so the header's bytes are the same."""
+        """One-lock (vv, frontier, digest-at-frontier hex) snapshot, the
+        source of the gossip response's stability header: the digest must
+        be clamped at the same frontier the summary carries.  The digest
+        is None until :meth:`enable_audit`."""
         with self._lock:
-            return self._version_vector_locked(), dict(self._frontier), None
+            vv = self._version_vector_locked()
+            frontier = dict(self._frontier)
+            d = self.digest
+            dig = d.digest_hex_at(frontier) if d is not None and d.enabled else None
+        return vv, frontier, dig
 
     @property
     def frontier(self) -> Dict[int, int]:
@@ -623,6 +681,10 @@ class ReplicaNode:
         rows = []
         for k, cmd in payload.items():
             ts_abs, rid, seq = _parse_wire_key(k)
+            if not isinstance(cmd, dict):
+                # refused here, before the node lock: a payload is merged
+                # whole or not at all
+                raise TypeError(f"non-dict command: {type(cmd).__name__}")
             ts = ts_abs - epoch  # rebase onto this node's int32 window
             # strict upper bound: ts == INT32_MAX is the SENTINEL padding
             if not (INT32_MIN <= ts < INT32_MAX):
@@ -632,6 +694,20 @@ class ReplicaNode:
                 )
             rows.append((ts, rid, seq, cmd))
         return remote_frontier, remote_summary, rows
+
+    def validate_payload(self, payload: Dict[str, Any]) -> Optional[str]:
+        """Structural check of a wire payload WITHOUT merging: None when
+        ``receive`` would accept it, else a short reason.  The network
+        pull paths quarantine a payload this refuses instead of merging
+        any part of it."""
+        try:
+            _, summary, _ = self._decode_payload(dict(payload))
+        except (ValueError, KeyError, TypeError, AttributeError) as e:
+            return f"{type(e).__name__}: {e}"
+        for k, entry in summary.items():
+            if not isinstance(entry, dict):
+                return f"non-dict summary entry for key {k!r}"
+        return None
 
     def receive(self, payload: Optional[Dict[str, Any]]) -> int:
         """Pull-side merge of a peer's gossip payload (main.go:250-257);
@@ -697,8 +773,11 @@ class ReplicaNode:
             pending.vv_before = self._version_vector_locked()
             if self.alive and decoded:
                 pending.adopted, pending.rows = self._adopt_all_locked(decoded)
-                pending.ops, pending.fresh = self._pack_accepted_locked(
-                    self._accept_locked(pending.rows))
+                accepted = self._accept_locked(pending.rows)
+                pending.ops, pending.fresh = self._pack_accepted_locked(accepted)
+                if pending.fresh and self.digest is not None and self.digest.enabled:
+                    pending.dig = self.digest.dig_column(accepted, self.clock.epoch_ms)
+                    pending.dig_sum = pending.dig.sum(axis=0, dtype=np.uint32)
         except BaseException:
             self._lock.release()
             raise
@@ -727,17 +806,67 @@ class ReplicaNode:
             seq0 = self._seq.reserve(n)
             pending.ops, pending.fresh = self._pack_local_batch(cmds, tss, seq0)
             epoch = self.clock.epoch_ms
+            if pending.fresh and self.digest is not None and self.digest.enabled:
+                pending.dig = self.digest.dig_column(
+                    [(t, self.rid, seq0 + i, c) for i, (c, t) in enumerate(zip(cmds, tss))],
+                    epoch)
+                pending.dig_sum = pending.dig.sum(axis=0, dtype=np.uint32)
             pending.births = [(seq0 + i, t + epoch) for i, t in enumerate(tss)]
             return [(self.rid, seq0 + i) for i in range(n)], pending
         except BaseException:
             self._lock.release()
             raise
 
+    # ---- the live divergence audit (obs.audit) ----
+
     def enable_audit(self, plane: str = "host"):
-        """The live divergence audit (the JAX package's
-        ``crdt_tpu.obs.audit``) is not ported."""
-        raise NotImplementedError(
-            "enable_audit: the live divergence audit plane is not ported")
+        """Opt in to the live divergence audit: attach an incremental
+        winner-row digest (:class:`~crdt_tpu_torch.obs.audit.PlaneDigest`)
+        and seed it from the current store.  Idempotent (re-labels and
+        reseeds); returns the digest."""
+        from crdt_tpu_torch.obs.audit import PlaneDigest
+
+        with self._lock:
+            if self.digest is None:
+                self.digest = PlaneDigest(self, plane=plane)
+            else:
+                self.digest.plane = plane
+            self.digest.resync()
+        return self.digest
+
+    def audit_digest_at(self, frontier: Dict[int, int]) -> Optional[str]:
+        """Hex digest of this node's state clamped at ``frontier``, or
+        None when the clamp is not comparable here: it is well-defined
+        only while this node's own compaction frontier <= F (folded
+        non-winner candidates under our fold are gone) and F <= our vv (we
+        have seen everything under F).  Inside that window the below-F
+        winner set is immutable, so the result is independent of
+        in-flight ops and delivery order."""
+        with self._lock:
+            d = self.digest
+            if d is None or not d.enabled:
+                return None
+            frontier = {int(r): int(s) for r, s in frontier.items()}
+            if not all(frontier.get(r, -1) >= s for r, s in self._frontier.items()):
+                return None
+            vv = self._version_vector_locked()
+            if not all(s <= vv.get(r, -1) for r, s in frontier.items()):
+                return None
+            return d.digest_hex_at(frontier)
+
+    def audit_scrub(self) -> bool:
+        """Recompute the digest FROM the store and adopt it; True when the
+        accumulator disagreed (the store changed underneath the digest:
+        silent corruption entering the served digest)."""
+        with self._lock:
+            d = self.digest
+            if d is None or not d.enabled:
+                return False
+            return d.scrub()
+
+    def _digest_resync_locked(self) -> None:
+        if self.digest is not None and self.digest.enabled:
+            self.digest.resync()
 
     # ---- health / fault injection ----
 
@@ -794,6 +923,8 @@ class ReplicaNode:
         self._summary = self._decode_summary(folded.summary)
         self._summary_cache = (folded.summary, folded.summary.num.shape[-1])
         self._prune_commands_locked()
+        # the fold rewrote the store wholesale: rebuild the audit digest
+        self._digest_resync_locked()
 
     def _adopt_frontier_locked(
         self, remote_frontier: Dict[int, int], remote_summary: Dict[str, Any]
@@ -839,6 +970,7 @@ class ReplicaNode:
             self.log = oplog.delta_since(self.log, self._frontier_array(self._frontier, w))
             self._log_rows = None
             self._prune_commands_locked()
+            self._digest_resync_locked()  # the adopted summary replaced ours
         self.metrics.inc("frontier_adoptions")
         self.events.emit("frontier_adopt", trace=current_trace(),
                          frontier={str(r): s for r, s in self._frontier.items()})
@@ -856,6 +988,29 @@ class ReplicaNode:
             cut = f.get(w, -1)
             if lst and lst[0][0][2] <= cut:
                 self._by_writer[w] = [e for e in lst if e[0][2] > cut]
+
+    def _rebuild_indexes_locked(self) -> None:
+        """Recompute the delta indexes, the vv and the audit digest from
+        ``_commands`` and the frontier (the snapshot restore path,
+        :func:`crdt_tpu_torch.utils.checkpoint.restore_node`)."""
+        self._by_writer = {}
+        self._foreign = []
+        self._vv = {}
+        self._ts_seen = {k[0] for k in self._commands} if self.go_compat_gossip else set()
+        self._summary_cache = None
+        for ident in sorted(self._commands, key=lambda k: (k[1], k[2], k[0])):
+            stored = self._commands[ident]
+            rid, seq = ident[1], ident[2]
+            if rid >= 0:
+                self._by_writer.setdefault(rid, []).append((ident, stored))
+                if seq > self._vv.get(rid, -1):
+                    self._vv[rid] = seq
+            else:
+                self._foreign.append((ident, stored))
+        for r, s in self._frontier.items():
+            if s > self._vv.get(r, -1):
+                self._vv[r] = s
+        self._digest_resync_locked()
 
     def _frontier_array(self, frontier: Dict[int, int], n_writers: int) -> torch.Tensor:
         arr = np.full((n_writers,), -1, np.int32)
@@ -949,6 +1104,8 @@ class ReplicaNode:
             else:
                 self._foreign.append((ident, stored))
             accepted.append((ts, rid, seq, stored))
+        if accepted and self.digest is not None and self.digest.enabled:
+            self.digest.observe_rows(accepted, self.clock.epoch_ms)
         return accepted
 
     def _pack_accepted_locked(
@@ -1037,6 +1194,10 @@ class ReplicaNode:
                 c_seq.append(seq)
             seq += 1
         self._vv[rid] = max(self._vv.get(rid, -1), seq - 1)
+        if self.digest is not None and self.digest.enabled:
+            self.digest.observe_rows(
+                [(t, rid, seq0 + i, c) for i, (c, t) in enumerate(zip(cmds, tss))],
+                self.clock.epoch_ms)
         fresh = len(c_eidx)
         if not fresh:
             return None, 0

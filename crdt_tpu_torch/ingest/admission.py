@@ -158,8 +158,9 @@ class AdmissionQueue:
     ``flush_fn(items)`` performs the drain: it receives every pending
     item in submission order and returns one result per item.  The KV
     lane's flush_fn is the node's batched write path (one device merge);
-    the map lane batches under one lock acquisition (its planes are
-    host numpy, so there is no device merge to fuse, but the shared queue
+    the map and composite lanes batch under one lock acquisition (their
+    per-op writes index the planes in place, with no merge to fuse, but
+    the shared queue
     gives every surface the same backpressure and accounting).
     """
 
@@ -284,18 +285,18 @@ class IngestFrontDoor:
 
     One front door serves one node's write surfaces: the KV lane feeds
     ``ReplicaNode.add_commands`` (one device merge per drain), the map
-    lane ``MapNode.upd_many``.  (The JAX door's composite lane waits for
-    the port's ``api/compositenode``.)  Page admission
-    (decode → dedup → KV lane) lives here so the HTTP shim stays a thin
-    router.
+    and composite lanes ``MapNode.upd_many`` and
+    ``CompositeNode.upd_many``.  Page admission (decode → dedup → KV lane)
+    lives here so the HTTP shim stays a thin router.
     """
 
-    def __init__(self, node, map_node=None, *,
+    def __init__(self, node, map_node=None, composite_node=None, *,
                  max_batch: int = 64, flush_deadline_s: float = 0.002,
                  high_water: int = 4096, retry_after_s: float = 0.05,
                  events=None):
         self.node = node
         self.map_node = map_node
+        self.composite_node = composite_node
         self.events = events if events is not None \
             else getattr(node, "events", None)
         policy = ShedPolicy(high_water=high_water,
@@ -307,6 +308,9 @@ class IngestFrontDoor:
         self.kv = AdmissionQueue("kv", self._flush_kv, **common)
         self.map = AdmissionQueue("map", self._flush_map, **common) \
             if map_node is not None else None
+        self.composite = AdmissionQueue(
+            "composite", self._flush_composite, **common) \
+            if composite_node is not None else None
         # per-origin page-seq watermark: retried pages (shed or timed out
         # client side AFTER admission) are duplicate-dropped, not
         # double-applied.  Only ADMITTED pages advance it, so a shed page
@@ -327,6 +331,9 @@ class IngestFrontDoor:
     def _flush_map(self, items: List[Tuple[str, int]]):
         return self.map_node.upd_many(items)
 
+    def _flush_composite(self, items: List[Tuple[str, int]]):
+        return self.composite_node.upd_many(items)
+
     # ---- admission surfaces ----
 
     def admit_kv(self, cmd: Dict[str, str], ts: Optional[int] = None,
@@ -342,6 +349,12 @@ class IngestFrontDoor:
         if self.map is None:
             raise RuntimeError("no map lane on this front door")
         return self.map.submit((str(key), int(delta))).wait(timeout)[0]
+
+    def admit_composite_upd(self, key: str, delta: int,
+                            timeout: Optional[float] = 30.0):
+        if self.composite is None:
+            raise RuntimeError("no composite lane on this front door")
+        return self.composite.submit((str(key), int(delta))).wait(timeout)[0]
 
     def admit_page(self, raw: bytes, timeout: Optional[float] = 30.0,
                    tenant: Optional[str] = None) -> Dict[str, Any]:
@@ -389,7 +402,8 @@ class IngestFrontDoor:
 
     @property
     def lanes(self) -> List[AdmissionQueue]:
-        return [q for q in (self.kv, self.map) if q is not None]
+        return [q for q in (self.kv, self.map, self.composite)
+                if q is not None]
 
     def flush_all(self) -> int:
         return sum(q.flush() for q in self.lanes)
@@ -398,14 +412,14 @@ class IngestFrontDoor:
         return sum(q.flush_expired() for q in self.lanes)
 
 
-def front_door_from_config(node, map_node=None, config=None,
-                           events=None) -> IngestFrontDoor:
+def front_door_from_config(node, map_node=None, composite_node=None,
+                           config=None, events=None) -> IngestFrontDoor:
     """Build a front door from ClusterConfig's ingest knobs (defaults
     when config is None or predates them)."""
     get = (lambda k, d: getattr(config, k, d)) if config is not None \
         else (lambda k, d: d)
     return IngestFrontDoor(
-        node, map_node=map_node,
+        node, map_node=map_node, composite_node=composite_node,
         max_batch=get("ingest_flush_ops", 64),
         flush_deadline_s=get("ingest_flush_ms", 2.0) / 1e3,
         high_water=get("ingest_high_water", 4096),

@@ -16,11 +16,12 @@ body), so the gauges are always fresh and an idle node pays nothing: the
 KV node's population and frontier (``vv_ops_known``,
 ``frontier_folded_ops``, ``oplog_capacity``, ``commands_retained``,
 ``summary_keys``, ``node_alive``, ``seconds_since_last_merge``), the
-siblings' GC debt, the ingest lanes' depth and mark, and the union-engine
-tallies.  The samplers of the agent's circuits, the stability tracker,
-the keyspace, the leases and the audit watchdog belong to modules the
-port does not have yet: ``sample_all`` takes those arguments and requires
-them to be None.
+siblings' GC debt, the ingest lanes' depth and mark, the union-engine
+tallies, and on a network daemon the agent's peer circuits, the stability
+tracker's frontier and lag, and the audit watchdog's state.  The keyspace
+and lease samplers belong to the fleet tier, not ported (ROADMAP Queue 1
+item 3): ``sample_all`` takes those arguments and requires them to be
+None.
 """
 from __future__ import annotations
 
@@ -28,6 +29,9 @@ import time
 
 # EWMA weight of the newest pull-round lag observation (~last 5 rounds)
 LAG_ALPHA = 0.2
+
+# net_peer_circuit_state gauge values, by the breaker's state name
+CIRCUIT_STATE_VALUE = {"closed": 0, "half_open": 1, "open": 2}
 
 
 def observe_pull_lag(registry, node_label: str, peer: str, ops_behind: int) -> None:
@@ -87,6 +91,16 @@ def sample_map_node(registry, mn) -> None:
     registry.set_gauge("map_records", mn.n_records(), node=str(mn.rid))
 
 
+def sample_composite_node(registry, cn) -> None:
+    lab = str(cn.rid)
+    items = cn.items()
+    registry.set_gauge("composite_keys", 0 if items is None else len(items), node=lab)
+    # interned keys may exceed live keys (removed entries keep history):
+    # the gap is the composite's tombstone pressure
+    registry.set_gauge("composite_keys_interned", len(cn.keys), node=lab)
+    registry.set_gauge("composite_writers", len(cn._writers), node=lab)
+
+
 def sample_ingest(registry, front_door) -> None:
     """Ingest front-door gauges: each lane's pending-op depth and the
     high-water mark it sheds against.  The shed and admit counters and the
@@ -96,6 +110,61 @@ def sample_ingest(registry, front_door) -> None:
         registry.set_gauge("ingest_queue_depth", float(lane.depth), lane=lane.name, node=lane.node)
         registry.set_gauge("ingest_high_water", float(lane.policy.high_water),
                            lane=lane.name, node=lane.node)
+
+
+def sample_peer_circuits(registry, node_label: str, peers) -> None:
+    """Partition-state gauges from the agent's RemotePeer circuit
+    breakers: each peer's breaker state (0 closed / 1 half-open / 2
+    open), the consecutive transport failures behind it, and the rollup
+    ``net_peers_unreachable`` over ``net_peers_total``."""
+    peers = list(peers)
+    unreachable = 0
+    for p in peers:
+        state = p.circuit_state()
+        registry.set_gauge("net_peer_circuit_state", CIRCUIT_STATE_VALUE.get(state, 2),
+                           node=node_label, peer=p.url)
+        registry.set_gauge("net_peer_failures", p.failure_count(), node=node_label, peer=p.url)
+        if state != "closed":
+            unreachable += 1
+    registry.set_gauge("net_peers_unreachable", unreachable, node=node_label)
+    registry.set_gauge("net_peers_total", len(peers), node=node_label)
+
+
+def sample_stability(registry, node_label: str, tracker) -> None:
+    """Stability-frontier gauges: ops under the last minted fleet
+    frontier, the local vv's ops above it (the GC debt; it grows while GC
+    is stalled), and the members blocking a mint."""
+    registry.set_gauge("stability_frontier_ops",
+                       sum(s + 1 for s in tracker.last_frontier.values()), node=node_label)
+    registry.set_gauge("stability_lag_ops", tracker.lag_ops(), node=node_label)
+    registry.set_gauge("stability_stale_peers", len(tracker.stale_members()), node=node_label)
+
+
+def max_convergence_lag(registry):
+    """The worst ``convergence_lag_ops`` EWMA across every node label in
+    this registry, or None before the first pull-round observation (the
+    watchdog's lag-breach evaluator thresholds on it)."""
+    worst = None
+    for key, val in registry.snapshot().items():
+        if key == "convergence_lag_ops" or key.startswith("convergence_lag_ops{"):
+            v = float(val)
+            if worst is None or v > worst:
+                worst = v
+    return worst
+
+
+def sample_audit(registry, watchdog) -> None:
+    """Divergence-audit gauges: ``audit_state`` (0 no data / 1 all
+    comparisons agree / 2 divergence latched), ``audit_evals`` (watchdog
+    ticks so far) and each plane's winner rows under digest.  The
+    ``audit_agreement`` gauge and the ``audit_*`` counters are recorded by
+    the watchdog when it compares."""
+    registry.set_gauge("audit_state", float(watchdog.state))
+    registry.set_gauge("audit_evals", float(watchdog.evals))
+    for plane, node in watchdog.planes():
+        dig = getattr(node, "digest", None)
+        if dig is not None:
+            registry.set_gauge("audit_plane_keys", float(len(dig.winner)), plane=plane)
 
 
 def sample_union_paths(registry) -> None:
@@ -126,16 +195,14 @@ def sample_union_paths(registry) -> None:
 def sample_all(registry, node, set_node=None, seq_node=None, map_node=None,
                composite_node=None, agent=None, ingest=None, stability=None,
                keyspace=None, ks_door=None, leases=None, watchdog=None) -> None:
-    """Every sampler of this node's planes.  The composite node, the
-    network agent, the stability tracker, the keyspace, the leases and the
-    audit watchdog are not ported: those arguments must be None."""
-    missing = [name for name, x in (("composite_node", composite_node), ("agent", agent),
-                                    ("stability", stability), ("keyspace", keyspace),
-                                    ("ks_door", ks_door), ("leases", leases),
-                                    ("watchdog", watchdog)) if x is not None]
+    """Every sampler of this node's planes.  The keyspace, its front door
+    and the leases are not ported (ROADMAP Queue 1 item 3): those
+    arguments must be None."""
+    missing = [name for name, x in (("keyspace", keyspace), ("ks_door", ks_door),
+                                    ("leases", leases)) if x is not None]
     if missing:
         raise NotImplementedError(
-            f"sample_all: no sampler for {missing} (their modules are not ported)")
+            f"sample_all: no sampler for {missing} (ROADMAP Queue 1 item 3, not ported)")
     sample_kv_node(registry, node)
     sample_union_paths(registry)
     if set_node is not None:
@@ -144,8 +211,16 @@ def sample_all(registry, node, set_node=None, seq_node=None, map_node=None,
         sample_seq_node(registry, seq_node)
     if map_node is not None:
         sample_map_node(registry, map_node)
+    if composite_node is not None:
+        sample_composite_node(registry, composite_node)
+    if agent is not None:
+        sample_peer_circuits(registry, str(node.rid), agent.peers)
     if ingest is not None:
         sample_ingest(registry, ingest)
+    if stability is not None:
+        sample_stability(registry, str(node.rid), stability)
+    if watchdog is not None:
+        sample_audit(registry, watchdog)
 
 
 def render_node_metrics(node, set_node=None, seq_node=None, map_node=None,

@@ -39,7 +39,10 @@ class ManualClock(HostClock):
 
 
 class SeqGen:
-    """Per-replica monotone sequence numbers (the op identity tiebreak)."""
+    """Per-replica monotone sequence numbers (the op identity tiebreak).
+    ``count`` is readable and settable so checkpoints can persist it:
+    losing it would let a restored node mint an already-used
+    (ts, rid, seq)."""
 
     def __init__(self, start: int = 0):
         self.count = start

@@ -389,12 +389,29 @@ def test_fleet_is_the_one_route_that_differs(served):
     assert status == 404 and b"Queue 1 item 3" in body
 
 
-def test_admin_is_not_ported():
-    tc = tcluster.LocalCluster(tconfig.ClusterConfig(n_replicas=1), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        tshim.HttpCluster(tc, admin=object())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        tshim._make_handler(tc, 0, admin=object())
+def test_admin_routes_serve_a_daemon():
+    """A handler built with a daemon's NodeHost as ``admin`` serves the
+    /admin routes (demo mode answers them 404, test_demo_mode_404s);
+    HttpCluster takes no admin, as in the JAX package."""
+    from crdt_tpu_torch.api import net as tnet
+
+    hosts = [tnet.NodeHost(rid=r, peers=[], device="cpu") for r in range(2)]
+    for h in hosts:
+        h.agent.peers = [tnet.RemotePeer(o.url) for o in hosts if o is not h]
+        h.start_server()
+    try:
+        port = lambda h: int(h.url.rsplit(":", 1)[1])  # noqa: E731
+        assert request(port(hosts[0]), "POST", "/data", post_json({"a": "1"}))[0] == 200
+        status, _, body = request(port(hosts[1]), "POST", "/admin/pull", b"{}")
+        assert (status, json.loads(body)) == (200, {"pulled": True})
+        assert hosts[1].node.get_state() == {"a": "1"}
+        assert request(port(hosts[1]), "POST", "/admin/checkpoint", b"{}")[0] == 400
+    finally:
+        for h in hosts:
+            h.stop()
+    with pytest.raises(TypeError):
+        tshim.HttpCluster(tcluster.LocalCluster(tconfig.ClusterConfig(n_replicas=1),
+                                                device="cpu"), admin=object())
 
 
 def test_concurrent_posts_land_once():

@@ -11,7 +11,9 @@ import torch
 import crdt_tpu_torch
 from crdt_tpu_torch import convert, workload
 from crdt_tpu_torch.api.cluster import LocalCluster
+from crdt_tpu_torch.api.compositenode import CompositeNode
 from crdt_tpu_torch.api.mapnode import MapNode
+from crdt_tpu_torch.api.net import NodeHost
 from crdt_tpu_torch.api.node import ReplicaNode
 from crdt_tpu_torch.api.seqnode import SeqNode
 from crdt_tpu_torch.api.setnode import SetNode
@@ -67,7 +69,8 @@ def test_scan_sees_the_whole_package():
             "algebra.py", "composite.py", "ormap_gc.py", "setnode.py", "seqnode.py",
             "mapnode.py", "floornode.py", "gc_soak.py", "seq_soak.py",
             "http_shim.py", "session.py", "stability.py", "wire.py", "shed.py",
-            "admission.py", "shim.py", "soak.py", "__main__.py"} <= names
+            "admission.py", "shim.py", "soak.py", "__main__.py", "net.py",
+            "compositenode.py", "checkpoint.py", "digest.py", "audit.py"} <= names
 
 
 @pytest.mark.parametrize("make", [
@@ -116,6 +119,8 @@ def test_scan_sees_the_whole_package():
     lambda: SetSoakRunner(),
     lambda: MapSoakRunner(),
     lambda: SeqSoakRunner(),
+    lambda: CompositeNode(rid=0),
+    lambda: NodeHost(rid=0, peers=[]),
 ], ids=["oplog.empty", "from_ops", "columnar.empty", "random_peers",
         "convert", "default_device", "orset.empty", "bitmap_empty",
         "bucketed_empty", "g_empty", "tp_empty", "convert.orset", "set_swarm",
@@ -125,7 +130,7 @@ def test_scan_sees_the_whole_package():
         "compactlog.empty", "ReplicaNode", "LocalCluster", "convert.compactlog",
         "vvclock.zero", "ormap.empty", "ormap_gc.wrap", "SetNode", "SeqNode", "MapNode",
         "rand_orset", "small_gset", "registry_neutral", "convert.vvclock", "SetSoakRunner",
-        "MapSoakRunner", "SeqSoakRunner"])
+        "MapSoakRunner", "SeqSoakRunner", "CompositeNode", "NodeHost"])
 def test_constructor_without_device_raises_when_no_card(make, monkeypatch):
     """device=None means the CUDA card; without one it raises rather than
     returning CPU tensors."""
@@ -134,15 +139,38 @@ def test_constructor_without_device_raises_when_no_card(make, monkeypatch):
         make()
 
 
+def _commit_with_digest():
+    node = ReplicaNode(rid=0, device="cpu")
+    pending = node.merge_begin([])
+    pending.commit(node.log, 0, digest=[0, 0, 0, 0])
+
+
 @pytest.mark.parametrize("ask", [
     lambda: ReplicaNode(rid=0, use_native=True, device="cpu"),
-    lambda: ReplicaNode(rid=0, device="cpu").enable_audit(),
-], ids=["use_native", "enable_audit"])
+    _commit_with_digest,
+], ids=["use_native", "commit_digest"])
 def test_left_out_node_features_raise(ask):
     """The node features the port leaves out refuse to run rather than run
-    without their effect."""
+    without their effect (the device-mesh digest check: ROADMAP Queue 1
+    item 6)."""
     with pytest.raises((ValueError, NotImplementedError), match="not ported"):
         ask()
+
+
+def test_enable_audit_attaches_the_digest():
+    """The live divergence audit is ported: enable_audit attaches a digest
+    seeded from the store, and the gossip header's digest follows it."""
+    node = ReplicaNode(rid=0, device="cpu")
+    node.add_command({"a": "1"}, ts=1)
+    assert node.audit_snapshot()[2] is None
+    digest = node.enable_audit()
+    assert node.digest is digest and digest.winner == {"a": (1 + node.clock.epoch_ms, 0, 0)}
+    node.compact({0: 0})
+    assert node.audit_snapshot()[2] == node.audit_digest_at({0: 0}) is not None
+    pending = node.merge_begin([])
+    pending.commit(node.log, 0)  # no digest: the lock is released
+    assert node._lock.acquire(timeout=1)
+    node._lock.release()
 
 
 @pytest.mark.parametrize("knob,barrier", [("set_collect_every", "set_collect"),

@@ -1,7 +1,8 @@
 """``python -m crdt_tpu_torch``, the port's demo (the reference's ``go run
 main.go``): it serves, writes, gossips and converges with ``--device cpu``;
 without a card and without ``--device`` it fails rather than fall back to
-the CPU; ``--daemon`` (the network daemon) is not ported and says so."""
+the CPU; ``--daemon`` runs one network replica (tests/test_torch_net.py
+drives a fleet of them, a crash and a restore)."""
 import subprocess
 import sys
 from pathlib import Path
@@ -34,7 +35,12 @@ def test_demo_without_a_card_fails_rather_than_fall_back():
     assert "no CUDA device" in out.stderr and "serving" not in out.stdout
 
 
-def test_daemon_is_not_ported():
-    out = demo("--daemon", "--device", "cpu", timeout=60)
-    assert out.returncode != 0
-    assert "Queue 1 item 2" in out.stderr
+def test_daemon_serves_on_the_cpu():
+    """``--daemon`` boots one replica, serves, and exits 0 at the end of
+    its --duration."""
+    out = demo("--daemon", "--device", "cpu", "--port", "0", "--duration", "1", timeout=120)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.strip().splitlines()
+    assert lines[0].startswith("replica rid=0 (base 0, incarnation 0, restored=False) "
+                               "serving on http://127.0.0.1:")
+    assert lines[-1] == "final: state_keys=0"
