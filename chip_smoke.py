@@ -155,7 +155,32 @@ Phases (any failure exits non-zero and prints no result):
     kernel launched (as predicted); (c) a node's snapshot on the card
     restores into a fresh node with equal state, vv, frontier, summary
     and digest, and a corrupted ``log.npz`` generation is quarantined and
-    the one before it restored; one ``{"network_daemon": ...}`` JSON line.
+    the one before it restored; one ``{"network_daemon": ...}`` JSON line;
+19. the keyspace tier (budget 240 s): five ``python -m crdt_tpu_torch
+    --daemon --keyspace-shards 64`` processes on the card (ports picked up
+    front, daemon 0 coordinating with ``--compact-every 8``, gossip every
+    1500 ms, checkpoint dirs and event logs under ``build/keyspace``): (a)
+    62,500 writes with benches/bench_keyspace.py's shape (keys from the
+    coprime walk, four tenants drawn with seed 0) in tenant op pages of
+    512, a client thread a daemon, 429 back-offs counted; (b)
+    ``/admin/ks_pull`` rounds until every daemon's ``GET
+    /ks/data?tenant=`` == the client's fold for all four tenants, every
+    shard's vv equal on all five, the shards' ops and keys == the writes,
+    every key at one shard; (c) 512 reads at each level (eventual, session
+    with the write's token, bounded, linearizable) with p50/p99, 8 threads
+    of 64 CAS increments on 16 keys at random daemons (forwarded to the
+    slot's coordinator): each key's value == its 200s, every 409 names the
+    actual value, every 503 == a ``consistency_unavailable`` event, no
+    (slot, fence) committed by two daemons, fences monotone; (d) an online
+    reshard 64 -> 128 (start on every daemon, 4,096 writes through the
+    window, a stream round each, cutover on every daemon), then
+    convergence again: no key lost or duplicated, ownership disjoint, all
+    five at epoch 1 with 128 shards; (e) daemon 3 checkpointed, SIGKILLed
+    and restarted on its directory: 128 shards at epoch 1, the same fence
+    floors, a ``/push`` stamped below a floor refused 409, every tenant ==
+    the fold; (f) ``python -m crdt_tpu_torch.obs fleet`` over the five
+    exits 0 and its per-tenant and per-shard, per-member numbers == each
+    daemon's ``/metrics``; one ``{"keyspace_tier": ...}`` JSON line.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -3150,10 +3175,11 @@ class Daemons:
     """``python -m crdt_tpu_torch --daemon`` processes on the card, one per
     replica, each with its checkpoint dir, event log and stderr file under
     NET_RUN_DIR; daemon 0 coordinates (--compact-every 8); gossip every
-    1500 ms, the reference's period."""
+    1500 ms, the reference's period.  ``extra`` is appended to every
+    daemon's arguments."""
 
-    def __init__(self, root, n: int):
-        self.root, self.n = root, n
+    def __init__(self, root, n: int, extra=()):
+        self.root, self.n, self.extra = root, n, list(extra)
         self.ports = free_ports(n)
         self.urls = [f"http://127.0.0.1:{p}" for p in self.ports]
         self.procs = [None] * n
@@ -3168,6 +3194,7 @@ class Daemons:
                 "--rid-stride", str(NET_STRIDE), "--gossip-ms", "1500"]
         if i == 0:
             args += ["--coordinator", "--compact-every", "8"]
+        args += self.extra
         err = open(self.root / f"stderr{i}-{self.boots[i]}.txt", "w")
         self.boots[i] += 1
         self.procs[i] = subprocess.Popen(args, cwd=Path(__file__).resolve().parent,
@@ -3602,6 +3629,565 @@ def net_phase(card: str) -> dict:
     return line
 
 
+# ---- phase 19: the keyspace tier ----
+
+KS_BUDGET_S = 240
+KS_REPLICAS = 5
+KS_SHARDS, KS_TARGET = 64, 128          # the million-key tier, resharded 64 -> 128
+# benches/bench_keyspace.py's million-key walk, cut to a sixteenth: at
+# 1,000,000 writes (and 65,536 through the window) the writes alone took
+# 373 s of the 240 s budget and the reshard's start passed 120 s; at
+# 125,000 the phase took 303 s in the whole smoke (PERF.md §4)
+KS_WRITES = 62_500
+KS_WINDOW_WRITES = 4_096                # written through the open reshard window
+KS_PAGE = 512
+KS_TENANTS = ("t-acme", "t-bolt", "t-crab", "t-dune")
+KS_LEVELS = ("eventual", "session", "bounded", "linearizable")
+KS_READS = 512                          # a level
+KS_READ_KEYS = 16                       # host-plane keys the reads ask for
+KS_CAS_THREADS, KS_CAS_EACH, KS_CAS_KEYS = 8, 64, 16
+KS_CRASHED = 3
+KS_MAX_ROUNDS = 16
+KS_RUN_DIR = "build/keyspace"           # git-ignored: checkpoints, event logs
+KS_ALL_RIDS = 256                       # a vv query past every writer's seq
+
+
+def ks_stream(n_ops: int, seed: int, first: int = 0) -> list:
+    """(tenant, key, value) writes with benches/bench_keyspace.py's shape (own
+    copy: the smoke imports nothing of the JAX package): key ``u%06d`` from
+    the coprime walk ``i * 999,983 mod 10^6`` (every key of the first
+    million written once), the tenant drawn uniformly from KS_TENANTS by
+    ``random.Random(seed)``."""
+    import random
+
+    rng = random.Random(seed)
+    out = []
+    for i in range(first, first + n_ops):
+        idx = (i * 999_983) % 1_000_000
+        out.append((KS_TENANTS[rng.randrange(len(KS_TENANTS))], f"u{idx:06d}",
+                    f"v{idx:06d}" if first == 0 else f"w{idx:06d}"))
+    return out
+
+
+def ks_post_pages(urls, writes, tally, origin: int) -> dict:
+    """Write i goes to daemon i mod n, from one client thread a daemon, as
+    tenant-scoped op pages of KS_PAGE (a PageBuilder a tenant and daemon,
+    ``X-CRDT-Tenant``); a 429 backs off its Retry-After and resends the
+    same page.  ``origin`` numbers the builders' writer streams (a page
+    watermark is per origin).  Returns the pages, back-offs and per-page
+    seconds."""
+    import threading
+
+    from crdt_tpu_torch.ingest import PageBuilder
+
+    n = len(urls)
+    out = {"pages": 0, "backoffs": 0, "page_s": []}
+    lock, errors = threading.Lock(), []
+
+    def client(t):
+        try:
+            builders = {tn: PageBuilder(origin=origin + 16 * t + k, page_size=KS_PAGE)
+                        for k, tn in enumerate(KS_TENANTS)}
+            pending = {tn: 0 for tn in KS_TENANTS}
+
+            def send(tenant, raw):
+                while True:
+                    st, hdr, body, sec = http_call(
+                        urls[t] + "/ingest/page", "POST", raw,
+                        {"Content-Type": "application/octet-stream",
+                         "X-CRDT-Tenant": tenant})
+                    tally.note(st)
+                    if st == 429:
+                        with lock:
+                            out["backoffs"] += 1
+                        time.sleep(float(hdr.get("Retry-After", "0.05")))
+                        continue
+                    got = json.loads(body) if st == 200 else None
+                    if got is None or got["admitted"] != pending[tenant] or got["dup"]:
+                        raise AssertionError(f"page to daemon {t}: {st} {body[:200]!r}")
+                    with lock:
+                        out["pages"] += 1
+                        out["page_s"].append(sec)
+                    pending[tenant] = 0
+                    return
+
+            for tenant, key, value in writes[t::n]:
+                pending[tenant] += 1
+                raw = builders[tenant].add(key, value)
+                if raw is not None:
+                    send(tenant, raw)
+            for tenant, b in builders.items():
+                raw = b.flush()
+                if raw is not None:
+                    send(tenant, raw)
+        except BaseException as e:  # re-raised on the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(t,)) for t in range(n)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    if errors:
+        raise errors[0]
+    return out
+
+
+def ks_each(urls, fn) -> list:
+    """fn(i, url) on every daemon at once (a thread each); the results in
+    daemon order."""
+    import threading
+
+    res, errors = [None] * len(urls), []
+
+    def run(i):
+        try:
+            res[i] = fn(i, urls[i])
+        except BaseException as e:
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(urls))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    if errors:
+        raise errors[0]
+    return res
+
+
+def ks_converge(urls, fold, tally, label: str, card: str) -> dict:
+    """``POST /admin/ks_pull`` rounds (every daemon pulls every peer, the
+    daemons at once) until every daemon's ``GET /ks/data?tenant=T`` == the
+    client's fold of T for all four tenants; then every shard's vv is
+    equal on all daemons and every key sits at exactly one shard (the
+    shards' key counts sum to the fold's keys).  Returns the rounds,
+    seconds, pull latencies and per-daemon shard stats."""
+    from urllib.parse import quote
+
+    n_keys = sum(len(f) for f in fold.values())
+    pull_ms, rounds = [], 0
+    t0 = time.perf_counter()
+
+    def pull(i, u):
+        ms = []
+        for j, v in enumerate(urls):
+            if j == i:
+                continue
+            st, _, body, sec = http_call(u + "/admin/ks_pull", "POST",
+                                         json.dumps({"peer": v}).encode())
+            tally.note(st)
+            if st != 200:
+                raise AssertionError(f"/admin/ks_pull on daemon {i}: {st} {body!r}")
+            ms.append(sec * 1e3)
+        return ms
+
+    def stats(i, u):
+        st, _, body, _ = http_call(u + "/ks/data")
+        tally.note(st)
+        return json.loads(body)["shards"]
+
+    def tenants_equal(i, u):
+        for t in KS_TENANTS:
+            st, _, body, _ = http_call(u + "/ks/data?tenant=" + t)
+            tally.note(st)
+            got = json.loads(body)
+            if st != 200 or got["tenant"] != t or got["state"] != fold[t]:
+                return False
+        return True
+
+    while True:
+        if rounds == KS_MAX_ROUNDS:
+            raise AssertionError(f"{label}: no convergence in {KS_MAX_ROUNDS} rounds")
+        for ms in ks_each(urls, pull):
+            pull_ms += ms
+        rounds += 1
+        shard_stats = ks_each(urls, stats)
+        if any(s != shard_stats[0] for s in shard_stats):
+            continue
+        if sum(s["keys"] for s in shard_stats[0]) != n_keys:
+            continue
+        if all(ks_each(urls, tenants_equal)):
+            break
+    converge_s = time.perf_counter() - t0
+    # every shard's vv on every daemon (a vv query past every writer: the
+    # payload is empty, the body carries the shard's vv)
+    since = quote(json.dumps({str(r): 2**31 - 1 for r in range(KS_ALL_RIDS)}))
+
+    def vvs(i, u):
+        out = []
+        for s in range(len(shard_stats[0])):
+            st, _, body, _ = http_call(u + f"/ks/gossip?shard={s}&vv={since}"
+                                       + (f"&epoch={epoch_of[i]}"))
+            tally.note(st)
+            if st != 200:
+                raise AssertionError(f"/ks/gossip shard {s} on daemon {i}: {st} {body!r}")
+            out.append(json.loads(body)["vv"])
+        return out
+
+    epoch_of = []
+    for u in urls:
+        st, _, body, _ = http_call(u + "/admin/ks_reshard", "POST", b'{"action": "status"}')
+        tally.note(st)
+        epoch_of.append(json.loads(body)["epoch"])
+    by_daemon = ks_each(urls, vvs)
+    if any(v != by_daemon[0] for v in by_daemon):
+        raise AssertionError(f"{label}: shard vvs differ across the daemons")
+    log(f"    {label}: converged in {rounds} /admin/ks_pull rounds, {converge_s:.2f} s "
+        f"(pull p50 {quantile(pull_ms, 0.5):.3f} ms p99 {quantile(pull_ms, 0.99):.3f} ms); "
+        f"all {len(urls)} GET /ks/data?tenant= == the client's fold for {len(KS_TENANTS)} "
+        f"tenants ({n_keys} keys), every shard's vv equal on all {len(urls)} "
+        f"({len(shard_stats[0])} shards), every key at one shard [{card}]")
+    return {"rounds": rounds, "seconds": converge_s, "pull_ms": pull_ms,
+            "shard_stats": shard_stats[0], "epochs": epoch_of}
+
+
+def ks_metric_map(text: str, name: str) -> dict:
+    """{label string: value} of every series ``name`` in a Prometheus text."""
+    out = {}
+    for line in text.splitlines():
+        if line.startswith(name + "{"):
+            key, value = line.rsplit(" ", 1)
+            out[key[len(name):]] = float(value)
+    return out
+
+
+def ks_fences(urls, tally) -> list:
+    """Each daemon's {slot: highest known fence}, from its /metrics."""
+    import re
+
+    out = []
+    for u in urls:
+        st, _, body, _ = http_call(u + "/metrics")
+        tally.note(st)
+        fences = {}
+        for key, v in ks_metric_map(body.decode(), "crdt_lease_fence_epoch").items():
+            fences[int(re.search(r'slot="(\d+)"', key).group(1))] = int(v)
+        out.append(fences)
+    return out
+
+
+def ks_strong_ops(urls, tally, card: str) -> dict:
+    """Phase 19 (c): reads at the four levels and concurrent CAS increments
+    over the five daemons' consistency planes and leases."""
+    import random
+    import threading
+
+    from urllib.parse import quote
+
+    n = len(urls)
+    # host-plane keys for the reads, written on daemon 0; the last write's
+    # token covers them all (one writer, seqs in order)
+    read_keys = {f"r{k:02d}": f"x{k}" for k in range(KS_READ_KEYS)}
+    token = None
+    for k, v in read_keys.items():
+        st, hdr, body, _ = http_call(urls[0] + "/data", "POST", json.dumps({k: v}).encode())
+        tally.note(st)
+        if st != 200:
+            raise AssertionError(f"POST /data {k}: {st} {body!r}")
+        token = hdr["X-CRDT-Session-Token"]
+    refusals = []     # (op, reason) of every 503 the client saw
+    read_ms = {}
+    rng = random.Random(19)
+    for level in KS_LEVELS:
+        lat = []
+        for _ in range(KS_READS):
+            d = rng.randrange(n)
+            key = f"r{rng.randrange(KS_READ_KEYS):02d}"
+            hdrs = {"X-CRDT-Session-Token": token} if level == "session" else {}
+            st, _, body, sec = http_call(urls[d] + f"/read?key={quote(key)}&level={level}",
+                                         headers=hdrs)
+            lat.append(sec)
+            if st == 503:
+                got = json.loads(body)
+                refusals.append((got["op"], got["reason"]))
+                continue
+            tally.note(st)
+            got = json.loads(body)
+            if st != 200 or got["key"] != key or got["level"] != level:
+                raise AssertionError(f"/read {key} {level} at daemon {d}: {st} {body!r}")
+            # eventual and bounded reads may trail; session and
+            # linearizable reads must see the write
+            fresh = level in ("session", "linearizable")
+            if got["value"] != read_keys[key] and (fresh or got["value"] is not None):
+                raise AssertionError(f"/read {key} {level} at daemon {d}: {got}")
+        read_ms[level] = {"p50": quantile(lat, 0.5) * 1e3, "p99": quantile(lat, 0.99) * 1e3}
+
+    fences0 = ks_fences(urls, tally)
+    keys = [f"c{k:02d}" for k in range(KS_CAS_KEYS)]
+    lock, errors = threading.Lock(), []
+    wins = {k: 0 for k in keys}
+    maybe = {k: 0 for k in keys}        # indeterminate 503s: minted, not acked
+    n409 = [0]
+
+    def client(t):
+        try:
+            trng = random.Random(1000 + t)
+            seen = {}
+            for _ in range(KS_CAS_EACH):
+                key = keys[trng.randrange(len(keys))]
+                d = trng.randrange(n)
+                expect = seen.get(key)
+                # non-numeric values: the store sums numeric ones
+                update = f"n{int(expect[1:]) + 1 if expect else 1}"
+                st, hdr, body, _ = http_call(urls[d] + "/cas", "POST", json.dumps(
+                    {"key": key, "expect": expect, "update": update}).encode())
+                got = json.loads(body)
+                with lock:
+                    if st == 200:
+                        tally.note(st)
+                        wins[key] += 1
+                        seen[key] = update
+                        if "X-CRDT-Session-Token" not in hdr or not got["token"]:
+                            raise AssertionError(f"CAS 200 without its token: {got}")
+                    elif st == 409:
+                        tally.note(st)
+                        n409[0] += 1
+                        if not got.get("conflict") or got["key"] != key \
+                                or got["actual"] == expect or not got.get("coordinator"):
+                            raise AssertionError(f"CAS 409 body {got} for expect {expect!r}")
+                        seen[key] = got["actual"]
+                    elif st == 503:
+                        refusals.append((got["op"], got["reason"]))
+                        if got.get("indeterminate"):
+                            maybe[key] += 1
+                    else:
+                        raise AssertionError(f"CAS at daemon {d}: {st} {body!r}")
+        except BaseException as e:
+            errors.append(e)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(t,)) for t in range(KS_CAS_THREADS)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    cas_s = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    for key in keys:
+        st, _, body, _ = http_call(urls[0] + f"/read?key={key}&level=linearizable")
+        tally.note(st)
+        value = json.loads(body)["value"]
+        value = 0 if value is None else int(value[1:])
+        if not wins[key] <= value <= wins[key] + maybe[key]:
+            raise AssertionError(f"{key}: value {value} after {wins[key]} CAS 200s "
+                                 f"({maybe[key]} indeterminate)")
+    fences1 = ks_fences(urls, tally)
+    for i, (a, b) in enumerate(zip(fences0, fences1)):
+        if any(b.get(s, 0) < f for s, f in a.items()):
+            raise AssertionError(f"daemon {i}'s fences went down: {a} -> {b}")
+    n_cas = KS_CAS_THREADS * KS_CAS_EACH
+    log(f"(c) {KS_READS} reads a level: " + ", ".join(
+        f"{lv} p50 {read_ms[lv]['p50']:.3f} ms p99 {read_ms[lv]['p99']:.3f} ms"
+        for lv in KS_LEVELS) + f"; {n_cas} CAS increments from {KS_CAS_THREADS} threads on "
+        f"{KS_CAS_KEYS} keys: {n_cas / cas_s:.1f} CAS/s, {sum(wins.values())} 200s, "
+        f"{n409[0]} 409s, {len(refusals)} 503s; every key's value == its 200s [{card}]")
+    return {"read_ms": read_ms, "cas_per_s": n_cas / cas_s, "cas_200": sum(wins.values()),
+            "cas_409": n409[0], "refusals": refusals, "fences": fences1}
+
+
+def ks_check_events(root, n: int, refusals: list) -> dict:
+    """Every 503 the client saw is one ``consistency_unavailable`` event in
+    the deciding daemon's log (matched fleet-wide by (op, reason): a
+    forwarded refusal is re-raised at its origin without a second event),
+    and no (slot, fence) was committed by two daemons."""
+    from crdt_tpu_torch.obs.events import read_jsonl
+
+    events, commits = [], {}
+    for i in range(n):
+        for e in read_jsonl(str(root / f"events{i}.jsonl")):
+            if e.get("event") == "consistency_unavailable":
+                events.append((e["op"], e["reason"]))
+            elif e.get("event") == "cas_commit":
+                for s, f in e["fences"].items():
+                    commits.setdefault((s, f), set()).add(i)
+    if sorted(events) != sorted(refusals):
+        raise AssertionError(f"503s {sorted(refusals)} != consistency_unavailable events "
+                             f"{sorted(events)}")
+    shared = {k: v for k, v in commits.items() if len(v) > 1}
+    if not commits or shared:
+        raise AssertionError(f"CAS commits by (slot, fence): {commits}")
+    return {"commits": sum(1 for _ in commits), "unavailable_events": len(events)}
+
+
+def ks_phase(card: str) -> dict:
+    """Phase 19: the keyspace tier on the card, then one {"keyspace_tier": ...}
+    JSON line."""
+    import shutil
+
+    t_phase = time.perf_counter()
+    log(f"phase 19 (the keyspace tier): budget {KS_BUDGET_S} s")
+    root = Path(__file__).resolve().parent / KS_RUN_DIR
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    n = KS_REPLICAS
+    fleet = Daemons(root, n, extra=["--keyspace-shards", str(KS_SHARDS)])
+    tally = HttpTally()
+    fold = {t: {} for t in KS_TENANTS}
+    line = {"card": card, "writes": KS_WRITES, "window_writes": KS_WINDOW_WRITES,
+            "shards": KS_SHARDS, "target": KS_TARGET, "daemons": n}
+    free_before = torch.cuda.mem_get_info()[0]
+    try:
+        t0 = time.perf_counter()
+        for i in range(n):
+            fleet.start(i)
+        for i in range(n):
+            fleet.serving(i)
+        line["boot_s"] = time.perf_counter() - t0
+        log(f"(a) {n} daemons with {KS_SHARDS} shards each serving in "
+            f"{line['boot_s']:.2f} s")
+
+        # -- (a) the million-key writes --
+        writes = ks_stream(KS_WRITES, 0)
+        t0 = time.perf_counter()
+        got = ks_post_pages(fleet.urls, writes, tally, origin=2000)
+        line["write_s"] = time.perf_counter() - t0
+        for tenant, key, value in writes:
+            fold[tenant][key] = value
+        line["writes_per_s"] = KS_WRITES / line["write_s"]
+        line["backoffs_429"] = got["backoffs"]
+        log(f"    {KS_WRITES} writes in tenant op pages of {KS_PAGE} ({got['pages']} pages, "
+            f"one client thread a daemon): {line['writes_per_s']:.1f} acknowledged "
+            f"writes/s, page p50 {quantile(got['page_s'], 0.5) * 1e3:.3f} ms, "
+            f"{got['backoffs']} 429 back-offs [{card}]")
+
+        # -- (b) convergence --
+        conv = ks_converge(fleet.urls, fold, tally, "(b)", card)
+        ops = sum(s["ops"] for s in conv["shard_stats"])
+        if ops != KS_WRITES:
+            raise AssertionError(f"(b): the shards hold {ops} ops, {KS_WRITES} written")
+        line.update({"converge_rounds": conv["rounds"], "converge_s": conv["seconds"],
+                     "pull_ms_p50": quantile(conv["pull_ms"], 0.5),
+                     "pull_ms_p99": quantile(conv["pull_ms"], 0.99)})
+        line["card_mib_all_daemons"] = (free_before - torch.cuda.mem_get_info()[0]) / 2**20
+
+        # -- (c) strong reads, CAS, fences --
+        strong = ks_strong_ops(fleet.urls, tally, card)
+        ev = ks_check_events(root, n, strong["refusals"])
+        line.update({"read_ms": strong["read_ms"], "cas_per_s": strong["cas_per_s"],
+                     "cas_200": strong["cas_200"], "cas_409": strong["cas_409"],
+                     "cas_503": len(strong["refusals"]), "cas_commits": ev["commits"]})
+        log(f"    every 503 == a consistency_unavailable event ({ev['unavailable_events']}); "
+            f"{ev['commits']} (slot, fence) commits, none by two daemons; fences monotone")
+
+        # -- (d) online reshard 64 -> 128 with writes through the window --
+        def reshard(action: str, check):
+            def one(i, u):
+                st, _, body, _ = http_call(u + "/admin/ks_reshard", "POST", json.dumps(
+                    {"action": action, "shards": KS_TARGET}).encode())
+                tally.note(st)
+                out = json.loads(body) if st == 200 else None
+                if out is None or not check(out):
+                    raise AssertionError(f"reshard {action} on daemon {i}: {st} {body!r}")
+                return out
+            return ks_each(fleet.urls, one)  # every daemon at once
+
+        t0 = time.perf_counter()
+        started = reshard("start", lambda o: o["phase"] == "migrate"
+                          and o["target"] == KS_TARGET)
+        line["reshard_moved"] = started[0]["moved"]
+        window = ks_stream(KS_WINDOW_WRITES, 1, first=KS_WRITES)
+        tw = time.perf_counter()
+        ks_post_pages(fleet.urls, window, tally, origin=3000)
+        line["window_write_s"] = time.perf_counter() - tw
+        for tenant, key, value in window:
+            fold[tenant][key] = value
+        streams = reshard("stream", lambda o: o["ok"] == o["sent"] > 0)
+        reshard("cutover", lambda o: o["epoch"] == 1 and o["n_shards"] == KS_TARGET)
+        line["reshard_window_s"] = time.perf_counter() - t0
+        log(f"(d) reshard {KS_SHARDS} -> {KS_TARGET}: start on all {n} "
+            f"({line['reshard_moved']} keys move), {KS_WINDOW_WRITES} writes through the "
+            f"window, a stream round each ({sum(s['sent'] for s in streams)} slices), "
+            f"cutover on all {n}: window {line['reshard_window_s']:.2f} s [{card}]")
+        conv2 = ks_converge(fleet.urls, fold, tally, "(d)", card)
+        if conv2["epochs"] != [1] * n or len(conv2["shard_stats"]) != KS_TARGET:
+            raise AssertionError(f"(d): epochs {conv2['epochs']}, "
+                                 f"{len(conv2['shard_stats'])} shards")
+        line.update({"reshard_converge_rounds": conv2["rounds"],
+                     "reshard_converge_s": conv2["seconds"]})
+
+        # -- (e) daemon 3: checkpoint, SIGKILL, restore --
+        fences_before = ks_fences([fleet.urls[KS_CRASHED]], tally)[0]
+        st, _, body, sec = http_call(fleet.urls[KS_CRASHED] + "/admin/checkpoint", "POST",
+                                     b"{}")
+        tally.note(st)
+        if st != 200:
+            raise AssertionError(f"/admin/checkpoint: {st} {body!r}")
+        line["checkpoint_s"] = sec
+        fleet.kill9(KS_CRASHED)
+        t0 = time.perf_counter()
+        fleet.start(KS_CRASHED)
+        served = fleet.serving(KS_CRASHED)
+        line["restart_to_serving_s"] = time.perf_counter() - t0
+        if "incarnation 1, restored=True" not in served:
+            raise AssertionError(f"restarted daemon {KS_CRASHED}: {served}")
+        u3 = fleet.urls[KS_CRASHED]
+        st, _, body, _ = http_call(u3 + "/admin/ks_reshard", "POST", b'{"action": "status"}')
+        tally.note(st)
+        status = json.loads(body)
+        if status != {"epoch": 1, "phase": "idle", "target": None, "n_shards": KS_TARGET}:
+            raise AssertionError(f"restored daemon's reshard status {status}")
+        fences_after = ks_fences([u3], tally)[0]
+        if fences_after != fences_before:
+            raise AssertionError(f"fence floors {fences_before} -> {fences_after}")
+        slot, floor = max(fences_after.items(), key=lambda x: x[1])
+        if floor < 1:
+            raise AssertionError(f"daemon {KS_CRASHED} knows no fence: {fences_after}")
+        st, _, body, _ = http_call(u3 + "/push", "POST", json.dumps(
+            {"payload": {}, "fences": {str(slot): floor - 1}}).encode())
+        tally.note(st)
+        if st != 409 or json.loads(body) != {"fenced": True, "slot": slot, "fence": floor}:
+            raise AssertionError(f"/push below the floor: {st} {body!r}")
+        for t in KS_TENANTS:
+            st, _, body, _ = http_call(u3 + "/ks/data?tenant=" + t)
+            tally.note(st)
+            if json.loads(body)["state"] != fold[t]:
+                raise AssertionError(f"restored daemon's tenant {t} != the fold")
+        log(f"(e) daemon {KS_CRASHED}: checkpoint {line['checkpoint_s']:.2f} s, kill -9, "
+            f"serving again in {line['restart_to_serving_s']:.2f} s at epoch 1 with "
+            f"{KS_TARGET} shards, the same fence floors (a /push below slot {slot}'s "
+            f"floor {floor} refused 409), every tenant == the fold [{card}]")
+
+        # -- (f) the fleet rollup CLI --
+        st_before = []
+        for u in fleet.urls:
+            st, _, body, _ = http_call(u + "/metrics")
+            tally.note(st)
+            st_before.append(body.decode())
+        cli = subprocess.run(
+            [sys.executable, "-m", "crdt_tpu_torch.obs", "fleet", *fleet.urls,
+             "--timeout", "120", "--out", str(root / "fleet.json")], cwd=Path(__file__).resolve().parent,
+            capture_output=True, text=True, timeout=120)
+        if cli.returncode != 0:
+            raise AssertionError(f"obs fleet exited {cli.returncode}: {cli.stderr[-2000:]}")
+        report = json.loads((root / "fleet.json").read_text())
+        for t in KS_TENANTS:
+            want = sum(series_sum(text, "crdt_keyspace_tenant_ops_total", tenant=t)
+                       for text in st_before)
+            if report["tenants"][t]["ops"] != want:
+                raise AssertionError(f"fleet tenant {t} ops {report['tenants'][t]['ops']} "
+                                     f"!= the members' /metrics {want}")
+        for text in st_before:
+            for key, v in ks_metric_map(text, "crdt_keyspace_shard_ops").items():
+                shard = key.split('shard="')[1].split('"')[0]
+                node = key.split('node="')[1].split('"')[0]
+                if report["shards"][shard]["nodes"][node]["ops"] != v:
+                    raise AssertionError(f"fleet shard {shard} node {node} ops != /metrics")
+        log(f"(f) python -m crdt_tpu_torch.obs fleet over the {n} daemons: exit 0, per-tenant "
+            f"ops and per-shard, per-member ops == each daemon's /metrics")
+        tally.check()
+    finally:
+        codes = fleet.stop()
+    if any(c != 0 for c in codes):
+        raise AssertionError(f"daemon exit codes {codes} (stderr in {root})")
+    line["statuses"] = {str(k): v for k, v in tally.statuses.items()}
+    line["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 19: {line['phase_s']:.1f} s (budget {KS_BUDGET_S} s)")
+    log(json.dumps({"keyspace_tier": line}))
+    return line
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3635,6 +4221,7 @@ def main() -> int:
     typed_phase(card, rows, kv)
     http_phase(card)
     net_phase(card)
+    ks_phase(card)
 
     print(card, flush=True)
     log(json.dumps({"kernels": rows}))

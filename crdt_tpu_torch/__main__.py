@@ -23,8 +23,8 @@ incarnation).  A fleet is one such process per replica:
 
 ``--device`` picks the torch device (default: the CUDA card; without one
 the command exits 2 rather than fall back; ``--device cpu`` is for the
-tests).  ``--keyspace-shards`` above 0 exits 2: the keyspace tier is not
-ported (ROADMAP Queue 1 item 3).
+tests).  ``--keyspace-shards S`` adds the sharded keyspace tier (S
+plane shards on the card, the tenant door and the ``/ks/*`` routes).
 """
 from __future__ import annotations
 
@@ -164,10 +164,6 @@ def run_daemon(args, device) -> int:
     from crdt_tpu_torch.api.net import NodeHost
     from crdt_tpu_torch.utils.config import ClusterConfig
 
-    if args.keyspace_shards:
-        print(f"--keyspace-shards {args.keyspace_shards}: the sharded keyspace tier is not "
-              "ported (ROADMAP Queue 1 item 3)", file=sys.stderr)
-        return 2
     if args.compact_every and not args.coordinator:
         # barriers come from exactly one member (network_compact's
         # single-scheduler rule); a non-coordinator still folds when the
@@ -204,6 +200,7 @@ def run_daemon(args, device) -> int:
         set_collect_every=args.set_collect_every,
         seq_collect_every=args.seq_collect_every,
         map_reset_every=args.map_reset_every,
+        keyspace_shards=args.keyspace_shards,
     )
     peers = [u for u in (args.peers or "").split(",") if u]
     rid = args.rid
@@ -347,8 +344,10 @@ def main(argv=None) -> int:
                          "gossip round, barrier and fault transition, with "
                          "the round's X-CRDT-Trace ID)")
     ap.add_argument("--keyspace-shards", type=int, default=0,
-                    help="daemon: the sharded keyspace tier's shard count; "
-                         "not ported, so anything above 0 exits 2")
+                    help="daemon: enable the sharded keyspace tier with "
+                         "this many hash shards (0 = single-plane layout); "
+                         "shard planes checkpoint/restore through the "
+                         "same manifest machinery as the KV node")
     ap.add_argument("--device", default=None,
                     help="torch device of every replica's state (default: the "
                          "CUDA card; the command fails without one rather than "

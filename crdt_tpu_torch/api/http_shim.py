@@ -43,7 +43,40 @@ answer carries the write's ``X-CRDT-Session-Token`` (its vv watermark).
 The body stays the reference's ``Inserted``; an unparseable body is the
 reference's 500.
 
-Daemon mode (the handler built with ``admin=``, a NodeHost) adds:
+Daemon mode (the handler built with ``admin=``, a NodeHost) adds the
+consistency plane and the coordinator leases:
+
+  GET  /read?key=k&level=l      l in eventual|session|bounded|linearizable
+                                (session: the X-CRDT-Session-Token header;
+                                bounded: &staleness=<ops>); 200
+                                {"key","value","level"}, 503 + Retry-After
+                                when the level cannot be met
+  POST /cas                     {"key","expect","update"} or {"ops": {key:
+                                {"expect","update"}}} -> 200 {"token"}, 409
+                                {"conflict", ..., "coordinator","fence"},
+                                503 as /read; routed to the key's slot
+                                coordinator under a fenced lease
+  POST /push                    with {"fences": {slot: fence}}: a stale
+                                stamp is refused whole, 409 {"fenced",
+                                "slot","fence"}
+  POST /lease/grant             {"slot","holder","fence","ttl"} -> one vote
+
+the sharded keyspace when its config has ``keyspace_shards`` > 0 (writes
+naming their tenant in ``X-CRDT-Tenant`` on /data, /ingest/page and
+/map/upd route through the tenant door; ``X-CRDT-KS-Epoch`` on a page
+409s when stale):
+
+  GET  /ks/gossip?shard=i[&vv=][&epoch=e]  one shard's delta payload and
+                                its stability summary in the body
+  GET  /ks/data[?tenant=t]      a tenant's state, or the per-shard stats
+  POST /ks/compact              {"shard","frontier","epoch"?}: fold one
+                                shard
+  POST /ks/migrate              {"shard","epoch","payload"}: one reshard
+                                migration slice
+  POST /admin/ks_pull, /admin/ks_gc, /admin/ks_reshard  the keyspace's
+                                pull, shard-local GC and reshard machine
+
+and the drive routes:
 
   POST /admin/pull              {"peer": url?} -> one gossip pull now
   POST /admin/barrier           one compaction barrier now (coordinator)
@@ -56,15 +89,10 @@ Daemon mode (the handler built with ``admin=``, a NodeHost) adds:
 and every GET /gossip answer's stability header carries the node's
 audit digest, clamped at the summary's frontier.
 
-As in the JAX package's demo mode, ``/read``, ``/cas``, ``/lease/grant``,
-``/ks/*``, ``/composite/*``, ``/admin/*`` and ``/audit`` answer 404 in
-demo mode.  Where the port differs from the JAX package, each route
-answers 404 with a body naming ROADMAP Queue 1 item 3 (the fleet tier:
-keyspace, leases, consistency plane, fleet rollup): ``/fleet`` in demo
-mode (the JAX demo serves its rollup), and on a daemon ``/read``,
-``/cas``, ``/lease/grant``, ``/admin/ks_pull``, ``/admin/ks_gc`` and
-``/admin/ks_reshard`` (a JAX daemon serves them from its consistency
-plane, leases and keyspace); a daemon's ``/push`` checks no fence stamp.
+``GET /fleet`` folds this node's ``/metrics`` and every reachable peer's
+into one SLO rollup (:mod:`crdt_tpu_torch.obs.fleet`).  As in the JAX
+package's demo mode, ``/read``, ``/cas``, ``/lease/grant``, ``/ks/*``,
+``/composite/*``, ``/admin/*`` and ``/audit`` answer 404 in demo mode.
 
 The /condition route takes the flag as a path segment (or
 ``?alive_status=``); the reference registered it without its parameter,
@@ -78,23 +106,25 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import List, Optional
 from urllib.parse import parse_qs, urlparse
 
-from crdt_tpu_torch.consistency.session import SESSION_TOKEN_HEADER, encode_token
+from crdt_tpu_torch.consistency.plane import CasConflict, ConsistencyUnavailable
+from crdt_tpu_torch.consistency.session import (
+    SESSION_TOKEN_HEADER,
+    decode_token,
+    encode_token,
+)
 from crdt_tpu_torch.consistency.stability import STABILITY_HEADER, encode_summary
 from crdt_tpu_torch.ingest import PageFormatError, ShedError
+from crdt_tpu_torch.keyspace import TENANT_HEADER
 from crdt_tpu_torch.obs import health
 from crdt_tpu_torch.obs.trace import TRACE_HEADER, span
 
 PROM_CTYPE = "text/plain; version=0.0.4; charset=utf-8"
 JSON = "application/json"
 
-# a write's tenant (the keyspace tier's header); without the tier a tenant
-# only labels the front door's shed and quarantine accounting
-TENANT_HEADER = "X-CRDT-Tenant"
-
-FLEET_NOT_PORTED = "fleet rollup not ported (ROADMAP Queue 1 item 3: obs/fleet)"
-TIER_NOT_PORTED = ("not ported: the consistency plane, leases and keyspace of a "
-                   "daemon (ROADMAP Queue 1 item 3)")
-KS_ADMIN = ("/admin/ks_pull", "/admin/ks_gc", "/admin/ks_reshard")
+# optional reshard-epoch stamp on tenant-scoped page admits: a stamped
+# page 409s when the writer's epoch is stale (keyspace/reshard.py); an
+# un-stamped page routes by the live shard map
+KS_EPOCH_HEADER = "X-CRDT-KS-Epoch"
 
 
 def _ranks(d) -> dict:
@@ -134,6 +164,24 @@ def _make_handler(cluster, idx: int, admin=None):
             doors = getattr(cluster, "ingests", None)
             return doors[idx] if doors else None
 
+        # a daemon's tier (None in demo mode): the sharded keyspace and
+        # its tenant door, the consistency plane and the leases
+        @property
+        def keyspace(self):
+            return getattr(admin, "keyspace", None)
+
+        @property
+        def ks_door(self):
+            return getattr(admin, "ks_door", None)
+
+        @property
+        def consistency(self):
+            return getattr(admin, "consistency", None)
+
+        @property
+        def leases(self):
+            return getattr(admin, "leases", None)
+
         def log_message(self, *args):  # quiet
             pass
 
@@ -151,6 +199,23 @@ def _make_handler(cluster, idx: int, admin=None):
                 self.send_header(k, v)
             self.end_headers()
             self.wfile.write(data)
+
+        def _send_unavailable(self, exc: ConsistencyUnavailable):
+            """503 + Retry-After: a strong operation that cannot meet its
+            guarantee, never a silently stale value.  The body carries every
+            field a forwarding origin needs to re-raise the refusal."""
+            body = {
+                "error": "consistency_unavailable",
+                "reason": exc.reason, "level": exc.level,
+                "op": exc.op, "acks": exc.acks, "quorum": exc.quorum,
+                "indeterminate": exc.indeterminate,
+                "retry_after_s": exc.retry_after_s,
+            }
+            if exc.token:
+                # the minted-but-unacked op identity
+                body["token"] = {str(r): s for r, s in exc.token.items()}
+            self._send_bytes(503, json.dumps(body).encode(), JSON,
+                             extra_headers={"Retry-After": f"{exc.retry_after_s:.3f}"})
 
         def _send_shed(self, exc: ShedError):
             """429 Too Many Requests + Retry-After: the loud face of the
@@ -292,7 +357,19 @@ def _make_handler(cluster, idx: int, admin=None):
                 return
             front = self.ingest
             key = str(body.get("key", ""))
-            if front is not None and front.map is not None:
+            tenant = self.headers.get(TENANT_HEADER)
+            if tenant is not None and self.ks_door is not None:
+                # books against the tenant's quota slice, the key lands
+                # qualified
+                try:
+                    ident = self.ks_door.admit_map_upd(tenant, key, delta)
+                except ShedError as e:
+                    self._send_shed(e)
+                    return
+                except ValueError as e:  # a bad tenant name
+                    self._send(400, str(e))
+                    return
+            elif front is not None and front.map is not None:
                 # singleton map writes share the page path's admission
                 # queue: one drain = one batched mint
                 try:
@@ -322,15 +399,13 @@ def _make_handler(cluster, idx: int, admin=None):
             if parts and parts[0] == "composite" and sibling("composite") is not None:
                 self._composite_get(sibling("composite"), url.path)
                 return
+            if parts and parts[0] == "ks" and self.keyspace is not None:
+                self._ks_get(self.keyspace, url)
+                return
             if url.path == "/metrics":
-                self._send(200, health.render_node_metrics(
-                    self.node, set_node=sibling("set"), seq_node=sibling("seq"),
-                    map_node=sibling("map"), composite_node=sibling("composite"),
-                    agent=agent, ingest=self.ingest,
-                    stability=getattr(agent, "stability", None),
-                    watchdog=getattr(agent, "watchdog", None)), PROM_CTYPE)
+                self._send(200, self._metrics_text(), PROM_CTYPE)
             elif url.path == "/fleet":
-                self._send(404, FLEET_NOT_PORTED)
+                self._fleet(url)
             elif url.path == "/audit":
                 wd = getattr(agent, "watchdog", None)
                 if wd is None:
@@ -343,6 +418,14 @@ def _make_handler(cluster, idx: int, admin=None):
                 else:
                     self._send(502, "Unreachable")
             elif url.path == "/data":
+                tenant = self.headers.get(TENANT_HEADER)
+                if tenant is not None and self.keyspace is not None:
+                    # the tenant's slice of the keyspace, un-qualified
+                    if not self.node.alive:
+                        self._send(502, "Unreachable")
+                    else:
+                        self._send_json(200, self.keyspace.tenant_state(tenant))
+                    return
                 state = self.node.get_state()
                 if state is None:
                     self._send(502, "Unreachable")
@@ -351,8 +434,7 @@ def _make_handler(cluster, idx: int, admin=None):
             elif url.path == "/gossip":
                 self._gossip(url)
             elif url.path == "/read":
-                self._send(404, TIER_NOT_PORTED if admin is not None
-                           else "no consistency plane on this node")
+                self._read(url)
             elif url.path == "/vv":
                 if not self.node.alive:
                     self._send(502, "Unreachable")
@@ -369,6 +451,134 @@ def _make_handler(cluster, idx: int, admin=None):
                 self._send(200, "OK")
             else:
                 self._send(404, "not found")
+
+        def _metrics_text(self) -> str:
+            """The Prometheus exposition: the node's registry and the health
+            gauges of every plane this handler serves, sampled now."""
+            return health.render_node_metrics(
+                self.node, set_node=sibling("set"), seq_node=sibling("seq"),
+                map_node=sibling("map"), composite_node=sibling("composite"),
+                agent=agent, ingest=self.ingest,
+                stability=getattr(agent, "stability", None),
+                keyspace=self.keyspace, ks_door=self.ks_door, leases=self.leases,
+                watchdog=getattr(agent, "watchdog", None))
+
+        def _fleet(self, url) -> None:
+            """GET /fleet: this node's exposition and every reachable peer's
+            /metrics, folded by obs.fleet (the CLI's code path); slo_breach
+            events land in this node's event log."""
+            from crdt_tpu_torch.obs import fleet as fleet_lib
+
+            texts = {str(self.node.rid): self._metrics_text()}
+            if agent is not None:
+                for p in agent.peers:
+                    if p.backed_off():
+                        continue
+                    text = p.metrics_text()
+                    if text is not None:
+                        texts[p.url] = text
+            q = parse_qs(url.query)
+            slo = {}
+            for key in ("admit_p99_ms", "prop_p99_steps", "shed_ratio"):
+                if key in q:
+                    try:
+                        slo[key] = float(q[key][0])
+                    except ValueError:
+                        self._send(400, f"invalid {key}")
+                        return
+            report = fleet_lib.fleet_from_texts(
+                texts, slo=slo or None, events=self.node.events)
+            self._send_json(200, report)
+
+        def _ks_get(self, ks, url) -> None:
+            """GET /ks/gossip (one shard's delta and its stability summary,
+            epoch-fenced) and GET /ks/data (a tenant's state, or the
+            per-shard stats)."""
+            if url.path == "/ks/gossip":
+                if not self.node.alive:
+                    self._send(502, "Unreachable")
+                    return
+                q = parse_qs(url.query)
+                try:
+                    shard = int(q.get("shard", [None])[0])
+                    assert 0 <= shard < ks.n_shards
+                except (TypeError, ValueError, AssertionError):
+                    self._send(400, "invalid shard")
+                    return
+                # a puller at another reshard epoch gets a 409 naming ours
+                # (no ?epoch= means epoch 0)
+                fence = ks.check_epoch(q.get("epoch", [None])[0], "ks_gossip",
+                                       peer=self.client_address[0])
+                if fence is not None:
+                    self._send_json(409, fence)
+                    return
+                since = self._parse_vv_query(url)
+                if since == "bad":
+                    self._send(400, "invalid vv")
+                    return
+                trace = self.headers.get(TRACE_HEADER)
+                payload = ks.gossip_payload(shard, since=since)
+                if trace:
+                    self.node.events.emit(
+                        "ks_gossip_serve", trace=trace, shard=shard,
+                        peer=self.client_address[0], delta=since is not None)
+                # the shard's stability summary and audit digest ride the
+                # BODY: a round pulls several shards
+                vv, frontier, dig = ks.audit_snapshot(shard)
+                body = {"payload": payload, "vv": _ranks(vv),
+                        "frontier": _ranks(frontier)}
+                if dig is not None:
+                    body["digest"] = dig
+                self._send_bytes(200, json.dumps(body).encode(), JSON,
+                                 extra_headers={TRACE_HEADER: trace} if trace else None)
+            elif url.path == "/ks/data":
+                if not self.node.alive:
+                    self._send(502, "Unreachable")
+                    return
+                tenant = parse_qs(url.query).get("tenant", [None])[0]
+                if tenant is not None:
+                    self._send_json(200, {"tenant": tenant,
+                                          "state": ks.tenant_state(tenant)})
+                else:
+                    self._send_json(200, {"shards": ks.shard_stats()})
+            else:
+                self._send(404, "not found")
+
+        def _read(self, url) -> None:
+            """GET /read?key=&level=[&staleness=]: one read at a consistency
+            level, through the consistency plane."""
+            plane = self.consistency
+            if plane is None:
+                self._send(404, "no consistency plane on this node")
+                return
+            q = parse_qs(url.query)
+            key = q.get("key", [None])[0]
+            if key is None:
+                self._send(400, "missing key")
+                return
+            level = q.get("level", ["eventual"])[0]
+            token = decode_token(self.headers.get(SESSION_TOKEN_HEADER))
+            if level == "session" and token is None:
+                self._send(400, "session read requires a valid "
+                                f"{SESSION_TOKEN_HEADER} header")
+                return
+            staleness = None
+            if "staleness" in q:
+                try:
+                    staleness = int(q["staleness"][0])
+                except ValueError:
+                    self._send(400, "staleness must be an integer op budget")
+                    return
+            try:
+                value = plane.read(key, level=level, token=token,
+                                   staleness=staleness)
+            except ValueError as e:
+                self._send(400, str(e))
+                return
+            except ConsistencyUnavailable as e:
+                self._send_unavailable(e)
+                return
+            self._send_json(200, {"key": key, "value": value, "level": level})
 
         def _composite_get(self, cn, path: str) -> None:
             if path == "/composite":
@@ -435,17 +645,15 @@ def _make_handler(cluster, idx: int, admin=None):
                 self._composite_post(sibling("composite"), path)
                 return
             if path in ("/ks/compact", "/ks/migrate"):
-                self._send(404, "no keyspace tier on this node")
+                self._ks_post(path)
             elif path == "/compact":
                 self._compact()
             elif path == "/push":
                 self._push()
             elif path == "/lease/grant":
-                self._send(404, TIER_NOT_PORTED if admin is not None
-                           else "no lease manager on this node")
+                self._lease_grant()
             elif path == "/cas":
-                self._send(404, TIER_NOT_PORTED if admin is not None
-                           else "no consistency plane on this node")
+                self._cas()
             elif path != "/data":
                 self._send(404, "not found")
             else:
@@ -459,9 +667,6 @@ def _make_handler(cluster, idx: int, admin=None):
                 body = json.loads(self._body() or b"{}")
             except ValueError:
                 self._send(400, "invalid body")
-                return
-            if path in KS_ADMIN:
-                self._send(404, TIER_NOT_PORTED)
                 return
             pulls = {"/admin/pull": admin.admin_pull, "/admin/set_pull": admin.admin_set_pull,
                      "/admin/seq_pull": admin.admin_seq_pull,
@@ -489,6 +694,19 @@ def _make_handler(cluster, idx: int, admin=None):
                     self._send_json(200, {"epochs": {str(k): int(e)
                                                      for k, e in out["epochs"].items()},
                                           "status": out["status"]})
+                elif path == "/admin/ks_pull":
+                    self._send_json(200, {"fresh": int(admin.admin_ks_pull(body.get("peer")))})
+                elif path == "/admin/ks_reshard":
+                    try:
+                        out = admin.admin_ks_reshard(body)
+                    except ValueError as e:
+                        self._send(400, str(e))
+                    else:
+                        self._send_json(200, out)
+                elif path == "/admin/ks_gc":
+                    folded = admin.admin_ks_gc()
+                    self._send_json(200, {"shards": {str(i): _ranks(f)
+                                                     for i, f in folded.items()}})
                 else:
                     self._send(404, "not found")
             except Exception as e:  # noqa: BLE001 — answered, never a silent skip
@@ -539,12 +757,30 @@ def _make_handler(cluster, idx: int, admin=None):
             if not self.node.alive:
                 self._send(502, "Unreachable")
                 return
+            tenant = self.headers.get(TENANT_HEADER)
             try:
-                out = front.admit_page(raw, tenant=self.headers.get(TENANT_HEADER))
+                if tenant is not None and self.ks_door is not None:
+                    # a writer that stamps its reshard epoch gets a 409
+                    # naming ours when stale
+                    eh = self.headers.get(KS_EPOCH_HEADER)
+                    if eh is not None:
+                        fence = self.keyspace.check_epoch(
+                            eh, "ingest_page", peer=self.client_address[0])
+                        if fence is not None:
+                            self._send_json(409, fence)
+                            return
+                    # rendezvous fan-out across the shard lanes, the
+                    # tenant's quota slice, whole-page shed
+                    out = self.ks_door.admit_page(raw, tenant)
+                else:
+                    out = front.admit_page(raw, tenant=tenant)
             except PageFormatError as e:
                 # decoded and validated whole before any op is admitted: a
                 # truncated page is "no page", never "some ops"
                 self._send(400, f"page quarantined: {e}")
+                return
+            except ValueError as e:  # a bad tenant name
+                self._send(400, str(e))
                 return
             except ShedError as e:
                 self._send_shed(e)
@@ -571,9 +807,7 @@ def _make_handler(cluster, idx: int, admin=None):
                 body = json.loads(self._body() or b"{}")
                 payload = body.get("payload")
                 assert isinstance(payload, dict)
-                # a fence stamp must parse; checking it needs the fleet
-                # tier's leases, which demo mode does not have
-                _int_map(body.get("fences"))
+                fences = _int_map(body.get("fences"))
                 trace = body.get("trace")
                 trace = None if trace is None else str(trace)
             except Exception:
@@ -582,6 +816,14 @@ def _make_handler(cluster, idx: int, admin=None):
             if not self.node.alive:
                 self._send(502, "Unreachable")
                 return
+            if fences and self.leases is not None:
+                # the fence firewall BEFORE the merge: a push stamped with a
+                # superseded lease epoch is refused whole
+                stale = self.leases.check_push_fences(fences, trace=trace)
+                if stale is not None:
+                    self._send_json(409, {"fenced": True, "slot": stale["slot"],
+                                          "fence": stale["fence"]})
+                    return
             try:
                 if trace:
                     with span("crdt.push", trace):
@@ -593,6 +835,120 @@ def _make_handler(cluster, idx: int, admin=None):
                 return
             self._send_json(200, {"fresh": fresh})
 
+        def _ks_post(self, path: str) -> None:
+            """POST /ks/compact (fold one shard) and /ks/migrate (one
+            reshard migration slice), both epoch-fenced."""
+            ks = self.keyspace
+            if ks is None:
+                self._send(404, "no keyspace tier on this node")
+                return
+            try:
+                body = json.loads(self._body() or b"{}")
+                shard = int(body.get("shard"))
+                if path == "/ks/compact":
+                    assert 0 <= shard < ks.n_shards
+                    frontier = _int_map(body.get("frontier"))
+                else:
+                    payload = body.get("payload")
+                    assert isinstance(payload, dict)
+            except Exception:
+                self._send(400, "invalid shard/frontier" if path == "/ks/compact"
+                           else "invalid shard/payload")
+                return
+            if not self.node.alive:
+                self._send(502, "Unreachable")
+                return
+            # a frontier or slice minted against another plane generation
+            # must never touch this one (absent epoch = epoch 0)
+            fence = ks.check_epoch(body.get("epoch"), path[1:].replace("/", "_"),
+                                   peer=self.client_address[0])
+            if fence is not None:
+                self._send_json(409, fence)
+                return
+            if path == "/ks/compact":
+                ks.compact_shard(shard, frontier)
+                self._send(200, "OK")
+                return
+            out = ks.reshard.receive_migration(shard, payload,
+                                               peer=self.client_address[0])
+            if out.get("ok"):
+                self._send_json(200, out)
+            elif "quarantined" in out:
+                self._send_json(400, out)
+            else:
+                # not in a MIGRATE window at this epoch: the fence's 409
+                # grammar, so the sender retries later
+                out["fenced"] = True
+                out["epoch"] = ks.epoch
+                self._send_json(409, out)
+
+        def _lease_grant(self) -> None:
+            """POST /lease/grant: one coordinator-lease vote."""
+            leases = self.leases
+            if leases is None:
+                self._send(404, "no lease manager on this node")
+                return
+            try:
+                body = json.loads(self._body() or b"{}")
+                slot = int(body["slot"])
+                holder = str(body["holder"])
+                fence = int(body["fence"])
+                ttl = float(body["ttl"])
+                assert 0 <= slot < leases.n_slots and fence > 0 and ttl > 0
+            except Exception:
+                self._send(400, "invalid grant request: need slot/holder/fence/ttl")
+                return
+            if not self.node.alive:
+                self._send(502, "Unreachable")
+                return
+            self._send_json(200, leases.grant(slot, holder, fence, ttl))
+
+        def _cas(self) -> None:
+            """POST /cas: one CAS or an all-or-nothing multi-key batch,
+            routed to the slot coordinator by the consistency plane."""
+            plane = self.consistency
+            if plane is None:
+                self._send(404, "no consistency plane on this node")
+                return
+            try:
+                body = json.loads(self._body() or b"{}")
+                assert isinstance(body, dict)
+                if "ops" in body:
+                    assert isinstance(body["ops"], dict) and body["ops"]
+                    ops = {}
+                    for k, ou in body["ops"].items():
+                        e = ou.get("expect")
+                        ops[str(k)] = (None if e is None else str(e), str(ou["update"]))
+                else:
+                    expect = body.get("expect")
+                    ops = {str(body["key"]): (None if expect is None else str(expect),
+                                              str(body["update"]))}
+                hops = int(body.get("hops", 0))
+                timeout = body.get("timeout")
+                timeout = None if timeout is None else float(timeout)
+                assert hops >= 0
+            except Exception:
+                self._send(400, "invalid body: need key/update or "
+                                "ops={key:{expect,update}} "
+                                "(expect null = key must be absent)")
+                return
+            # the request's trace: the header from external clients, the
+            # body field across coordinator forwarding hops
+            trace = self.headers.get(TRACE_HEADER) or body.get("trace")
+            trace = None if trace is None else str(trace)
+            try:
+                token = plane.cas_multi(ops, timeout=timeout, hops=hops, trace=trace)
+            except CasConflict as e:
+                self._send_json(409, {"conflict": True, "key": e.key,
+                                      "expect": e.expect, "actual": e.actual,
+                                      "coordinator": e.coordinator, "fence": e.fence})
+                return
+            except ConsistencyUnavailable as e:
+                self._send_unavailable(e)
+                return
+            self._send_bytes(200, json.dumps({"token": _ranks(token)}).encode(), JSON,
+                             extra_headers={SESSION_TOKEN_HEADER: encode_token(token)})
+
         def _post_data(self) -> None:
             try:
                 cmd = json.loads(self._body() or b"{}")
@@ -600,6 +956,25 @@ def _make_handler(cluster, idx: int, admin=None):
                 cmd = {str(k): str(v) for k, v in cmd.items()}
             except Exception:
                 self._send(500, "Request body is invalid")  # main.go:179-186
+                return
+            tenant = self.headers.get(TENANT_HEADER)
+            if tenant is not None and self.ks_door is not None:
+                # every pair routes to its owning shard's lane (all or
+                # nothing); the LAST pair's ident mints the session token
+                try:
+                    idents = self.ks_door.admit_cmd(tenant, cmd)
+                except ShedError as e:
+                    self._send_shed(e)
+                    return
+                except ValueError as e:  # a bad tenant name
+                    self._send(400, str(e))
+                    return
+                if idents and all(i is not None for i in idents):
+                    ident = idents[-1]
+                    self._send_bytes(200, b"Inserted", "text/plain", extra_headers={
+                        SESSION_TOKEN_HEADER: encode_token({ident[0]: ident[1]})})
+                else:
+                    self._send(502, "Unreachable")
                 return
             front = self.ingest
             if front is None:
@@ -610,7 +985,7 @@ def _make_handler(cluster, idx: int, admin=None):
                 return
             # the single-op route rides the same admission lane as op pages
             try:
-                ident = front.admit_kv(cmd, tenant=self.headers.get(TENANT_HEADER))
+                ident = front.admit_kv(cmd, tenant=tenant)
             except ShedError as e:
                 self._send_shed(e)
                 return

@@ -15,9 +15,10 @@ wire surface:
   main.go:226-261, with delta gossip, quarantine of malformed payloads,
   the compaction, stability and sibling barriers, and the audit
   watchdog);
-* ``NodeHost``: one replica, its siblings, its HTTP endpoint, its agent
-  and its checkpoints: the standalone deployment unit
-  (``python -m crdt_tpu_torch --daemon``).
+* ``NodeHost``: one replica, its siblings, its sharded keyspace (when
+  ``keyspace_shards`` > 0), its coordinator leases and consistency plane,
+  its HTTP endpoint, its agent and its checkpoints: the standalone
+  deployment unit (``python -m crdt_tpu_torch --daemon``).
 
 Gossip payloads carry raw strings and absolute-ms wire keys
 (:mod:`crdt_tpu_torch.api.node`), so peers never share an interner or an
@@ -29,10 +30,9 @@ Each daemon is its own process with its own CUDA context and its own
 and nothing serializes merges across processes (as nothing does in the
 JAX package).
 
-Not ported: the keyspace, lease and CAS legs of ``RemotePeer`` and the
-keyspace pulls, GC and resharding of ``NetworkAgent`` (ROADMAP Queue 1
-item 3); they raise, and ``ks_pull`` is a no-op as in the JAX package
-without a keyspace.
+The keyspace's shard planes fold on the host path, one merge per shard
+and payload (the JAX package's ``_ks_pull_mesh`` device-mesh round is
+ROADMAP Queue 1 item 6).
 """
 from __future__ import annotations
 
@@ -58,6 +58,7 @@ from crdt_tpu_torch.api.node import (
     pull_round,
     stable_frontier_host,
 )
+from crdt_tpu_torch.consistency.plane import ConsistencyPlane
 from crdt_tpu_torch.consistency.stability import (
     STABILITY_HEADER,
     StabilityTracker,
@@ -65,11 +66,9 @@ from crdt_tpu_torch.consistency.stability import (
 )
 from crdt_tpu_torch.obs.audit import AuditWatchdog
 from crdt_tpu_torch.obs.events import EventLog
-from crdt_tpu_torch.obs.trace import TRACE_HEADER, mint_trace_id
+from crdt_tpu_torch.obs.trace import TRACE_HEADER, mint_trace_id, span
 from crdt_tpu_torch.utils.config import ClusterConfig
 from crdt_tpu_torch.utils.metrics import Metrics
-
-TIER_NOT_PORTED = "the keyspace and lease tier is not ported (ROADMAP Queue 1 item 3)"
 
 # RemotePeer circuit-breaker states (exposed as the
 # net_peer_circuit_state gauge: 0 / 1 / 2 in this order)
@@ -211,6 +210,10 @@ class RemotePeer:
         with self._http_err_lock:
             got, self._http_err = self._http_err, None
         return got
+
+    def _clear_http_error(self) -> None:
+        with self._http_err_lock:
+            self._http_err = None
 
     def _get(self, path: str,
              headers: Optional[Dict[str, str]] = None) -> Optional[bytes]:
@@ -369,34 +372,197 @@ class RemotePeer:
             {"frontier": {str(r): s for r, s in frontier.items()}},
         )
 
-    # ---- the keyspace, lease and CAS legs: not ported ----
+    # ---- sharded keyspace surface (crdt_tpu_torch.keyspace) ----
 
-    def ks_gossip(self, *args, **kwargs):
-        raise NotImplementedError(f"RemotePeer.ks_gossip: {TIER_NOT_PORTED}")
+    def ks_gossip(self, shard: int,
+                  since: Optional[Dict[int, int]] = None,
+                  trace: Optional[str] = None,
+                  epoch: Optional[int] = None,
+                  ) -> Optional[Dict[str, Any]]:
+        """GET /ks/gossip?shard=i[&vv=...][&epoch=e]: one SHARD's delta
+        payload plus its stability summary in the response BODY
+        ({"payload", "vv", "frontier"}).  Body, not header: a round
+        pulls several shards and the header slot (take_stability) holds
+        only one summary.  Built on _get, so the circuit breaker sees it
+        like any other pull.  ``trace`` rides the X-CRDT-Trace header so
+        the serve event joins the puller's round, exactly like /gossip.
 
-    def ks_compact(self, *args, **kwargs):
-        raise NotImplementedError(f"RemotePeer.ks_compact: {TIER_NOT_PORTED}")
+        ``epoch`` is the puller's reshard epoch; a peer at a different
+        one answers 409 and this returns its fence body ``{"fenced":
+        True, "epoch": theirs, ...}`` instead of a payload — callers
+        must check ``"fenced"`` before folding."""
+        path = f"/ks/gossip?shard={int(shard)}"
+        if since is not None:
+            vv = json.dumps({str(r): s for r, s in since.items()})
+            path += "&vv=" + urllib.parse.quote(vv)
+        if epoch is not None:
+            path += f"&epoch={int(epoch)}"
+        headers = {TRACE_HEADER: trace} if trace else None
+        self._clear_http_error()
+        out = self._parse(self._get(path, headers=headers))
+        if out is not None:
+            return out
+        err = self.take_http_error()
+        if err is not None and err[0] == 409 \
+                and err[1] is not None and err[1].get("fenced"):
+            return err[1]
+        return None
 
-    def ks_migrate(self, *args, **kwargs):
-        raise NotImplementedError(f"RemotePeer.ks_migrate: {TIER_NOT_PORTED}")
+    def ks_compact(self, shard: int, frontier: Dict[int, int],
+                   epoch: Optional[int] = None) -> Dict[str, Any]:
+        """POST /ks/compact: fold ONE shard at/under ``frontier`` —
+        stability GC gone shard-local.  Returns ``{"ok": True}``,
+        ``{"ok": False, "fenced": True, "epoch": theirs}`` when the
+        peer's reshard epoch differs, or ``{"ok": False}`` on transport
+        failure / node down."""
+        body: Dict[str, Any] = {
+            "shard": int(shard),
+            "frontier": {str(r): s for r, s in frontier.items()},
+        }
+        if epoch is not None:
+            body["epoch"] = int(epoch)
+        got = self._post_json("/ks/compact", body)
+        if got is None:
+            return {"ok": False}
+        if got["status"] == 200:
+            return {"ok": True}
+        rb = got["body"] or {}
+        if got["status"] == 409 and rb.get("fenced"):
+            return {"ok": False, "fenced": True,
+                    "epoch": int(rb.get("epoch", -1))}
+        return {"ok": False}
 
-    def ks_reshard_admin(self, *args, **kwargs):
-        raise NotImplementedError(f"RemotePeer.ks_reshard_admin: {TIER_NOT_PORTED}")
+    def ks_migrate(self, shard: int, payload: Dict[str, Any], epoch: int,
+                   trace: Optional[str] = None) -> Dict[str, Any]:
+        """POST /ks/migrate: one reshard migration slice for destination
+        ``shard``, as an ordinary wire payload the receiver folds into
+        its migration buffer.  Returns ``{"ok": True, "folded": n}``;
+        ``{"ok": False, "fenced": True, "epoch": theirs}`` when the
+        peer is not migrating at our epoch (retry next round — it may
+        not have been told yet); ``{"ok": False, "quarantined": err}``
+        when the peer rejected the payload as corrupt (do NOT blind-
+        retry the same bytes); ``{"ok": False}`` on transport failure —
+        the breaker/backoff machinery paces the retry."""
+        body: Dict[str, Any] = {
+            "shard": int(shard), "epoch": int(epoch), "payload": payload,
+        }
+        if trace:
+            body["trace"] = trace
+        got = self._post_json("/ks/migrate", body)
+        if got is None:
+            return {"ok": False}
+        rb = got["body"] or {}
+        if got["status"] == 200:
+            return {"ok": True, "folded": int(rb.get("folded", 0))}
+        if got["status"] == 409 and rb.get("fenced"):
+            return {"ok": False, "fenced": True,
+                    "epoch": int(rb.get("epoch", -1))}
+        if got["status"] == 400:
+            return {"ok": False,
+                    "quarantined": str(rb.get("quarantined", "rejected"))}
+        return {"ok": False}
 
-    def lease_grant(self, *args, **kwargs):
-        raise NotImplementedError(f"RemotePeer.lease_grant: {TIER_NOT_PORTED}")
+    def ks_reshard_admin(self, action: str, shards: Optional[int] = None
+                         ) -> Optional[Dict[str, Any]]:
+        """POST /admin/ks_reshard: drive one node's reshard state
+        machine (action = start|cutover|abort|status).  Returns the
+        node's status dict, or None on transport failure / refusal."""
+        body: Dict[str, Any] = {"action": str(action)}
+        if shards is not None:
+            body["shards"] = int(shards)
+        got = self._post_json("/admin/ks_reshard", body)
+        if got is None or got["status"] != 200:
+            return None
+        return got["body"]
 
-    def push_fenced(self, *args, **kwargs):
-        raise NotImplementedError(f"RemotePeer.push_fenced: {TIER_NOT_PORTED}")
-
-    def cas_forward(self, *args, **kwargs):
-        raise NotImplementedError(f"RemotePeer.cas_forward: {TIER_NOT_PORTED}")
     def push_payload(self, payload: Dict[str, Any]) -> bool:
-        """POST /push: hand the peer a gossip payload to merge NOW.  A
-        200 means the peer merged it before answering, so its vv
-        dominates every op the payload carried; built on _post, so it
-        crosses the circuit breaker like every other leg."""
+        """POST /push: hand the peer a gossip payload to merge NOW —
+        the synchronous write-quorum leg of CAS (crdt_tpu_torch.consistency
+        .plane).  A 200 means the peer merged it before answering, so
+        its vv dominates every op the payload carried; built on _post,
+        so it crosses the circuit breaker like every other leg."""
         return self._post("/push", {"payload": payload})
+
+    # ---- coordinator-lease surface (consistency.leases) ----
+
+    def _post_json(self, path: str, body: dict) -> Optional[Dict[str, Any]]:
+        """POST returning ``{"status": int, "body": parsed-or-None}``, or
+        None on transport failure.  The lease/CAS surfaces need the
+        RESPONSE BODY of non-200 statuses (a grant refusal names the
+        blocking fence; a 409 names the deciding coordinator; a 503
+        carries the coordinator's refusal the origin must re-raise), so
+        _post's bool is not enough.  Same breaker accounting as _post."""
+        req = urllib.request.Request(
+            self.url + path,
+            data=json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"},
+            method="POST",
+        )
+        try:
+            with urllib.request.urlopen(req, timeout=self.timeout) as res:
+                status, raw = res.status, res.read()
+        except urllib.error.HTTPError as e:
+            self._note_reachable()  # served an error status: peer is UP
+            status, raw = e.code, e.read()
+        except (urllib.error.URLError, OSError):
+            self._note_transport_failure()
+            return None
+        self._note_reachable()
+        try:
+            parsed = json.loads(raw)
+        except ValueError:
+            parsed = None
+        return {"status": status,
+                "body": parsed if isinstance(parsed, dict) else None}
+
+    def lease_grant(self, *, slot: int, holder: str, fence: int,
+                    ttl: float) -> Optional[Dict[str, Any]]:
+        """POST /lease/grant: ask this peer to vote one coordinator
+        lease.  Returns the voter's verdict dict ({"granted", "fence",
+        "holder"}), or None on transport failure (a missing vote, not a
+        refusal — the proposer learns nothing from it)."""
+        got = self._post_json("/lease/grant", {
+            "slot": int(slot), "holder": holder,
+            "fence": int(fence), "ttl": float(ttl),
+        })
+        if got is None or got["body"] is None:
+            return None
+        return got["body"]
+
+    def push_fenced(self, payload: Dict[str, Any],
+                    fences: Dict[int, int],
+                    trace: Optional[str] = None) -> Dict[str, Any]:
+        """POST /push with ``{slot: fence}`` stamps.  Returns
+        ``{"ok": True}`` when the peer checked every stamp and merged;
+        ``{"ok": False, "fenced": True, "slot", "fence"}`` when the peer
+        refused a stale fence (naming its known one, so a zombie
+        coordinator learns it was superseded); ``{"ok": False}`` on
+        transport failure / node down.  ``trace`` travels in the body so
+        a fence refusal's cas_fenced_reject event joins the CAS trace."""
+        body: Dict[str, Any] = {
+            "payload": payload,
+            "fences": {str(s): int(f) for s, f in fences.items()},
+        }
+        if trace:
+            body["trace"] = trace
+        got = self._post_json("/push", body)
+        if got is None:
+            return {"ok": False}
+        if got["status"] == 200:
+            return {"ok": True}
+        body = got["body"] or {}
+        if got["status"] == 409 and body.get("fenced"):
+            return {"ok": False, "fenced": True,
+                    "slot": int(body.get("slot", -1)),
+                    "fence": int(body.get("fence", 0))}
+        return {"ok": False}
+
+    def cas_forward(self, body: Dict[str, Any]) -> Optional[Dict[str, Any]]:
+        """POST /cas at the routed coordinator (the forwarding leg).
+        Returns {"status", "body"} for the plane to interpret — 200
+        token, 409 conflict, 503 refusal — or None on transport failure
+        (indeterminate: the coordinator may have committed)."""
+        return self._post_json("/cas", body)
 
     # ---- extension-surface probe (shared by the sibling clients) ----
 
@@ -569,9 +735,10 @@ class NetworkAgent:
     ``start``/``stop`` run it every ``gossip_period_ms`` in a daemon thread.
     Failures of individual pulls are skipped (the reference's 502 path);
     failures of the *loop* are recorded and re-raised by ``stop()`` (the
-    reference's loop died silently forever on one bad payload).  The
-    keyspace tier's pulls and GC are not ported: ``keyspace`` must be
-    None, and ``ks_pull`` is then a no-op, as in the JAX package.
+    reference's loop died silently forever on one bad payload).  With a
+    ``keyspace`` the round also pulls every shard (``ks_pull``, one
+    GET /ks/gossip a shard), and the coordinator drives the shard-local
+    GC (``ks_gc_once``) and the reshard streaming (``ks_reshard_stream``).
     """
 
     def __init__(
@@ -588,8 +755,6 @@ class NetworkAgent:
         composite_node=None,
         keyspace=None,
     ):
-        if keyspace is not None:
-            raise NotImplementedError(f"NetworkAgent(keyspace=): {TIER_NOT_PORTED}")
         self.node = node
         self.set_node = set_node  # optional SetNode sibling: pulled together
         self.seq_node = seq_node  # optional SeqNode sibling: pulled together
@@ -625,11 +790,19 @@ class NetworkAgent:
             max_staleness=self.config.stability_max_staleness_s,
             events=node.events,
         )
+        # the sharded keyspace: one stability tracker PER SHARD, fed from
+        # the summaries riding /ks/gossip response bodies
+        self.keyspace = keyspace
+        self.ks_trackers = self._build_ks_trackers()
         # the live divergence audit (obs.audit): a gossiping agent IS the
-        # deployment, so it digests the plane it serves and watches the
+        # deployment, so it digests every plane it serves and watches the
         # digests peers piggyback back
         node.enable_audit()
-        self.watchdog = AuditWatchdog(node, stability=self.stability)
+        if keyspace is not None:
+            keyspace.enable_audit()
+        self.watchdog = AuditWatchdog(node, keyspace=keyspace,
+                                      stability=self.stability,
+                                      ks_trackers=self.ks_trackers)
         self._rng = random.Random(self.config.seed if seed is None else seed)
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
@@ -637,6 +810,29 @@ class NetworkAgent:
         # stop() on the caller's thread — lock both sides
         self._err_lock = threading.Lock()
         self.errors: List[Exception] = []
+
+    def _build_ks_trackers(self) -> List[StabilityTracker]:
+        """One stability tracker per keyspace shard, over the CURRENT
+        plane set: at construction and again after a reshard cutover
+        swaps the planes (refresh_ks_trackers)."""
+        if self.keyspace is None:
+            return []
+        return [
+            StabilityTracker(
+                shard, [p.url for p in self.peers],
+                max_staleness=self.config.stability_max_staleness_s,
+                events=self.node.events,
+            )
+            for shard in self.keyspace.shards
+        ]
+
+    def refresh_ks_trackers(self) -> None:
+        """Reshard-cutover reshape hook: every per-shard tracker re-binds
+        to the new planes with empty peer summaries (stale pre-cutover
+        summaries must not mint a frontier against reborn seq spaces)."""
+        self.ks_trackers = self._build_ks_trackers()
+        # the watchdog's per-shard stall evaluator reads these trackers
+        self.watchdog.ks_trackers = self.ks_trackers
 
     def gossip_once(self) -> bool:
         """One pull round from a random peer: the KV log and (when both
@@ -820,10 +1016,171 @@ class NetworkAgent:
         return fresh > 0
 
     def ks_pull(self, peer: RemotePeer) -> int:
-        """The keyspace pull round: a no-op returning 0 fresh ops, as in
-        the JAX package while ``keyspace`` is None (the tier is not
-        ported)."""
-        return 0
+        """One keyspace pull round from ``peer``: every shard's delta,
+        shard-scoped (shard i's payload merges into shard i and nothing
+        else — (rid, seq) spaces collide ACROSS shards by design and
+        must never mix).  Malformed shard payloads are quarantined like
+        KV gossip: that shard's round is skipped loudly, the siblings
+        still pull.  Returns total fresh ops merged."""
+        ks = self.keyspace
+        if ks is None:
+            return 0
+        # one trace id covers the whole multi-shard round: it rides the
+        # X-CRDT-Trace header of every shard's GET (the server's
+        # ks_gossip_serve events join it) and stamps the puller-side
+        # round events below — shard gossip shows up in assembled traces
+        # exactly like the host plane's pulls
+        tid = mint_trace_id(self.node.rid)
+        # the round is pinned to ONE reshard epoch: it rides every GET
+        # (?epoch=e — a peer at another epoch 409s instead of handing us
+        # a payload whose (rid, seq) identities belong to a different
+        # plane generation) and gates the merge below (a cutover racing
+        # this round flips ks.epoch; folding a pre-cutover payload into
+        # a reborn plane would mix generations)
+        e0 = ks.epoch
+        fresh_total = 0
+        trackers = self.ks_trackers  # pinned: a cutover rebuilds the list
+        for i, shard in enumerate(ks.shards):
+            since = shard.version_vector() \
+                if self.config.delta_gossip else None
+            body = peer.ks_gossip(i, since, trace=tid, epoch=e0)
+            if body is None:
+                self.metrics.inc("net_ks_pull_skips")
+                self.node.events.emit("ks_pull_skip", trace=tid,
+                                      peer=peer.url, shard=i)
+                continue
+            if body.get("fenced"):
+                # the peer is at another epoch: every shard of this
+                # round would fence identically, so ONE loud client-
+                # side fence record covers the round (1:1 with the
+                # count a fault schedule predicts)
+                self.metrics.inc("net_ks_fenced")
+                self.node.events.emit(
+                    "ks_reshard_fence", role="client",
+                    surface="ks_gossip", trace=tid, peer=peer.url,
+                    epoch=e0, got=int(body.get("epoch", -1)))
+                break
+            if ks.epoch != e0:
+                break  # cutover landed mid-round: drop the stale rest
+            try:
+                payload = body.get("payload")
+                with span("crdt.ks_pull", tid):
+                    fresh = 0 if payload is None else shard.receive(payload)
+            except (ValueError, KeyError, TypeError) as e:
+                self.metrics.inc("net_ks_quarantined")
+                self.node.events.emit(
+                    "payload_quarantine", surface="ks_gossip",
+                    trace=tid, peer=peer.url, shard=i,
+                    error=f"{type(e).__name__}: {e}")
+                continue
+            fresh_total += fresh
+            self.node.events.emit(
+                "ks_pull_merge" if fresh else "ks_pull_noop",
+                trace=tid, peer=peer.url, shard=i, fresh=fresh)
+            try:
+                vv = {int(r): int(s)
+                      for r, s in (body.get("vv") or {}).items()}
+                frontier = {int(r): int(s)
+                            for r, s in (body.get("frontier") or {}).items()}
+            except (ValueError, TypeError):
+                continue  # summary malformed: merge stood, tracker skips
+            trackers[i].note(peer.url, vv, frontier)
+            dig = body.get("digest")
+            if dig is not None:
+                self.watchdog.note_shard(peer.url, i, frontier, dig)
+        self.metrics.inc("net_ks_pulls")
+        if fresh_total:
+            self.metrics.inc("net_ks_fresh", fresh_total)
+        return fresh_total
+
+    def ks_reshard_stream(self) -> Dict[str, int]:
+        """One MIGRATE-window streaming round: every moved key's current
+        evidence, sliced per destination shard, POSTed to every
+        reachable peer (``/ks/migrate``).  The receiver's fold is a
+        max-(ts, rid, seq) per key, so re-sending a slice is idempotent
+        — this round simply re-streams everything still moved, and the
+        window converges as long as one round lands after the last
+        pre-cutover write.  Peers inside a backoff window are skipped
+        (the breaker paces the retry); fenced peers (not migrating yet,
+        or already cut over) are counted and retried next round; a
+        quarantine verdict is counted loudly and NOT blind-retried this
+        round.  Returns {sent, ok, fenced, quarantined, failed}."""
+        ks = self.keyspace
+        stats = {"sent": 0, "ok": 0, "fenced": 0, "quarantined": 0,
+                 "failed": 0}
+        if ks is None or not self.node.alive:
+            return stats
+        slices = ks.reshard.migration_slices()
+        if not slices:
+            return stats
+        e0 = ks.epoch
+        tid = mint_trace_id(self.node.rid)
+        for peer in self.peers:
+            if peer.backed_off():
+                continue
+            for dst, payload in slices:
+                stats["sent"] += 1
+                out = peer.ks_migrate(dst, payload, e0, trace=tid)
+                if out.get("ok"):
+                    stats["ok"] += 1
+                elif out.get("fenced"):
+                    stats["fenced"] += 1
+                    self.metrics.inc("net_ks_fenced")
+                    self.node.events.emit(
+                        "ks_reshard_fence", role="client",
+                        surface="ks_migrate", trace=tid, peer=peer.url,
+                        epoch=e0, got=int(out.get("epoch", -1)))
+                elif "quarantined" in out:
+                    stats["quarantined"] += 1
+                else:
+                    stats["failed"] += 1
+        self.node.events.emit("ks_reshard_stream", trace=tid, **stats)
+        return stats
+
+    def ks_gc_once(self, step: Optional[int] = None) -> Dict[int, dict]:
+        """One SHARD-LOCAL stability-GC round (coordinator only): each
+        shard's tracker mints its own frontier from the summaries that
+        rode /ks/gossip bodies; shards whose frontier is provable fold
+        locally and push POST /ks/compact to every peer — a stalled
+        shard freezes ALONE, its siblings keep collecting.  Returns
+        {shard: frontier} for the shards that folded."""
+        ks = self.keyspace
+        if ks is None or not self.node.alive:
+            return {}
+        # trace-stamped like ks_pull: the GC round (and any vv movement
+        # its folds cause) shows up as one joined group in assembled
+        # traces instead of anonymous leftovers
+        tid = mint_trace_id(self.node.rid)
+        e0 = ks.epoch
+        out: Dict[int, dict] = {}
+        for i, tracker in enumerate(list(self.ks_trackers)):
+            frontier = tracker.mint(step=step)
+            if not frontier:
+                self.metrics.inc("ks_gc_skipped")
+                continue
+            if ks.epoch != e0:
+                break  # cutover landed mid-round: stale frontiers die
+            with span("crdt.ks_gc", tid):
+                ks.compact_shard(i, frontier)
+            for p in self.peers:
+                if p.backed_off():
+                    continue
+                got = p.ks_compact(i, frontier, epoch=e0)
+                if got.get("fenced"):
+                    self.metrics.inc("net_ks_fenced")
+                    self.node.events.emit(
+                        "ks_reshard_fence", role="client",
+                        surface="ks_compact", trace=tid, peer=p.url,
+                        epoch=e0, got=int(got.get("epoch", -1)))
+            out[i] = frontier
+        if out:
+            self.metrics.inc("ks_gc_rounds")
+            self.node.events.emit(
+                "ks_gc", trace=tid,
+                shards={str(i): {str(r): s for r, s in f.items()}
+                        for i, f in out.items()},
+            )
+        return out
 
     def start(self) -> None:
         self._stop.clear()
@@ -1134,11 +1491,11 @@ class NodeHost:
     every gossip_period_ms.  ``device=None`` means the CUDA card, and
     raises without one.
 
-    The JAX package's host also runs the keyspace tier, a LeaseManager and
-    a ConsistencyPlane; here ``keyspace``, ``ks_door``, ``leases`` and
-    ``consistency`` are None (ROADMAP Queue 1 item 3), so ``/read``,
-    ``/cas`` and ``/lease/grant`` answer 404 naming that item, and a
-    config with ``keyspace_shards`` above 0 raises.
+    As in the JAX package, every host runs a LeaseManager and a
+    ConsistencyPlane (``/read``, ``/cas``, ``/lease/grant`` and the fence
+    check of ``/push``), and ``keyspace_shards`` > 0 adds the sharded
+    keyspace (S ``ReplicaNode`` planes on the same device) with its
+    tenant front door, reshard machine and ``/ks/*`` routes.
     """
 
     def __init__(
@@ -1155,6 +1512,7 @@ class NodeHost:
         event_log: Optional[str] = None,
         step_clock=None,
         birth_ledger=None,
+        ks_birth_ledgers=None,
         device=None,
     ):
         from crdt_tpu_torch.api.compositenode import CompositeNode
@@ -1162,13 +1520,12 @@ class NodeHost:
         from crdt_tpu_torch.api.mapnode import MapNode
         from crdt_tpu_torch.api.seqnode import SeqNode
         from crdt_tpu_torch.api.setnode import SetNode
+        from crdt_tpu_torch.consistency.leases import LeaseManager
         from crdt_tpu_torch.ingest import front_door_from_config
+        from crdt_tpu_torch.keyspace import (keyspace_from_config,
+                                             keyspace_front_door_from_config)
 
         self.config = config or ClusterConfig()
-        if self.config.keyspace_shards:
-            raise NotImplementedError(
-                f"keyspace_shards={self.config.keyspace_shards}: the sharded keyspace "
-                "tier is not ported (ROADMAP Queue 1 item 3)")
         if self.config.go_compat_gossip and self.config.compact_every:
             raise ValueError(
                 "go_compat_gossip forbids compaction (summary sections are "
@@ -1192,7 +1549,14 @@ class NodeHost:
         )
         # flight recorder (obs.provenance): a soak harness passes its
         # shared BirthLedger and step clock; installed BEFORE the boot
-        # event below so even boot carries a step stamp
+        # event below so even boot carries a step stamp.  The keyspace
+        # does not exist yet: install_flight_recorder runs again once it
+        # is built, so the shard recorders get their per-shard ledgers
+        # (shards share the host's rid and seq space, so the host ledger
+        # cannot serve them)
+        self._ks_birth_ledgers = \
+            list(ks_birth_ledgers) if ks_birth_ledgers else None
+        self._step_clock = step_clock
         if step_clock is not None or birth_ledger is not None:
             self.install_flight_recorder(ledger=birth_ledger,
                                          step_clock=step_clock)
@@ -1204,10 +1568,6 @@ class NodeHost:
         self.map_node = MapNode(rid=rid, device=device)
         self.composite_node = CompositeNode(rid=rid, metrics=self.node.metrics,
                                             device=device)
-        self.keyspace = None
-        self.ks_door = None
-        self.leases = None
-        self.consistency = None
         # crash recovery: restore the newest complete snapshot (if any)
         # BEFORE serving.  The caller mints rid through
         # checkpoint.bump_incarnation when restores can land in a live
@@ -1215,6 +1575,26 @@ class NodeHost:
         self.checkpoint_dir = checkpoint_dir
         self.checkpoint_every_s = checkpoint_every_s
         self.restored = False
+        # the sharded keyspace (keyspace_shards > 0, else None): S plane
+        # shards on this host's device, sharing the node's metrics and
+        # events so GET /metrics and the black box stay one-stop.  Built
+        # BEFORE the restore so shard snapshots land in the live planes
+        self.keyspace = keyspace_from_config(
+            rid, self.config, metrics=self.node.metrics,
+            events=self.node.events, device=device,
+        )
+        if self.keyspace is not None and (
+                step_clock is not None or self._ks_birth_ledgers):
+            # second pass now that the shards exist
+            self.install_flight_recorder(step_clock=step_clock)
+        # coordinator leases: built before the restore so persisted fence
+        # floors land back in it (a rebooted replica keeps refusing the
+        # stale fences it refused before); attach() wires the bound URL
+        # and the live peer list once the server exists
+        self.leases = LeaseManager(
+            self.node, n_slots=self.config.lease_slots,
+            duration=self.config.lease_duration_s,
+        )
         if checkpoint_dir:
             from crdt_tpu_torch.utils import checkpoint as ckpt
 
@@ -1222,6 +1602,7 @@ class NodeHost:
                 checkpoint_dir, self.node, set_node=self.set_node,
                 seq_node=self.seq_node, map_node=self.map_node,
                 composite_node=self.composite_node,
+                keyspace=self.keyspace, leases=self.leases,
             )
         # the ingest front door: every HTTP write rides this host's
         # admission lanes and lands in one device merge a drain
@@ -1230,23 +1611,51 @@ class NodeHost:
             composite_node=self.composite_node, config=self.config,
             events=self.node.events,
         )
+        self.ks_door = None if self.keyspace is None else \
+            keyspace_front_door_from_config(
+                self.keyspace, inner=self.ingest, config=self.config,
+                events=self.node.events, node=str(rid),
+            )
         self.nodes = [self.node]  # duck-types as a cluster for the handler
         self.agent = NetworkAgent(
             self.node, peers, self.config, coordinator=coordinator,
             set_node=self.set_node, seq_node=self.seq_node,
             map_node=self.map_node, composite_node=self.composite_node,
+            keyspace=self.keyspace,
         )
+        if self.keyspace is not None:
+            # a reshard cutover swaps the plane set: everything host-side
+            # that cached it re-binds
+            self.keyspace.on_reshape(self._on_ks_reshape)
+        # the watchdog's lease-zombie evaluator reads this host's leases;
         # the auto-postmortem lands beside the durable artifact the host
         # already writes: the checkpoint dir or the event log's dir
+        self.agent.watchdog.leases = self.leases
         pm_dir = checkpoint_dir
         if pm_dir is None and event_log:
             pm_dir = os.path.dirname(os.path.abspath(event_log))
         if pm_dir:
             self.agent.watchdog.configure_postmortem(
                 pm_dir, self.config.seed, [event_log] if event_log else [])
+        # strong reads and CAS: reads agent.peers live, so a harness that
+        # swaps the peer list after boot keeps the plane on it
+        self.consistency = ConsistencyPlane(
+            self.node, agent=self.agent,
+            quorum=self.config.strong_quorum,
+            strong_timeout=self.config.strong_timeout_s,
+            session_timeout=self.config.session_wait_s,
+            poll=self.config.session_poll_s,
+            leases=self.leases,
+            forward_hops=self.config.cas_forward_hops,
+            bounded_staleness=self.config.bounded_staleness_ops,
+            retry_after_s=self.config.consistency_retry_after_s,
+        )
         self._server = _Server((host, port), _make_handler(self, 0, admin=self))
         self.port: int = self._server.server_address[1]
         self.url = f"http://{host}:{self.port}"
+        # late lease wiring: routing needs the bound URL and reads
+        # agent.peers live
+        self.leases.attach(self.url, lambda: self.agent.peers)
         self.node.events.emit(
             "boot", port=self.port, restored=self.restored,
             coordinator=coordinator,
@@ -1259,15 +1668,40 @@ class NodeHost:
         self._ckpt_err_lock = threading.Lock()
         self._ckpt_errors: List[Exception] = []
 
-    def install_flight_recorder(self, ledger=None, step_clock=None) -> None:
+    def install_flight_recorder(self, ledger=None, step_clock=None,
+                                ks_ledgers=None) -> None:
         """Attach a shared BirthLedger and step clock to this host's flight
         recorder (obs.provenance) and stamp subsequent events with the
         driver step.  Idempotent; soak harnesses call this (or pass the
         constructor arguments) so propagation-steps lag uses their
-        deterministic time base."""
+        deterministic time base.  ``ks_ledgers`` is the keyspace's ledger
+        list, ONE fleet-wide BirthLedger per shard index."""
         self.node.recorder.install(ledger=ledger, step_clock=step_clock)
         if step_clock is not None:
             self.node.events.step_clock = step_clock
+        if ks_ledgers is not None:
+            self._ks_birth_ledgers = list(ks_ledgers)
+        if getattr(self, "keyspace", None) is not None:
+            self._install_ks_recorders(step_clock)
+
+    def _install_ks_recorders(self, step_clock) -> None:
+        """Wire the per-shard ledgers and the step clock into the CURRENT
+        shard set's flight recorders (a reshard cutover reruns exactly
+        this: reborn shards carry unbound recorders)."""
+        ledgers = self._ks_birth_ledgers
+        for i, shard in enumerate(self.keyspace.shards):
+            shard.recorder.install(
+                ledger=ledgers[i]
+                if ledgers and i < len(ledgers) else None,
+                step_clock=step_clock)
+
+    def _on_ks_reshape(self) -> None:
+        """Reshard-cutover reshape hook (the door's admission lock held,
+        right after the plane swap): the per-shard stability trackers and
+        the shard flight recorders re-bind.  The door rebuilt its own
+        lanes already."""
+        self.agent.refresh_ks_trackers()
+        self._install_ks_recorders(self._step_clock)
 
     def start_server(self) -> None:
         """Serve the HTTP surface only (no background gossip): for drivers
@@ -1348,6 +1782,7 @@ class NodeHost:
             self.checkpoint_dir, self.node, set_node=self.set_node,
             seq_node=self.seq_node, map_node=self.map_node,
             composite_node=self.composite_node,
+            keyspace=self.keyspace, leases=self.leases,
         )
 
     def admin_pull(self, peer_url: Optional[str] = None) -> bool:
@@ -1411,3 +1846,53 @@ class NodeHost:
         {"epochs": ..., "status": "reset"|"noop"|"skipped"}."""
         epochs, status = self.agent.map_reset_once()
         return {"epochs": epochs, "status": status}
+
+    def admin_ks_pull(self, peer_url: Optional[str] = None) -> int:
+        """One keyspace pull round (all shards), now, from ``peer_url``
+        (or a random configured peer); 0 when the tier is disabled."""
+        if self.keyspace is None:
+            return 0
+        peer = self._admin_peer(peer_url)
+        return 0 if peer is None else self.agent.ks_pull(peer)
+
+    def admin_ks_gc(self) -> dict:
+        """One shard-local stability-GC round, now (coordinator only):
+        {shard: frontier} for the shards whose frontier was provable."""
+        return self.agent.ks_gc_once()
+
+    def admin_ks_reshard(self, body: dict) -> dict:
+        """Drive this node's reshard state machine (POST
+        /admin/ks_reshard).  Actions:
+
+          {"action": "start", "shards": S'}  — PREPARE + open the
+              MIGRATE window toward S' shards (idempotent for the same
+              target; a node already AT S' with an idle machine answers
+              its status instead of failing, so a resumed caller can
+              re-send)
+          {"action": "stream"}   — one migration streaming round to
+              every reachable peer (returns the round's stats)
+          {"action": "cutover"}  — epoch bump + plane rebirth at S'
+          {"action": "abort"}    — roll back to the old epoch
+          {"action": "status"}   — the machine's current state
+
+        Raises ValueError on an invalid action/transition (the HTTP
+        shim answers 400 with the message)."""
+        if self.keyspace is None:
+            raise ValueError("no keyspace tier on this node")
+        action = str(body.get("action", "status"))
+        if action == "start":
+            target = int(body.get("shards", 0))
+            if self.keyspace.n_shards == target \
+                    and self.keyspace.reshard.phase == "idle":
+                return self.keyspace.reshard.status()  # already there
+            return self.keyspace.reshard.start(target)
+        if action == "stream":
+            return dict(self.agent.ks_reshard_stream())
+        if action == "cutover":
+            return self.keyspace.reshard.cutover()
+        if action == "abort":
+            return self.keyspace.reshard.abort(
+                str(body.get("reason", "admin")))
+        if action == "status":
+            return self.keyspace.reshard.status()
+        raise ValueError(f"unknown ks_reshard action {action!r}")

@@ -340,6 +340,7 @@ class PendingMerge:
                 node.log = merged_log
                 node._log_rows = int(n_unique)
                 node.metrics.inc("ops_ingested", self.fresh)
+                node._count_lane_fold()
             self._finish_recording()
         finally:
             self.done = True
@@ -376,9 +377,14 @@ class PendingMerge:
         if vv_after == self.vv_before:
             return
         epoch = node.clock.epoch_ms
+        cmds = None
+        if node.recorder.tenant_of is not None:
+            # tenant attribution (keyspace shards): the raw command rows
+            cmds = {(rid, seq): cmd for _, rid, seq, cmd in self.rows}
         node.recorder.note_visible(
             self.vv_before, vv_after,
-            births={(rid, seq): ts + epoch for ts, rid, seq, _ in self.rows})
+            births={(rid, seq): ts + epoch for ts, rid, seq, _ in self.rows},
+            cmds=cmds)
 
 
 class ReplicaNode:
@@ -449,6 +455,12 @@ class ReplicaNode:
         # encoded-summary cache: (Summary tensors, key-space size); the
         # host summary changes only on compact/adopt
         self._summary_cache: Optional[Tuple[compactlog.Summary, int]] = None
+        # extra metric labels for this plane's merge accounting (the
+        # sharded keyspace binds {"shard": i}): the label-free counters
+        # keep their one-tick-per-merge meaning, and with labels bound
+        # merge_dispatches{shard=..} / union_path{shard=..} also tick once
+        # per folded lane
+        self._metric_labels: Dict[str, str] = {}
 
     # ---- write path ----
 
@@ -668,10 +680,13 @@ class ReplicaNode:
                for (ts, rid, seq), cmd in items)
         return ("{" + ",".join(ops) + "}").encode()
 
-    def _decode_payload(self, payload: Dict[str, Any]):
+    def _decode_payload(self, payload: Dict[str, Any], check_cmds: bool = True):
         """Wire payload -> (remote_frontier, remote_summary, op rows),
         timestamps rebased onto this node's int32 window.  A malformed key
-        raises ValueError (the reference silently killed its gossip loop)."""
+        raises ValueError (the reference silently killed its gossip loop);
+        with ``check_cmds`` a non-dict command raises TypeError once every
+        key has decoded, before the node lock, so a payload is merged whole
+        or not at all."""
         payload = dict(payload)
         remote_frontier = {
             int(r): int(s) for r, s in (payload.pop(FRONTIER_KEY, None) or {}).items()
@@ -681,18 +696,19 @@ class ReplicaNode:
         rows = []
         for k, cmd in payload.items():
             ts_abs, rid, seq = _parse_wire_key(k)
-            if not isinstance(cmd, dict):
-                # refused here, before the node lock: a payload is merged
-                # whole or not at all
-                raise TypeError(f"non-dict command: {type(cmd).__name__}")
             ts = ts_abs - epoch  # rebase onto this node's int32 window
             # strict upper bound: ts == INT32_MAX is the SENTINEL padding
             if not (INT32_MIN <= ts < INT32_MAX):
                 raise ValueError(
                     f"gossip timestamp {ts_abs} is outside this node's int32 "
-                    f"window (epoch {epoch})"
+                    f"window (epoch {epoch}); reference quirk §0.1.8 made this "
+                    "kill gossip silently — here it fails loudly"
                 )
             rows.append((ts, rid, seq, cmd))
+        if check_cmds:
+            for _, _, _, cmd in rows:
+                if not isinstance(cmd, dict):
+                    raise TypeError(f"non-dict command: {type(cmd).__name__}")
         return remote_frontier, remote_summary, rows
 
     def validate_payload(self, payload: Dict[str, Any]) -> Optional[str]:
@@ -701,9 +717,12 @@ class ReplicaNode:
         pull paths quarantine a payload this refuses instead of merging
         any part of it."""
         try:
-            _, summary, _ = self._decode_payload(dict(payload))
+            _, summary, rows = self._decode_payload(dict(payload), check_cmds=False)
         except (ValueError, KeyError, TypeError, AttributeError) as e:
             return f"{type(e).__name__}: {e}"
+        for _, _, _, cmd in rows:
+            if not isinstance(cmd, dict):
+                return f"non-dict command: {type(cmd).__name__}"
         for k, entry in summary.items():
             if not isinstance(entry, dict):
                 return f"non-dict summary entry for key {k!r}"
@@ -741,9 +760,14 @@ class ReplicaNode:
             # one vv delta covers the whole round: per (origin, seq) the
             # payloads' duplicates collapse to one visibility
             epoch = self.clock.epoch_ms
+            cmds = None
+            if self.recorder.tenant_of is not None:
+                # tenant attribution (keyspace shards): the raw command rows
+                cmds = {(rid, seq): cmd for _, rid, seq, cmd in rows_all}
             self.recorder.note_visible(
                 vv_before, vv_after,
-                births={(rid, seq): ts + epoch for ts, rid, seq, _ in rows_all})
+                births={(rid, seq): ts + epoch for ts, rid, seq, _ in rows_all},
+                cmds=cmds)
         return fresh + adopted
 
     def _adopt_all_locked(self, decoded):
@@ -1212,6 +1236,13 @@ class ReplicaNode:
             "is_num": np.asarray(e_num, bool)[eidx],
         }, fresh
 
+    def _count_lane_fold(self) -> None:
+        # labeled per-lane merge accounting (see _metric_labels)
+        if self._metric_labels:
+            reg = self.metrics.registry
+            reg.inc("merge_dispatches", 1, **self._metric_labels)
+            reg.inc("union_path", 1, path="sort", **self._metric_labels)
+
     def _merge_batch(self, ops: Dict[str, np.ndarray], fresh: int) -> None:
         """Land one packed op batch in ONE device merge (caller holds the
         lock)."""
@@ -1232,6 +1263,7 @@ class ReplicaNode:
         # the op-log merge is a sorted union; record which set-union engine
         # served it (always "sort": the log's lex keys have no packed form)
         union_engine.record_union_path("sort")
+        self._count_lane_fold()
         batch = oplog.from_ops(max(fresh, 1), ops, device=self.device)
         t0 = time.perf_counter()
         with devtime.dispatch_annotation("merge"):

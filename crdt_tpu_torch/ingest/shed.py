@@ -12,8 +12,8 @@ either drains to the merge or shows in the shed accounting.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Optional
+from dataclasses import dataclass, field
+from typing import Mapping, Optional
 
 
 class ShedError(Exception):
@@ -42,12 +42,17 @@ class ShedPolicy:
     ``high_water`` bounds PENDING OPS per lane (not submissions): a
     100-op page counts 100 toward the mark.  ``retry_after_s`` is the
     advisory client backoff: one flush deadline is enough for a drain to
-    clear the queue under normal service, so the default tracks it.  (The
-    JAX policy's per-tenant quota slices belong to the keyspace tier,
-    which the port does not have.)
+    clear the queue under normal service, so the default tracks it.
+
+    ``tenant_high_water`` carves per-tenant quota SLICES out of the
+    global mark (:mod:`crdt_tpu_torch.keyspace`): a tenant listed here
+    sheds on its own pending-op count before the lane fills, so one noisy
+    tenant backs off alone while everyone else keeps writing.  Tenants not
+    in the map share the lane mark.
     """
     high_water: int = 4096
     retry_after_s: float = 0.05
+    tenant_high_water: Optional[Mapping[str, int]] = field(default=None)
 
     def would_shed(self, depth: int, n_ops: int) -> bool:
         """True when admitting ``n_ops`` more onto ``depth`` pending ops
@@ -55,13 +60,30 @@ class ShedPolicy:
         than the whole mark always sheds (it could never be admitted)."""
         return depth + n_ops > self.high_water
 
+    def tenant_mark(self, tenant: Optional[str]) -> Optional[int]:
+        """The tenant's quota slice, or None when it rides the lane mark."""
+        if tenant is None or not self.tenant_high_water:
+            return None
+        return self.tenant_high_water.get(tenant)
+
+    def would_shed_tenant(self, tenant: Optional[str], tenant_depth: int,
+                          n_ops: int) -> bool:
+        """True when the TENANT's own pending ops would exceed its quota
+        slice (never for an unlisted tenant: the lane mark still applies
+        through ``would_shed``)."""
+        mark = self.tenant_mark(tenant)
+        return mark is not None and tenant_depth + n_ops > mark
+
     def shed(self, lane: str, n_ops: int, depth: int, metrics, events,
-             node: str, tenant: Optional[str] = None) -> ShedError:
+             node: str, tenant: Optional[str] = None,
+             high_water: Optional[int] = None) -> ShedError:
         """Account one shed (counters and the event log) and build the
         error; the caller raises it.  ``tenant`` labels the counters and
-        the event."""
+        the event; ``high_water`` overrides the recorded mark (the
+        tenant's quota slice when a slice, not the lane, did the
+        shedding)."""
         reg = metrics.registry
-        mark = self.high_water
+        mark = self.high_water if high_water is None else int(high_water)
         labels = dict(lane=lane, node=node)
         if tenant is not None:
             labels["tenant"] = tenant

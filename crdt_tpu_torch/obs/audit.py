@@ -26,10 +26,9 @@ online:
   bit-rot enters the served digest), frontier stall and convergence-lag
   EWMA breach.
 
-Not ported: the keyspace shards' planes and the lease zombie evaluator
-(the keyspace and lease tier, ROADMAP Queue 1 item 3), the device-mesh
-digest fold (Queue 1 item 6), and the assembled trace and blame report
-inside the postmortem bundle (``obs/assemble``, Queue 1 item 3).
+Not ported: the device-mesh digest fold (ROADMAP Queue 1 item 6), and
+the assembled trace and blame report inside the postmortem bundle
+(``obs/assemble``, Queue 1 item 3b).
 
 False-positive immunity comes from the frontier clamp, not from luck:
 ``digest_at(F)`` is computed only when this node's own compaction
@@ -252,18 +251,22 @@ class PlaneDigest:
 class AuditWatchdog:
     """Per-node anomaly watchdog over the piggybacked digest stream.
 
-    Fed by the NetworkAgent: ``note_host`` on every gossip response
-    carrying a stability summary (the digest rides the same header: no
-    new round trips), ``evaluate()`` once per driver round.  All public
-    entry points are thread-safe; node-state reads go through the node's
-    own locked accessors.  One plane, "host": the keyspace shards' planes
-    come with the keyspace tier (ROADMAP Queue 1 item 3).
+    Fed by the NetworkAgent: ``note_host`` / ``note_shard`` on every
+    gossip response carrying a stability summary (the digest rides the
+    same header or body: no new round trips), ``evaluate()`` once per
+    pull round.  All public entry points are thread-safe; node-state
+    reads go through the node's own locked accessors.
     """
 
-    def __init__(self, node, *, stability=None, scrub_every: int = 16,
-                 stall_rounds: int = 3, lag_threshold: float = 512.0):
+    def __init__(self, node, *, keyspace=None, stability=None,
+                 ks_trackers: Optional[List] = None, leases=None,
+                 scrub_every: int = 16, stall_rounds: int = 3,
+                 lag_threshold: float = 512.0):
         self.node = node
+        self.keyspace = keyspace
         self.stability = stability
+        self.ks_trackers = ks_trackers
+        self.leases = leases
         self.scrub_every = max(int(scrub_every), 0)
         self.stall_rounds = max(int(stall_rounds), 1)
         self.lag_threshold = float(lag_threshold)
@@ -281,6 +284,7 @@ class AuditWatchdog:
         self._stall_streak = 0
         self._stalled = False
         self._lag_breached = False
+        self._zombie = False
         # auto-postmortem wiring (NodeHost / the soak driver configures)
         self._pm_dir: Optional[str] = None
         self._pm_seed: Optional[int] = None
@@ -289,19 +293,33 @@ class AuditWatchdog:
         self.postmortem_path: Optional[str] = None
         self.registry.set_gauge("audit_state", self.state)
 
-    # ---- plane enumeration ----
+    # ---- plane enumeration (reshard-safe: resolved per call) ----
 
     def planes(self) -> List[Tuple[str, Any]]:
-        return [("host", self.node)]
+        out: List[Tuple[str, Any]] = [("host", self.node)]
+        if self.keyspace is not None:
+            out.extend((f"ks-{i}", s)
+                       for i, s in enumerate(self.keyspace.shards))
+        return out
 
     def _plane_node(self, plane: str):
-        return self.node if plane == "host" else None
+        if plane == "host":
+            return self.node
+        if self.keyspace is not None and plane.startswith("ks-"):
+            i = int(plane[3:])
+            if 0 <= i < len(self.keyspace.shards):
+                return self.keyspace.shards[i]
+        return None
 
     # ---- digest intake (the piggyback consumer) ----
 
     def note_host(self, peer: str, frontier: Dict[int, int],
                   digest_hex: Optional[str]) -> None:
         self._note("host", peer, frontier, digest_hex)
+
+    def note_shard(self, peer: str, shard: int, frontier: Dict[int, int],
+                   digest_hex: Optional[str]) -> None:
+        self._note(f"ks-{int(shard)}", peer, frontier, digest_hex)
 
     def _note(self, plane: str, peer: str, frontier: Dict[int, int],
               digest_hex: Optional[str]) -> None:
@@ -361,9 +379,9 @@ class AuditWatchdog:
     # ---- continuous evaluators ----
 
     def evaluate(self) -> None:
-        """One watchdog tick: scrub (cadenced), frontier stall and
-        convergence-lag EWMA breach.  Drive once per gossip/driver
-        round."""
+        """One watchdog tick: scrub (cadenced), frontier stall,
+        convergence-lag EWMA breach, lease zombie window.  Drive once per
+        gossip or soak round."""
         with self._lock:
             self.evals += 1
             do_scrub = bool(self.scrub_every
@@ -372,6 +390,7 @@ class AuditWatchdog:
             self.scrub()
         self._eval_frontier_stall()
         self._eval_lag()
+        self._eval_leases()
         self.registry.set_gauge("audit_state", self.state)
 
     def scrub(self) -> List[Dict[str, Any]]:
@@ -392,7 +411,9 @@ class AuditWatchdog:
         return drifted
 
     def _trackers(self) -> List[Any]:
-        return [t for t in (self.stability,) if t is not None]
+        out = [t for t in (self.stability,) if t is not None]
+        out.extend(self.ks_trackers or ())
+        return out
 
     def _eval_frontier_stall(self) -> None:
         stale: List[str] = []
@@ -428,6 +449,22 @@ class AuditWatchdog:
             self.registry.inc("audit_lag_breaches")
             self.events.emit("audit_lag_breach", lag_ops=lag,
                              threshold=self.lag_threshold)
+
+    def _eval_leases(self) -> None:
+        if self.leases is None:
+            return
+        zombies = [slot for slot, st in self.leases.slot_states().items()
+                   if int(st.get("state", 0)) == 2]
+        with self._lock:
+            if not zombies:
+                self._zombie = False
+                return
+            fire = not self._zombie
+            self._zombie = True
+        if fire:
+            self.registry.inc("audit_lease_zombies")
+            self.events.emit("audit_lease_zombie",
+                             slots=[str(s) for s in sorted(zombies)])
 
     # ---- auto-postmortem ----
 

@@ -18,10 +18,9 @@ KV node's population and frontier (``vv_ops_known``,
 ``summary_keys``, ``node_alive``, ``seconds_since_last_merge``), the
 siblings' GC debt, the ingest lanes' depth and mark, the union-engine
 tallies, and on a network daemon the agent's peer circuits, the stability
-tracker's frontier and lag, and the audit watchdog's state.  The keyspace
-and lease samplers belong to the fleet tier, not ported (ROADMAP Queue 1
-item 3): ``sample_all`` takes those arguments and requires them to be
-None.
+tracker's frontier and lag, the sharded keyspace's shards, lanes, tenants
+and reshard state, the coordinator leases' slots, and the audit
+watchdog's state.
 """
 from __future__ import annotations
 
@@ -112,6 +111,46 @@ def sample_ingest(registry, front_door) -> None:
                            lane=lane.name, node=lane.node)
 
 
+def sample_keyspace(registry, node_label: str, keyspace,
+                    ks_door=None) -> None:
+    """Sharded-keyspace gauges (crdt_tpu_torch.keyspace), scrape-fresh:
+    per-shard ``keyspace_shard_ops`` (live op-log rows) and
+    ``keyspace_shard_keys`` (live keys) show routing balance and where
+    the log debt sits; per-shard ``keyspace_shard_depth`` (pending ops
+    in the shard's admission lane) shows which shard is hot RIGHT NOW;
+    per-tenant ``keyspace_tenant_depth`` shows who is filling it.  The
+    companion ``crdt_keyspace_tenant_ops_total`` counter (ops admitted
+    per tenant) is inc'd at drain time by the keyspace door.
+    ``ks_reshard_state``/``ks_reshard_epoch`` track the online-reshard
+    lifecycle (keyspace/reshard.py)."""
+    # reshard lifecycle: phase gauge (0 idle / 1 migrate, the mapping in
+    # reshard.PHASE_GAUGE) plus the monotone epoch every wire surface is
+    # fenced on — renders as crdt_ks_reshard_state / crdt_ks_reshard_epoch
+    registry.set_gauge("ks_reshard_state",
+                       float(keyspace.reshard.phase_gauge()),
+                       node=node_label)
+    registry.set_gauge("ks_reshard_epoch", float(keyspace.epoch),
+                       node=node_label)
+    for i, stat in enumerate(keyspace.shard_stats()):
+        registry.set_gauge("keyspace_shard_ops", float(stat["ops"]),
+                           shard=str(i), node=node_label)
+        registry.set_gauge("keyspace_shard_keys", float(stat["keys"]),
+                           shard=str(i), node=node_label)
+    if ks_door is not None:
+        for i, lane in enumerate(ks_door.lanes):
+            registry.set_gauge("keyspace_shard_depth", float(lane.depth),
+                               shard=str(i), node=node_label)
+        for tenant, depth in ks_door.tenant_depths().items():
+            registry.set_gauge("keyspace_tenant_depth", float(depth),
+                               tenant=tenant, node=node_label)
+        # quota slices, so the fleet rollup (obs/fleet) can report shed
+        # ratio AGAINST the mark that did the shedding
+        quotas = getattr(ks_door.policy, "tenant_high_water", None) or {}
+        for tenant, mark in quotas.items():
+            registry.set_gauge("keyspace_tenant_quota", float(mark),
+                               tenant=tenant, node=node_label)
+
+
 def sample_peer_circuits(registry, node_label: str, peers) -> None:
     """Partition-state gauges from the agent's RemotePeer circuit
     breakers: each peer's breaker state (0 closed / 1 half-open / 2
@@ -138,6 +177,23 @@ def sample_stability(registry, node_label: str, tracker) -> None:
                        sum(s + 1 for s in tracker.last_frontier.values()), node=node_label)
     registry.set_gauge("stability_lag_ops", tracker.lag_ops(), node=node_label)
     registry.set_gauge("stability_stale_peers", len(tracker.stale_members()), node=node_label)
+
+
+def sample_leases(registry, node_label: str, leases) -> None:
+    """Coordinator-lease gauges (crdt_tpu_torch.consistency.leases),
+    scrape-fresh: per-slot ``lease_state`` (0 follower / 1 held /
+    2 expired-unhandedoff — the zombie-risk window worth alerting on)
+    and ``lease_fence_epoch`` (highest fence this node knows for the
+    slot; a fleet-wide max that stops advancing while CAS traffic flows
+    means leases stopped handing off).  The companion counters —
+    ``crdt_cas_forwarded_total``, ``crdt_lease_grants_total``,
+    ``crdt_cas_fenced_rejects_total`` — are inc'd at the plane/manager
+    and render from the registry without sampling here."""
+    for slot, st in sorted(leases.slot_states().items()):
+        registry.set_gauge("lease_state", float(st["state"]),
+                           slot=str(slot), node=node_label)
+        registry.set_gauge("lease_fence_epoch", float(st["fence"]),
+                           slot=str(slot), node=node_label)
 
 
 def max_convergence_lag(registry):
@@ -195,14 +251,7 @@ def sample_union_paths(registry) -> None:
 def sample_all(registry, node, set_node=None, seq_node=None, map_node=None,
                composite_node=None, agent=None, ingest=None, stability=None,
                keyspace=None, ks_door=None, leases=None, watchdog=None) -> None:
-    """Every sampler of this node's planes.  The keyspace, its front door
-    and the leases are not ported (ROADMAP Queue 1 item 3): those
-    arguments must be None."""
-    missing = [name for name, x in (("keyspace", keyspace), ("ks_door", ks_door),
-                                    ("leases", leases)) if x is not None]
-    if missing:
-        raise NotImplementedError(
-            f"sample_all: no sampler for {missing} (ROADMAP Queue 1 item 3, not ported)")
+    """Every sampler of this node's planes, in the JAX package's order."""
     sample_kv_node(registry, node)
     sample_union_paths(registry)
     if set_node is not None:
@@ -219,6 +268,10 @@ def sample_all(registry, node, set_node=None, seq_node=None, map_node=None,
         sample_ingest(registry, ingest)
     if stability is not None:
         sample_stability(registry, str(node.rid), stability)
+    if keyspace is not None:
+        sample_keyspace(registry, str(node.rid), keyspace, ks_door=ks_door)
+    if leases is not None:
+        sample_leases(registry, str(node.rid), leases)
     if watchdog is not None:
         sample_audit(registry, watchdog)
 

@@ -29,10 +29,11 @@ that makes restores safe in a LIVE fleet:
 
 The log crosses to the host in one ``.cpu()`` under the node's lock and
 then the device lock (the order every device section keeps), and comes
-back with ``torch.from_numpy(...).to(node.device)``.  Not ported: the keyspace shards' sections (``ks-shard-*.json``,
-``ks-reshard.json``) and ``leases.json`` (the keyspace and lease tier,
-ROADMAP Queue 1 item 3): ``keyspace`` and ``leases`` must be None, and
-then those files are skipped exactly as the JAX package skips them.
+back with ``torch.from_numpy(...).to(node.device)``.  A host with the
+sharded keyspace adds one ``ks-shard-<i>.json`` a shard (its full wire
+payload, restored through ``receive`` under the saved clock epoch) and
+``ks-reshard.json`` (the reshard ledger); every host adds ``leases.json``
+(the per-slot fence floors).
 """
 from __future__ import annotations
 
@@ -49,15 +50,6 @@ import torch
 MANIFEST_NAME = "MANIFEST.json"
 QUARANTINE_PREFIX = "quarantine-"
 LOG_COLUMNS = ("ts", "rid", "seq", "key", "val", "payload", "is_num")
-TIER_NOT_PORTED = ("keyspace and lease snapshot sections are not ported "
-                   "(ROADMAP Queue 1 item 3)")
-
-
-def _no_tier(keyspace, leases) -> None:
-    if keyspace is not None or leases is not None:
-        raise NotImplementedError(TIER_NOT_PORTED)
-
-
 def _interner_dump(interner) -> list:
     return [interner.lookup(i) for i in range(len(interner))]
 
@@ -76,12 +68,16 @@ def save_node(path: str, node, set_node=None, seq_node=None,
     records and GC floor (the device table is rebuilt on restore),
     ``map_node`` its op records and reset epochs, ``composite_node`` its
     state dump (its snapshot IS its wire payload, so restore revalidates
-    it like a gossip body).  The caller holds the node's lock (as
-    :func:`save_node_atomic` does) for a consistent cut."""
+    it like a gossip body).  ``keyspace`` adds one ``ks-shard-<i>.json``
+    per shard (a full wire payload, restored through ``receive``) and
+    ``ks-reshard.json`` (the reshard ledger); ``leases`` adds
+    ``leases.json``, the per-slot fence floors, persisted fail-stop so a
+    rebooted replica keeps refusing the stale fences it refused before.
+    The caller holds the node's lock (as :func:`save_node_atomic` does)
+    for a consistent cut."""
     from crdt_tpu_torch.api.node import device_lock
     from crdt_tpu_torch.obs import audit as audit_mod
 
-    _no_tier(keyspace, leases)
     p = pathlib.Path(path)
     p.mkdir(parents=True, exist_ok=True)
     if set_node is not None:
@@ -93,6 +89,33 @@ def save_node(path: str, node, set_node=None, seq_node=None,
     if composite_node is not None:
         (p / "composite.json").write_text(
             json.dumps(composite_node.to_snapshot()))
+    if keyspace is not None:
+        for i, shard in enumerate(keyspace.shards):
+            # a full wire dump through the liveness-gated payload path:
+            # the alive flag is fault-injection state, not durable data
+            was_alive = shard.alive
+            shard.alive = True
+            try:
+                payload = shard.gossip_payload(since=None)
+            finally:
+                shard.alive = was_alive
+            (p / f"ks-shard-{i}.json").write_text(json.dumps({
+                "rid": shard.rid,
+                "seq": shard._seq.count,
+                "epoch_ms": shard.clock.epoch_ms,
+                "payload": payload or {},
+                # restore recomputes the shard's store digest and compares
+                "audit_digest": audit_mod.store_digest_hex(shard),
+            }))
+        # the reshard crash-recovery ledger: a node rebooting mid-MIGRATE
+        # resumes, a post-cutover snapshot reshapes to S' at restore
+        (p / "ks-reshard.json").write_text(
+            json.dumps(keyspace.reshard_ledger()))
+    if leases is not None:
+        (p / "leases.json").write_text(json.dumps({
+            "fences": {str(s): f
+                       for s, f in leases.fences_snapshot().items()},
+        }))
     with device_lock(node.device):
         # the seven columns in one copy to the host
         host = torch.stack([getattr(node.log, name).to(torch.int32)
@@ -132,11 +155,12 @@ def restore_node(path: str, node, allow_rid_change: bool = False,
     seq counter, since the snapshot's counter belongs to the dead
     incarnation.  The node adopts the snapshot's clock epoch: wire and
     digest timestamps are absolute, so a node booted at another epoch
-    restores the same absolute state."""
+    restores the same absolute state.  ``keyspace`` reads the reshard
+    ledger first (reshaping the plane set to its shard count), then each
+    ``ks-shard-<i>.json``; ``leases`` adopts the saved fence floors."""
     from crdt_tpu_torch.models import oplog as oplog_mod
     from crdt_tpu_torch.obs import audit as audit_mod
 
-    _no_tier(keyspace, leases)
     p = pathlib.Path(path)
     meta = json.loads((p / "meta.json").read_text())
     rid_changed = meta["rid"] != node.rid
@@ -183,6 +207,84 @@ def restore_node(path: str, node, allow_rid_change: bool = False,
         # raises, and the whole generation is quarantined
         composite_node.from_snapshot(
             json.loads((p / "composite.json").read_text()))
+    if keyspace is not None:
+        # reshard ledger FIRST: a snapshot taken after a cutover (or one
+        # predating this node's shard-count config) names its own shard
+        # count, and the plane set must be reshaped to it BEFORE the
+        # per-shard files load — otherwise shard i's ops land in the
+        # wrong plane.  A malformed ledger raises → load_latest_node
+        # quarantines the generation, the standard posture.
+        rsf = p / "ks-reshard.json"
+        rs_snap = None
+        if rsf.exists():
+            rs_snap = json.loads(rsf.read_text())
+            if not isinstance(rs_snap, dict):
+                raise ValueError("ks-reshard.json: ledger must be a dict")
+            n = int(rs_snap.get("n_shards", keyspace.n_shards))
+            epoch = int(rs_snap.get("epoch", 0))
+            if n != keyspace.n_shards:
+                keyspace.reshape_for_restore(n, epoch)
+            else:
+                keyspace.epoch = epoch
+        for i, shard in enumerate(keyspace.shards):
+            f = p / f"ks-shard-{i}.json"
+            if not f.exists():
+                continue  # snapshot predates the tier / smaller shard map
+            snap = json.loads(f.read_text())
+            payload = snap.get("payload")
+            if not isinstance(payload, dict):
+                raise ValueError(
+                    f"ks-shard-{i}.json: payload must be a wire dict, "
+                    f"got {type(payload).__name__}")
+            # adopt the snapshot's clock epoch BEFORE the replay:
+            # receive() rebases absolute wire timestamps onto the
+            # current epoch, so replaying under the fresh boot's epoch
+            # and swapping in the saved one afterwards would shift
+            # every restored op's absolute timestamp by the wall-clock
+            # gap between boots — a rebooted replica silently
+            # disagreeing with its peers about ops it already acked
+            # (the digest check below is what caught this)
+            shard.clock.epoch_ms = int(
+                snap.get("epoch_ms", shard.clock.epoch_ms))
+            # receive() validates like a gossip body — a corrupt shard
+            # section raises here and load_latest_node quarantines the
+            # whole generation, exactly the composite's posture.  The
+            # flight recorder is MUTED for the replay: restoring durable
+            # local state is recovery, not propagation — the pre-crash
+            # incarnation already observed (and black-boxed) these ops,
+            # so re-counting them would break exactly-once provenance
+            shard.recorder.muted = True
+            try:
+                shard.receive(payload)
+            finally:
+                shard.recorder.muted = False
+            if int(snap.get("rid", -1)) == shard.rid:
+                # same incarnation: the seq counter is still ours.  A
+                # fresh-rid boot keeps its zero-based counter (the old
+                # rid's ops are a frozen foreign-writer prefix)
+                shard._seq.count = int(snap.get("seq", 0))
+            # same digest verification as the host meta (the replay is
+            # absolute-ts-exact now that it runs under the saved epoch)
+            want = snap.get("audit_digest")
+            if want is not None:
+                got = audit_mod.store_digest_hex(shard)
+                if got != want:
+                    raise ValueError(
+                        f"ks-shard-{i}.json: restored state digest "
+                        f"{got} != snapshot digest {want}")
+        if rs_snap is not None:
+            # after the planes are loaded: a MIGRATE ledger re-enters
+            # the window against the restored state (deterministic
+            # resume — the plan is a pure function of the routers;
+            # peers re-stream their slices on the next round)
+            keyspace.restore_reshard(rs_snap)
+    if leases is not None and (p / "leases.json").exists():
+        snap = json.loads((p / "leases.json").read_text())
+        fences = snap.get("fences")
+        if not isinstance(fences, dict):
+            raise ValueError("leases.json: fences must be a "
+                             "{slot: fence} dict")
+        leases.restore_fences({int(s): int(f) for s, f in fences.items()})
 
 
 # ---- crash-safe versioned snapshots + boot incarnations ----
@@ -309,7 +411,6 @@ def load_latest_node(root: str, node, allow_rid_change: bool = True,
     (``snapshot_quarantine`` event and metric, dir renamed out of the
     snap namespace) and the next is tried.  The restore taken is recorded
     as a ``snapshot_restore`` event with its provenance."""
-    _no_tier(keyspace, leases)
     rootp = pathlib.Path(root)
     latest = rootp / "LATEST"
     latest_name = latest.read_text().strip() if latest.exists() else ""
@@ -330,7 +431,8 @@ def load_latest_node(root: str, node, allow_rid_change: bool = True,
                              allow_rid_change=allow_rid_change,
                              set_node=set_node, seq_node=seq_node,
                              map_node=map_node,
-                             composite_node=composite_node)
+                             composite_node=composite_node,
+                             keyspace=keyspace, leases=leases)
             except Exception as e:  # noqa: BLE001 — quarantined loudly below
                 err = f"restore failed: {type(e).__name__}: {e}"
         if err is not None:

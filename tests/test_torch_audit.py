@@ -280,6 +280,62 @@ def test_watchdog_scrub_cadence_stall_and_lag_edges():
     assert out["t"] == out["j"]
 
 
+def test_watchdog_shard_planes_and_lease_zombies():
+    """The keyspace's shard planes in the watchdog (planes(), note_shard
+    agreeing then diverging, the report's per-plane digests) and the
+    lease-zombie evaluator (edge-triggered on an expired, unhanded-off
+    lease; re-armed on recovery): answers, counters and events as the JAX
+    watchdog's."""
+    out = {}
+    for pkg in ("j", "t"):
+        if pkg == "j":
+            from crdt_tpu.consistency.leases import LeaseManager
+            from crdt_tpu.keyspace import KeyspaceFrontDoor, ShardedKeyspace
+
+            ks = ShardedKeyspace(0, 3, capacity=32, mesh="off", clock=jclock.ManualClock())
+            node, aud = jnode.ReplicaNode(rid=0, capacity=32, clock=jclock.ManualClock()), jaudit
+        else:
+            from crdt_tpu_torch.consistency.leases import LeaseManager
+            from crdt_tpu_torch.keyspace import KeyspaceFrontDoor, ShardedKeyspace
+
+            ks = ShardedKeyspace(0, 3, capacity=32, mesh="off", clock=tclock.ManualClock(),
+                                 device="cpu")
+            node = tnode.ReplicaNode(rid=0, capacity=32, clock=tclock.ManualClock(),
+                                     device="cpu")
+            aud = taudit
+        node.enable_audit()
+        ks.enable_audit()
+        door = KeyspaceFrontDoor(ks, max_batch=4)
+        for i in range(9):
+            door.admit_cmd("t-a", {f"k{i}": str(i)}, timeout=5.0)
+        now = [0.0]
+        leases = LeaseManager(node, n_slots=2, duration=1.0, clock=lambda: now[0])
+        leases.attach("http://me", lambda: [])
+        wd = aud.AuditWatchdog(node, keyspace=ks, leases=leases, scrub_every=0)
+        log = [[p for p, _ in wd.planes()], wd._plane_node("ks-9") is None]
+        for i in range(3):
+            snap = ks.audit_snapshot(i)
+            wd.note_shard("peer", i, snap[0], snap[2])
+        wd.note_shard("peer2", 1, ks.audit_snapshot(1)[0], "0" * 32)
+        log.append(leases.ensure(0))
+        for step in range(5):
+            now[0] = (2.0 if step in (1, 2) else 0.5) + step * 0.0
+            if step == 3:
+                leases.held_fence(0)
+            wd.evaluate()
+            log.append((wd.state, node.metrics.registry.counter_value("audit_lease_zombies")))
+        reg = node.metrics.registry
+        log.append([reg.gauge_value("audit_agreement", plane=f"ks-{i}") for i in range(3)])
+        rep = wd.report()
+        log.append((sorted(rep["planes"]), rep["divergences"], rep["state"]))
+        log.append([{k: v for k, v in e.items() if k not in ("ts_ms", "v", "trace")}
+                    for e in node.events.find() if e["event"].startswith(("audit", "divergence",
+                                                                           "lease"))])
+        out[pkg] = log
+    assert out["t"] == out["j"]
+    assert out["t"][0] == ["host", "ks-0", "ks-1", "ks-2"] and out["t"][-2][1]
+
+
 def test_cross_check_and_the_cli(tmp_path):
     """cross_check groups digests by exact frontier as the JAX function
     does; ``python -m crdt_tpu_torch.obs.audit`` over saved reports exits

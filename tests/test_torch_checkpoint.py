@@ -6,7 +6,8 @@ into a port node booted at another epoch and a port snapshot into a JAX
 node, with equal state, vv, frontier, summary, commands and audit digest;
 ``bump_incarnation``; a corrupt generation is quarantined and the one
 before restored in both; a restored node's seq counter continues; the
-swarm snapshot round trips."""
+swarm snapshot round trips; the keyspace's shard files, its reshard
+ledger and the lease fences cross both ways, across a reshard epoch."""
 import json
 import pathlib
 
@@ -223,10 +224,94 @@ def test_corrupt_generation_quarantined_in_both(tmp_path, corrupt):
 
 
 def test_no_snapshot_is_a_fresh_boot(tmp_path):
-    node, _ = _replica("t", 0, 1)
-    assert not tckpt.load_latest_node(str(tmp_path / "none"), node)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        tckpt.save_node(str(tmp_path / "x"), node, keyspace=object())
+    """No snapshot: a fresh boot in both packages, keyspace and leases
+    untouched (until the tier was ported the port refused them here)."""
+    for pkg, ckpt in (("j", jckpt), ("t", tckpt)):
+        node, _ = _replica(pkg, 0, 1)
+        ks, leases = _tier(pkg, node, 2)
+        assert not ckpt.load_latest_node(str(tmp_path / "none"), node, keyspace=ks,
+                                         leases=leases)
+        assert ks.n_shards == 2 and ks.epoch == 0 and leases.fences_snapshot() == {}
+
+
+def _tier(pkg, node, n_shards):
+    """A keyspace of ``n_shards`` (host path, its shards on one ManualClock
+    at the node's epoch) and a LeaseManager for ``node``."""
+    if pkg == "j":
+        from crdt_tpu.consistency.leases import LeaseManager
+        from crdt_tpu.keyspace import ShardedKeyspace
+
+        clock = jclock.ManualClock()
+        ks = ShardedKeyspace(node.rid, n_shards, capacity=32, mesh="off", clock=clock)
+    else:
+        from crdt_tpu_torch.consistency.leases import LeaseManager
+        from crdt_tpu_torch.keyspace import ShardedKeyspace
+
+        clock = tclock.ManualClock()
+        ks = ShardedKeyspace(node.rid, n_shards, capacity=32, mesh="off", device="cpu",
+                             clock=clock)
+    clock.epoch_ms = node.clock.epoch_ms  # every shard's, reborn ones too
+    return ks, LeaseManager(node, n_slots=4, duration=5.0, clock=lambda: 0.0)
+
+
+def _tier_drive(pkg, ks, leases):
+    """Tenant writes through the door, a shard-local fold, fences; the
+    reshard machine's window opened."""
+    door = (__import__("crdt_tpu.keyspace" if pkg == "j" else "crdt_tpu_torch.keyspace",
+                       fromlist=["KeyspaceFrontDoor"]).KeyspaceFrontDoor(ks, max_batch=4))
+    for i in range(14):
+        door.admit_cmd(("t-a", "t-b")[i % 2], {f"k{i % 9}": f"v{i}"}, timeout=5.0)
+    door.flush_all()
+    ks.compact_shard(1, {ks.rid: 0})
+    leases.note_fence(0, 3)
+    leases.note_fence(2, 7)
+    leases.grant(1, "http://h", 2, 5.0)
+
+
+def _tier_state(ks, leases):
+    return (ks.epoch, ks.n_shards, ks.reshard.ledger(),
+            [s.gossip_payload(since=None) for s in ks.shards],
+            [s.version_vector() for s in ks.shards], ks.tenant_state("t-a"),
+            ks.tenant_state("t-b"), leases.fences_snapshot())
+
+
+@pytest.mark.parametrize("phase", ["settled", "migrate", "cutover"])
+def test_keyspace_and_lease_snapshots_cross_both_ways(tmp_path, phase):
+    """ks-shard-*.json, ks-reshard.json and leases.json byte for byte in
+    both packages (settled at 2 shards, inside a MIGRATE window toward 3,
+    and after the cutover at epoch 1), and each package's snapshot
+    restores into the other: the same shard count, epoch, ledger, every
+    shard's wire dump and vv, tenant states and fence floors."""
+    saved = {}
+    for pkg, ckpt in (("j", jckpt), ("t", tckpt)):
+        node, sibs = _replica(pkg, 2, 1_000_000)
+        ks, leases = _tier(pkg, node, 2)
+        _tier_drive(pkg, ks, leases)
+        if phase != "settled":
+            ks.reshard.start(3)
+        if phase == "cutover":
+            ks.reshard.cutover()
+        snap = pathlib.Path(ckpt.save_node_atomic(str(tmp_path / pkg), node, keyspace=ks,
+                                                  leases=leases))
+        saved[pkg] = (snap, _tier_state(ks, leases))
+    assert saved["t"][1] == saved["j"][1]
+    names = sorted(p.name for p in saved["j"][0].iterdir())
+    assert sorted(p.name for p in saved["t"][0].iterdir()) == names
+    tier_files = [n for n in names if n.startswith(("ks-", "leases"))]
+    assert tier_files == sorted(["ks-reshard.json", "leases.json"] +
+                                [f"ks-shard-{i}.json" for i in range(saved["t"][1][1])])
+    for name in tier_files:
+        assert (saved["t"][0] / name).read_bytes() == (saved["j"][0] / name).read_bytes(), name
+    for src, dst in (("j", "t"), ("t", "j")):
+        ckpt = tckpt if dst == "t" else jckpt
+        node, _ = _replica(dst, 2, 5)
+        ks, leases = _tier(dst, node, 2)
+        assert ckpt.load_latest_node(str(tmp_path / src), node, keyspace=ks, leases=leases)
+        got = _tier_state(ks, leases)
+        assert got == saved[src][1], (src, dst)
+        events = [e for e in node.events.find(event="snapshot_restore")]
+        assert events[-1]["ks_shards"] == saved[src][1][1]
+        assert ks.reshard.status()["phase"] == ("migrate" if phase == "migrate" else "idle")
 
 
 def test_swarm_snapshot_round_trips(tmp_path):

@@ -19,8 +19,7 @@ elapsed time or of the device rather than of the replicated state:
 * the wall-clock gauges ``last_merge_unixtime`` and
   ``seconds_since_last_merge`` (present in both).
 
-``/fleet`` is the one route that differs: the JAX demo mode serves the
-fleet rollup (200), the port answers 404 until the fleet tier is ported.
+``/fleet`` serves the fleet rollup in both packages alike.
 """
 import http.client
 import json
@@ -382,11 +381,14 @@ def test_metrics_parity(served):
 
 
 def test_fleet_is_the_one_route_that_differs(served):
-    """JAX's demo mode serves the fleet rollup; the port's 404s, naming
-    the ROADMAP item that ports it."""
-    assert request(served.jp[0], "GET", "/fleet")[0] == 200
-    status, _, body = request(served.tp[0], "GET", "/fleet")
-    assert status == 404 and b"Queue 1 item 3" in body
+    """The fleet rollup, the one route that differed until obs/fleet was
+    ported: demo mode serves it in both packages with the same status,
+    headers and body, the SLO query included, and a bad threshold's 400."""
+    for path in ("/fleet", "/fleet?shed_ratio=0.5&admit_p99_ms=1", "/fleet?shed_ratio=x"):
+        j = request(served.jp[0], "GET", path)
+        t = request(served.tp[0], "GET", path)
+        assert j == t, path
+    assert j[0] == 400 and json.loads(request(served.tp[0], "GET", "/fleet")[2])["n_members"] == 1
 
 
 def test_admin_routes_serve_a_daemon():

@@ -20,6 +20,7 @@ from crdt_tpu_torch.api.setnode import SetNode
 from crdt_tpu_torch.consistency import vvclock
 from crdt_tpu_torch.harness.gc_soak import MapSoakRunner, SetSoakRunner
 from crdt_tpu_torch.harness.seq_soak import SeqSoakRunner
+from crdt_tpu_torch.keyspace import ShardedKeyspace, keyspace_from_config
 from crdt_tpu_torch.models import compactlog
 from crdt_tpu_torch.models import flags, gcounter, gset, lww, mvregister, oplog
 from crdt_tpu_torch.models import oplog_columnar, orset, pncounter, rseq
@@ -70,7 +71,10 @@ def test_scan_sees_the_whole_package():
             "mapnode.py", "floornode.py", "gc_soak.py", "seq_soak.py",
             "http_shim.py", "session.py", "stability.py", "wire.py", "shed.py",
             "admission.py", "shim.py", "soak.py", "__main__.py", "net.py",
-            "compositenode.py", "checkpoint.py", "digest.py", "audit.py"} <= names
+            "compositenode.py", "checkpoint.py", "digest.py", "audit.py", "routing.py",
+            "shards.py", "frontdoor.py", "reshard.py", "leases.py", "plane.py",
+            "fleet.py"} <= names
+    assert ROOT / "crdt_tpu_torch" / "obs" / "__main__.py" in PORT_FILES
 
 
 @pytest.mark.parametrize("make", [
@@ -121,6 +125,9 @@ def test_scan_sees_the_whole_package():
     lambda: SeqSoakRunner(),
     lambda: CompositeNode(rid=0),
     lambda: NodeHost(rid=0, peers=[]),
+    lambda: ShardedKeyspace(0, 2),
+    lambda: keyspace_from_config(0, tconfig.ClusterConfig(keyspace_shards=2)),
+    lambda: NodeHost(rid=0, peers=[], config=tconfig.ClusterConfig(keyspace_shards=2)),
 ], ids=["oplog.empty", "from_ops", "columnar.empty", "random_peers",
         "convert", "default_device", "orset.empty", "bitmap_empty",
         "bucketed_empty", "g_empty", "tp_empty", "convert.orset", "set_swarm",
@@ -130,7 +137,8 @@ def test_scan_sees_the_whole_package():
         "compactlog.empty", "ReplicaNode", "LocalCluster", "convert.compactlog",
         "vvclock.zero", "ormap.empty", "ormap_gc.wrap", "SetNode", "SeqNode", "MapNode",
         "rand_orset", "small_gset", "registry_neutral", "convert.vvclock", "SetSoakRunner",
-        "MapSoakRunner", "SeqSoakRunner", "CompositeNode", "NodeHost"])
+        "MapSoakRunner", "SeqSoakRunner", "CompositeNode", "NodeHost", "ShardedKeyspace",
+        "keyspace_from_config", "NodeHost_keyspace"])
 def test_constructor_without_device_raises_when_no_card(make, monkeypatch):
     """device=None means the CUDA card; without one it raises rather than
     returning CPU tensors."""

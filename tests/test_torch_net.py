@@ -6,12 +6,13 @@ the JAX package's, zero tolerance.
   instance before the first write): status, the compared headers and the
   bodies are equal, with each host's own URL and checkpoint dir written as
   a placeholder.  ``/metrics`` is compared series by series with
-  tests/test_torch_http.py's exemptions and the fetch timer, and without
-  the JAX daemon's lease and consistency series (LEASE_SERIES), which the
-  port's daemon does not have (ROADMAP Queue 1 item 3).
-* The routes that differ answer 404 naming ROADMAP Queue 1 item 3 on a
-  port daemon where a JAX daemon serves them: /read, /cas, /lease/grant,
-  /admin/ks_pull, /admin/ks_gc, /admin/ks_reshard.
+  tests/test_torch_http.py's exemptions and the fetch timer; the lease
+  series (``crdt_lease_*``) and, with the keyspace tier, the
+  ``crdt_keyspace_*`` and ``crdt_ks_reshard_*`` series are compared too.
+* With ``keyspace_shards=4`` the pairs serve the tier's routes alike:
+  /ks/gossip, /ks/data, /ks/compact, /ks/migrate, /read at all four
+  levels, /cas, /lease/grant, /push with fence stamps and /admin/ks_pull,
+  /admin/ks_gc and /admin/ks_reshard.
 * A mixed fleet (a JAX daemon and a port daemon) gossips both ways, folds
   and converges with equal GET /data, vv and digests; a go_compat_gossip
   pair serves the same bytes and trades with the Go-semantics oracle shim
@@ -50,9 +51,12 @@ from tests.test_torch_http import HEADERS, JOIN_DEVICE, TIME_HISTOGRAMS, WALL_GA
 
 ROOT = Path(__file__).resolve().parent.parent
 FETCH_TIMER = "crdt_net_fetch_seconds"
-# the JAX daemon's lease and consistency series (its LeaseManager and
-# ConsistencyPlane; the port's daemon has neither)
+# the tier's scrape-time series, compared like every other
 LEASE_SERIES = ("crdt_lease_state", "crdt_lease_fence_epoch")
+KS_SERIES = ("crdt_keyspace_", "crdt_ks_reshard_")
+# the tier's time histograms: buckets and sums are elapsed time (their
+# counts are compared)
+TIER_TIMERS = ("crdt_strong_read_quorum_seconds_seconds", "crdt_ks_admit_latency_seconds")
 
 
 def _jhost(rid, **kw):
@@ -242,13 +246,31 @@ def _exempt(key: str) -> bool:
     name = key.split("{")[0]
     if name in JOIN_DEVICE or name in WALL_GAUGES:
         return True
-    return any(name in (h + "_bucket", h + "_sum") for h in TIME_HISTOGRAMS + (FETCH_TIMER,))
+    return any(name in (h + "_bucket", h + "_sum")
+               for h in TIME_HISTOGRAMS + (FETCH_TIMER,) + TIER_TIMERS)
+
+
+def compare_metrics(f, must=()):
+    """GET /metrics of each host pair: the same series and values, bar
+    the time and device exemptions; every prefix in ``must`` present."""
+    for i in range(2):
+        texts = [f._norm(hosts, pkg, request(hosts[i].url, "GET", "/metrics")[2]).decode()
+                 for hosts, pkg in ((f.j, "j"), (f.t, "t"))]
+        (jk, js), (tk, ts) = _series(texts[0]), _series(texts[1])
+        assert {k: v for k, v in jk.items() if k not in JOIN_DEVICE} == \
+            {k: v for k, v in tk.items() if k not in JOIN_DEVICE}
+        assert {k for k in js if not k.startswith(JOIN_DEVICE)} == \
+            {k for k in ts if not k.startswith(JOIN_DEVICE)}
+        assert {k: v for k, v in js.items() if not _exempt(k)} == \
+            {k: v for k, v in ts.items() if not _exempt(k)}
+        for name in must:
+            assert any(k.startswith(name) for k in ts), name
 
 
 def test_daemon_metrics_equal_the_jax_daemon(fleets):
     """GET /metrics after writes, pulls, a barrier and sibling ops: the
-    same series and values, bar the time and device exemptions and the
-    JAX daemon's lease series."""
+    same series and values, bar the time and device exemptions, the
+    lease series included."""
     f = fleets
     rng = np.random.default_rng(1)
     for k in range(10):
@@ -259,49 +281,127 @@ def test_daemon_metrics_equal_the_jax_daemon(fleets):
     for i in (0, 1, 0):
         f.both(i, "POST", "/admin/pull", b"{}")
     f.both(0, "POST", "/admin/barrier", b"{}")
+    compare_metrics(f, ("crdt_net_gossip_rounds_total", "crdt_audit_state",
+                        "crdt_net_peer_circuit_state{", "crdt_stability_lag_ops{",
+                        "crdt_composite_keys{") + LEASE_SERIES)
+
+
+@pytest.fixture
+def ks_fleets(tmp_path):
+    """Fleets with the keyspace tier (4 shards, the host path in both
+    packages), every shard on a ManualClock of its own and the leases
+    ranking the hosts' stable names, so routing and wire bytes match."""
+    f = Fleets(tmp_path, log_capacity=64, keyspace_shards=4, keyspace_mesh="off")
+    for hosts, clock in ((f.j, jclock), (f.t, tclock)):
+        names = {h.url: f"member-{i}" for i, h in enumerate(hosts)}
+        for h in hosts:
+            h.leases.member_key = names.get
+            for s in h.keyspace.shards:
+                s.clock = clock.ManualClock()
+            for t in h.agent.ks_trackers:
+                t.members = [p.url for p in h.agent.peers]
+    yield f
+    f.stop()
+
+
+def test_the_fleet_tier_routes_differ(ks_fleets):
+    """The tier's routes on a JAX pair and a port pair with
+    keyspace_shards=4 (they differed until the tier was ported, the port
+    answering 404): tenant writes, /ks/gossip, /ks/data, /ks/compact,
+    /read at all four levels, /cas (applied, conflict, forwarded, multi
+    key, bad bodies), /lease/grant, fenced /push, /admin/ks_pull,
+    /admin/ks_gc and the reshard machine through /admin/ks_reshard give
+    equal statuses, headers and bodies, and equal /metrics."""
+    f = ks_fleets
+    tenant = {"X-CRDT-Tenant": "t-acme"}
+    for k in range(12):
+        f.both(k % 2, "POST", "/data", post({f"k{k}": f"v{k}"}), headers=tenant)
+    f.both(0, "POST", "/data", post({"h": "1"}))
+    f.both(0, "POST", "/data", post({"k": "v"}), headers={"X-CRDT-Tenant": "bad:t"})
+    f.both(1, "POST", "/ingest/page", _page_pair(9, 0, [("p1", "a"), ("p2", "b")]),
+           headers=tenant)
+    f.both(1, "POST", "/map/upd", post({"key": "m", "delta": 2}), headers=tenant)
+    f.both(0, "GET", "/data", headers=tenant)
     for i in range(2):
-        texts = [f._norm(hosts, pkg, request(hosts[i].url, "GET", "/metrics")[2]).decode()
-                 for hosts, pkg in ((f.j, "j"), (f.t, "t"))]
-        (jk, js), (tk, ts) = _series(texts[0]), _series(texts[1])
-        lease = {k for k in jk if k.startswith(LEASE_SERIES)}
-        assert lease == set(LEASE_SERIES)
-        assert {k: v for k, v in jk.items() if k not in lease and k not in JOIN_DEVICE} == \
-            {k: v for k, v in tk.items() if k not in JOIN_DEVICE}
-        js = {k: v for k, v in js.items() if not k.startswith(LEASE_SERIES)}
-        assert {k for k in js if not k.startswith(JOIN_DEVICE)} == \
-            {k for k in ts if not k.startswith(JOIN_DEVICE)}
-        assert {k: v for k, v in js.items() if not _exempt(k)} == \
-            {k: v for k, v in ts.items() if not _exempt(k)}
-        for name in ("crdt_net_gossip_rounds_total", "crdt_audit_state",
-                     "crdt_net_peer_circuit_state{", "crdt_stability_lag_ops{",
-                     "crdt_composite_keys{"):
-            assert any(k.startswith(name) for k in ts), name
+        assert f.json(i, "POST", "/admin/ks_pull", b"{}")[0] == 200
+        f.both(i, "GET", "/ks/data")
+        f.both(i, "GET", "/ks/data?tenant=t-acme")
+        for s in range(4):
+            f.both(i, "GET", f"/ks/gossip?shard={s}")
+            f.both(i, "GET", f"/ks/gossip?shard={s}&vv=" + urllib.parse.quote('{"0": 0}'),
+                   headers={"X-CRDT-Trace": f"tr{s}"})
+    for path in ("/ks/gossip?shard=9", "/ks/gossip?shard=0&vv=bad", "/ks/gossip?shard=0&epoch=3",
+                 "/ks/nope"):
+        f.both(0, "GET", path)
+    f.both(0, "POST", "/ks/compact", post({"shard": 0, "frontier": {"0": 0}}))
+    f.both(0, "POST", "/ks/compact", post({"shard": 7}))
+    f.both(0, "POST", "/ks/compact", post({"shard": 0, "frontier": {}, "epoch": 2}))
+    f.both(0, "POST", "/ks/migrate", post({"shard": 0, "payload": {}}))
+    f.both(0, "POST", "/ks/migrate", post({"shard": 0}))
+    assert f.json(0, "POST", "/admin/ks_gc", b"{}")[0] == 200
+    token = f.both(0, "POST", "/data", post({"r": "1"}))[1]["X-CRDT-Session-Token"]
+    for i in range(2):
+        for level in ("eventual", "bounded", "linearizable"):
+            f.both(i, "GET", f"/read?key=r&level={level}")
+        f.both(i, "GET", "/read?key=r&level=session", headers={"X-CRDT-Session-Token": token})
+    for path in ("/read", "/read?key=r&level=session", "/read?key=r&level=strong",
+                 "/read?key=r&level=bounded&staleness=x"):
+        f.both(0, "GET", path)
+    for k in range(6):
+        status, out = f.json(k % 2, "POST", "/cas",
+                             post({"key": f"c{k % 3}", "expect": None, "update": str(k)}))
+        assert status in (200, 409), out
+    f.both(1, "POST", "/cas", post({"ops": {"m1": {"expect": None, "update": "a"},
+                                            "m2": {"expect": None, "update": "b"}}}))
+    for bad in (b"{}", b"[]", post({"ops": {}}), post({"key": "x", "update": "1", "hops": -1})):
+        f.both(0, "POST", "/cas", bad)
+    f.both(0, "POST", "/lease/grant", post({"slot": 1, "holder": "h", "fence": 9, "ttl": 1}))
+    f.both(0, "POST", "/lease/grant", post({"slot": 99, "holder": "h", "fence": 1, "ttl": 1}))
+    f.both(1, "POST", "/push", post({"payload": {}, "fences": {"1": 3}}))
+    f.both(0, "POST", "/push", post({"payload": {}, "fences": {"1": 8}}))
+    # a member down: the strong routes' 503s (Retry-After, the refusal's
+    # fields), on both sides of the routing
+    f.both(1, "GET", "/condition/false")
+    refused = []
+    for i in range(2):
+        for level in ("bounded", "linearizable", "eventual"):
+            refused.append(f.both(i, "GET", f"/read?key=r&level={level}"))
+        for k in range(3):
+            refused.append(f.both(i, "POST", "/cas",
+                                  post({"key": f"c{k}", "expect": "x", "update": "y"})))
+    f.both(1, "GET", "/condition/true")
+    assert sum(1 for st, hdr, _ in refused if st == 503 and hdr["Retry-After"]) >= 6
+    compare_metrics(f, LEASE_SERIES + KS_SERIES)
+    for action in ({"action": "status"}, {"action": "start", "shards": 6},
+                   {"action": "start", "shards": 5}, {"action": "stream"}):
+        for i in range(2):
+            f.both(i, "POST", "/admin/ks_reshard", post(action))
+    f.both(0, "POST", "/ks/migrate", post({"shard": 5, "epoch": 0, "payload": {"1:0:0": "x"}}))
+    for i in range(2):
+        f.both(i, "POST", "/admin/ks_reshard", post({"action": "cutover"}))
+    f.both(0, "POST", "/admin/ks_reshard", post({"action": "nope"}))
+    f.both(0, "GET", "/ks/gossip?shard=0")
+    for i in range(2):
+        f.both(i, "POST", "/admin/ks_pull", b"{}")
+        f.both(i, "GET", "/ks/data?tenant=t-acme")
+    compare_metrics(f, LEASE_SERIES + KS_SERIES)
+    assert f.t[0].keyspace.n_shards == 6 and f.t[0].keyspace.epoch == 1
 
 
-def test_the_fleet_tier_routes_differ(fleets):
-    """The pins of what stays unported (ROADMAP Queue 1 item 3): a JAX
-    daemon serves /read, /cas, /lease/grant and the keyspace admin routes
-    from its consistency plane, leases and keyspace; a port daemon
-    answers 404 naming the item.  /fleet and the /ks routes are as in
-    demo mode."""
+def test_daemon_without_the_tier_and_its_refusals(fleets):
+    """Without ``keyspace_shards`` the /ks routes are the demo mode's
+    404s in both packages, while the leases and the plane serve; the
+    keyspace refuses ``mesh="on"`` naming ROADMAP Queue 1 item 6."""
     f = fleets
-    f.both(0, "POST", "/data", post({"a": "1"}))
-    for method, path in (("GET", "/read?key=a"), ("POST", "/cas"), ("POST", "/lease/grant"),
-                         ("POST", "/admin/ks_pull"), ("POST", "/admin/ks_gc"),
-                         ("POST", "/admin/ks_reshard")):
-        body = b"{}" if method == "POST" else None
-        assert request(f.j[0].url, method, path, body)[0] != 404, path
-        status, _, data = request(f.t[0].url, method, path, body)
-        assert status == 404 and b"Queue 1 item 3" in data, path
-    assert f.t[0].keyspace is f.t[0].leases is f.t[0].consistency is f.t[0].ks_door is None
     for method, path in (("GET", "/ks/gossip?shard=0"), ("POST", "/ks/compact"),
-                         ("GET", "/fleet")):
-        assert request(f.t[0].url, method, path, b"{}" if method == "POST" else None)[0] == 404
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        tnet.RemotePeer(f.t[0].url).lease_grant(slot=0, holder="x", fence=1, ttl=1.0)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        _thost(5, cfg=dict(keyspace_shards=2))
-    assert f.t[0].agent.ks_pull(f.t[0].agent.peers[0]) == 0
+                         ("POST", "/ks/migrate"), ("GET", "/ks/data")):
+        assert f.both(0, method, path, b"{}" if method == "POST" else None)[0] == 404
+    assert f.json(0, "POST", "/admin/ks_pull", b"{}") == (200, {"fresh": 0})
+    assert f.both(0, "POST", "/admin/ks_reshard", b"{}")[0] == 400
+    assert f.json(0, "POST", "/admin/ks_gc", b"{}") == (200, {"shards": {}})
+    assert f.t[0].keyspace is None and f.t[0].leases is not None
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        _thost(5, cfg=dict(keyspace_shards=2, keyspace_mesh="on"))
 
 
 def test_mixed_fleet_converges(tmp_path):
@@ -340,6 +440,56 @@ def test_mixed_fleet_converges(tmp_path):
         assert t.agent.watchdog.state == j.agent.watchdog.state == 1
     finally:
         _stop([j, t])
+
+
+def test_mixed_fleet_pulls_shards_and_forwards_cas():
+    """A JAX daemon and two port daemons with keyspace_shards=4: tenant
+    writes on each, keyspace pulls both ways until every shard's vv is
+    equal and every tenant reads alike everywhere; CAS sent to every
+    member routes to its slot's coordinator across the packages (forwards
+    one way and the other), decides under a lease whose votes cross the
+    packages, and leaves one value and one fence table on all three."""
+    cfg = dict(keyspace_shards=4, keyspace_mesh="off")
+    hosts = [jnet.NodeHost(rid=0, peers=[], config=jconfig.ClusterConfig(**cfg))] + \
+        [tnet.NodeHost(rid=r, peers=[], device="cpu", config=tconfig.ClusterConfig(**cfg))
+         for r in (1, 2)]
+    for h in hosts:
+        net = jnet if isinstance(h, jnet.NodeHost) else tnet
+        h.agent.peers = [net.RemotePeer(o.url) for o in hosts if o is not h]
+        h.start_server()
+    try:
+        tenant = {"X-CRDT-Tenant": "t-mix"}
+        for k in range(18):
+            assert request(hosts[k % 3].url, "POST", "/data", post({f"k{k}": str(k)}),
+                           tenant)[0] == 200
+        for _ in range(2):
+            for h in hosts:
+                for p in h.agent.peers:
+                    assert h.admin_ks_pull(p.url) >= 0
+        want = {f"k{k}": str(k) for k in range(18)}
+        for h in hosts:
+            assert h.keyspace.tenant_state("t-mix") == want
+        for s in range(4):
+            assert len({json.dumps(h.keyspace.version_vector(s), sort_keys=True)
+                        for h in hosts}) == 1
+        forwarded = 0
+        for k in range(9):
+            h = hosts[k % 3]
+            key = f"c{k % 3}"
+            cur = json.loads(request(h.url, "GET", f"/read?key={key}&level=linearizable")[2])
+            status, _, body = request(h.url, "POST", "/cas", post(
+                {"key": key, "expect": cur["value"], "update": f"n{k}"}))
+            assert status == 200, body
+            forwarded += h.node.metrics.registry.counter_value("cas_forwarded") or 0
+        assert forwarded > 0
+        for key in ("c0", "c1", "c2"):
+            values = {json.loads(request(h.url, "GET", f"/read?key={key}&level=linearizable")[2])
+                      ["value"] for h in hosts}
+            assert len(values) == 1 and values != {None}, (key, values)
+        coords = {h.leases.coordinator_of(s) for h in hosts for s in range(8)}
+        assert coords <= {h.url for h in hosts}
+    finally:
+        _stop(hosts)
 
 
 def test_go_compat_pair_and_the_go_oracle(tmp_path):
@@ -637,7 +787,7 @@ def test_run_daemon_processes_crash_and_restore(tmp_path):
 
 
 @pytest.mark.parametrize("args,msg", [
-    (["--keyspace-shards", "2"], "Queue 1 item 3"),
+    (["--set-collect-every", "4"], "requires --coordinator"),
     (["--compact-every", "4"], "requires --coordinator"),
     (["--checkpoint-dir", "x", "--rid", "70"], "--rid-stride"),
 ])
@@ -646,6 +796,33 @@ def test_run_daemon_refusals(args, msg):
                           "--port", "0", *args], cwd=ROOT, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 2 and msg in out.stderr and "serving" not in out.stdout
+
+
+def test_daemon_serves_the_keyspace(tmp_path):
+    """``python -m crdt_tpu_torch --daemon --keyspace-shards 2`` (the
+    refusal until the tier was ported) serves tenant writes from its
+    shards: /ks/data answers the tenant's state and two shards' stats,
+    and a SIGINT stops it with exit 0."""
+    proc = subprocess.Popen([sys.executable, "-m", "crdt_tpu_torch", "--daemon", "--device",
+                             "cpu", "--port", "0", "--keyspace-shards", "2"], cwd=ROOT,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        line = proc.stdout.readline()
+        assert " serving on " in line, proc.stderr.read() if proc.poll() is not None else line
+        url = line.split(" serving on ")[1].split(",")[0]
+        tenant = {"X-CRDT-Tenant": "t-acme"}
+        for k in range(6):
+            assert request(url, "POST", "/data", post({f"k{k}": str(k)}), tenant)[0] == 200
+        status, _, body = request(url, "GET", "/ks/data?tenant=t-acme")
+        assert status == 200 and json.loads(body) == {
+            "tenant": "t-acme", "state": {f"k{k}": str(k) for k in range(6)}}
+        shards = json.loads(request(url, "GET", "/ks/data")[2])["shards"]
+        assert len(shards) == 2 and sum(s["keys"] for s in shards) == 6
+        assert json.loads(request(url, "GET", "/read?key=x&level=linearizable")[2]) == {
+            "key": "x", "value": None, "level": "linearizable"}
+    finally:
+        proc.send_signal(signal.SIGINT)
+        assert proc.wait(60) == 0
 
 
 def test_daemon_without_a_card_fails_rather_than_fall_back(monkeypatch):
