@@ -1,7 +1,8 @@
 """Drive the PyTorch port's OpLog, OR-Set and RSeq swarm paths, the OR-Set
 union floors, the counter and register family, the replica-node cluster,
-the join registry, the typed sibling nodes, the reference's HTTP surface
-and the network daemon on a CUDA card and check them.
+the join registry, the typed sibling nodes, the reference's HTTP surface,
+the network daemon, the keyspace tier and the fault plane's soaks on a
+CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -180,7 +181,26 @@ Phases (any failure exits non-zero and prints no result):
     floors, a ``/push`` stamped below a floor refused 409, every tenant ==
     the fold; (f) ``python -m crdt_tpu_torch.obs fleet`` over the five
     exits 0 and its per-tenant and per-shard, per-member numbers == each
-    daemon's ``/metrics``; one ``{"keyspace_tier": ...}`` JSON line.
+    daemon's ``/metrics``; one ``{"keyspace_tier": ...}`` JSON line;
+20. the nemesis soak (budget 150 s): in-process ``NodeHost`` fleets on the
+    card through ``harness.nemesis_soak``'s seeded fault schedules
+    (partitions, drops, delays, duplicates, reorders, truncations,
+    corruptions, crashes with reboots, torn snapshots, fsync stalls, clock
+    skew), each healed and held to its laws: (a) the default arm (3 nodes,
+    120 steps, seed 0) with the assembly check, replayed with a
+    byte-identical fault log, blame coverage >= 0.95, and its fault log,
+    converged vv and state == a CPU run of the same seed; (b) one arm for
+    each mode at 3 nodes: ``gc`` (100 steps, against its GC-off shadow),
+    ``strong`` with ``crash_coordinator``, ``multitenant`` with
+    ``reshard``, ``audit`` (against its plant-free arm), ``composite`` and
+    ``overload`` (120 steps each); one ``{"nemesis": ...}`` JSON line;
+21. the crash soak (budget 120 s): ``harness.crashsoak.CrashSoakRunner``
+    drives three ``python -m crdt_tpu_torch --daemon --device cuda``
+    processes through the CLI's schedule (200 steps, seed 0) with real
+    SIGKILLs and restores, heals and checks every invariant (I1-I4,
+    S1-S3, Q1-Q3, M1-M3, K1, the black boxes), then ``python -m
+    crdt_tpu_torch.obs assemble`` over the three slots' event logs exits 0
+    with a track for each slot; one ``{"crash_soak": ...}`` JSON line.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -4188,6 +4208,206 @@ def ks_phase(card: str) -> dict:
     return line
 
 
+# ---- phase 20: the nemesis soak ----
+
+NEM_BUDGET_S = 150
+NEM_NODES, NEM_STEPS, NEM_SEED = 3, 120, 0   # the README's default arm
+NEM_RUN_DIR = "build/nemesis"                # git-ignored: fault logs, bundles
+# (b): one arm a mode, (label, seed, steps, modes); each seed is one whose
+# laws hold at this size (the modes' CPU tests hold the port to the JAX
+# package's runs at test size)
+NEM_ARMS = (
+    ("gc", 0, 100, {"gc": True}),
+    ("strong", 0, 120, {"strong": True, "crash_coordinator": True}),
+    ("reshard", 0, 120, {"multitenant": True, "reshard": True}),
+    ("audit", 0, 120, {"audit": True}),
+    ("composite", 0, 120, {"composite": True}),
+    ("overload", 0, 120, {"overload": True}),
+)
+
+
+def nemesis_arm(ns, seed: int, steps: int, device: str, **kw) -> tuple:
+    """One ``run_soak`` on ``device``; returns (report, seconds, the first
+    soak's black-box event counts).  The counts are read from every
+    slot's JSONL log just before the soak's temp dir goes: a subclass
+    stands in for ``NemesisSoak`` for the call."""
+    from collections import Counter
+
+    boxes = []
+
+    class Counted(ns.NemesisSoak):
+        def close(self):
+            c = Counter()
+            for s in self.slots:
+                for e in ns.read_jsonl(s.event_log_path):
+                    ev = e.get("event")
+                    c[ev] += 1
+                    if ev == "snapshot_restore" and e.get("fallback"):
+                        c["fallback_restore"] += 1
+            boxes.append(c)
+            super().close()
+
+    plain = ns.NemesisSoak
+    ns.NemesisSoak = Counted
+    try:
+        t0 = time.perf_counter()
+        rep = ns.run_soak(seed, NEM_NODES, steps, device=device, **kw)
+        return rep, time.perf_counter() - t0, boxes[0]
+    finally:
+        ns.NemesisSoak = plain
+
+
+def nemesis_row(rep, seconds: float, box, fault_records: int) -> dict:
+    return {"seconds": seconds, "writes": rep.writes, "rounds_to_converge": rep.heal_rounds,
+            "fault_records": fault_records, "fault_counts": rep.fault_counts,
+            "payload_quarantines": rep.payload_quarantines,
+            "snapshot_quarantines": rep.snapshot_quarantines,
+            "fallback_restores": box["fallback_restore"], "crashes": rep.crashes,
+            "reboots": rep.reboots}
+
+
+def nemesis_phase(card: str) -> dict:
+    """Phase 20: the nemesis soak's default arm and each mode on the card,
+    then one {"nemesis": ...} JSON line."""
+    import shutil
+
+    from crdt_tpu_torch.harness import nemesis_soak as ns
+
+    t_phase = time.perf_counter()
+    log(f"phase 20 (the nemesis soak): budget {NEM_BUDGET_S} s")
+    root = Path(__file__).resolve().parent / NEM_RUN_DIR
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    torch.cuda.reset_peak_memory_stats()
+    line = {"card": card, "nodes": NEM_NODES, "arms": {}}
+
+    # -- (a) the default arm, replayed, and a CPU run of the same seed --
+    logs = {tag: root / f"default-{tag}.jsonl" for tag in ("card", "replay", "cpu")}
+    runs = {}
+    for tag, device, kw in (("card", "cuda", {"assemble_check": True}), ("replay", "cuda", {}),
+                            ("cpu", "cpu", {})):
+        runs[tag] = nemesis_arm(ns, NEM_SEED, NEM_STEPS, device, fault_log=str(logs[tag]),
+                                postmortem_dir=str(root), **kw)
+    rep, secs, box = runs["card"]
+    card_log = logs["card"].read_bytes()
+    if logs["replay"].read_bytes() != card_log:
+        raise AssertionError("(a): the replayed run's fault log differs from the first run's")
+    if rep.blame_coverage is None or rep.blame_coverage < 0.95:
+        raise AssertionError(f"(a): blame coverage {rep.blame_coverage} < 0.95")
+    cpu = runs["cpu"][0]
+    if logs["cpu"].read_bytes() != card_log:
+        raise AssertionError("(a): the CPU run's fault log differs from the card's")
+    for key in ("final_vv", "state_json", "writes_ledger", "fault_counts"):
+        if getattr(cpu, key) != getattr(rep, key):
+            raise AssertionError(f"(a): the card's {key} differs from the CPU run's")
+    n_faults = len(card_log.splitlines())
+    line["default"] = dict(nemesis_row(rep, secs, box, n_faults), steps=NEM_STEPS,
+                           seed=NEM_SEED, blame_coverage=rep.blame_coverage,
+                           replay_s=runs["replay"][1], cpu_s=runs["cpu"][1])
+    log(f"(a) default arm, {NEM_NODES} nodes x {NEM_STEPS} steps, seed {NEM_SEED}: "
+        f"{rep.summary()} [{secs:.2f} s on the card, replay {runs['replay'][1]:.2f} s, "
+        f"CPU {runs['cpu'][1]:.2f} s]")
+    log(f"    replay fault log byte-identical ({len(card_log)} B, {n_faults} records); "
+        f"card == CPU: fault log, vv, state, ledger; blame coverage {rep.blame_coverage:.3f}")
+
+    # -- (b) one arm a mode --
+    for label, seed, steps, modes in NEM_ARMS:
+        flog = root / f"{label}.jsonl"
+        rep, secs, box = nemesis_arm(ns, seed, steps, "cuda", fault_log=str(flog),
+                                     postmortem_dir=str(root), **modes)
+        row = dict(nemesis_row(rep, secs, box, len(flog.read_bytes().splitlines())),
+                   seed=seed, steps=steps)
+        if label == "gc":
+            row.update(gc_mints=rep.gc_mints, gc_retained=rep.gc_retained,
+                       gc_retained_shadow=rep.gc_retained_shadow)
+        elif label == "strong":
+            row.update(strong_ok=rep.strong_ok, strong_unavailable=rep.strong_unavailable,
+                       coordinator_crashes=rep.coordinator_crashes,
+                       zombie_attempts=rep.zombie_attempts, cas_commits=rep.cas_commits,
+                       fenced_rejects=rep.fenced_rejects)
+        elif label == "reshard":
+            row.update(mt_restores=rep.mt_restores, mt_sheds=rep.mt_sheds,
+                       rs_streams=rep.rs_streams, rs_fences=rep.rs_fences,
+                       rs_quarantines=rep.rs_quarantines)
+        elif label == "audit":
+            row.update(audit_planted=rep.audit_planted, audit_convictions=rep.audit_drifts,
+                       audit_divergences=rep.audit_divergences,
+                       audit_postmortems=rep.audit_postmortems)
+        elif label == "composite":
+            row.update(composite_ops=rep.composite_ops)
+        else:
+            row.update(sheds=rep.sheds, shed_ops=rep.shed_ops)
+        line["arms"][label] = row
+        log(f"(b) {label}: {steps} steps, seed {seed}: {rep.summary()} [{secs:.2f} s]")
+    line["peak_card_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    line["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 20: {line['phase_s']:.1f} s (budget {NEM_BUDGET_S} s), peak card memory "
+        f"{line['peak_card_mib']:.1f} MiB [{card}]")
+    log(json.dumps({"nemesis": line}))
+    return line
+
+
+# ---- phase 21: the crash soak ----
+
+CRASH_BUDGET_S = 120
+CRASH_REPLICAS, CRASH_STEPS, CRASH_SEED = 3, 200, 0   # the CLI's default schedule
+CRASH_RUN_DIR = "build/crashsoak"                     # git-ignored: checkpoints, logs
+
+
+def crash_phase(card: str) -> dict:
+    """Phase 21: the crash soak's daemons on the card, the trace assembler
+    over their logs, then one {"crash_soak": ...} JSON line."""
+    import shutil
+
+    from crdt_tpu_torch.harness.crashsoak import CrashSoakRunner
+
+    t_phase = time.perf_counter()
+    log(f"phase 21 (the crash soak): budget {CRASH_BUDGET_S} s")
+    here = Path(__file__).resolve().parent
+    root = here / CRASH_RUN_DIR
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    t0 = time.perf_counter()
+    runner = CrashSoakRunner(n=CRASH_REPLICAS, seed=CRASH_SEED, workdir=str(root / "fleet"),
+                             postmortem_dir=str(root), device="cuda")
+    boot_s = time.perf_counter() - t0
+    report = runner.run(CRASH_STEPS)
+    soak_s = time.perf_counter() - t0
+    if report.sigkills < 1 or report.restores < 1 or report.checkpoints < 1:
+        raise AssertionError(f"the schedule ran no SIGKILL, restore or checkpoint: {report}")
+    restarts = [t for d in runner.daemons for t in d.spawn_s[1:]]
+    log(f"{report} [{soak_s:.2f} s, {CRASH_REPLICAS} daemons serving in {boot_s:.2f} s]")
+    logs = [d.event_log_path for d in runner.daemons]
+    cli = subprocess.run(
+        [sys.executable, "-m", "crdt_tpu_torch.obs", "assemble", *logs,
+         "--out", str(root / "trace.json"), "--blame", str(root / "blame.json")],
+        cwd=here, capture_output=True, text=True, timeout=120)
+    if cli.returncode != 0:
+        raise AssertionError(f"obs assemble exited {cli.returncode}: {cli.stderr[-2000:]}")
+    trace = json.loads((root / "trace.json").read_text())
+    tracks = {e["args"]["name"] for e in trace["traceEvents"]
+              if e.get("ph") == "M" and e.get("name") == "thread_name"}
+    want = {f"node slot {i}" for i in range(CRASH_REPLICAS)}
+    if not want <= tracks:
+        raise AssertionError(f"assembled trace tracks {sorted(tracks)} lack {sorted(want)}")
+    summary = json.loads(cli.stdout)
+    line = {"card": card, "replicas": CRASH_REPLICAS, "steps": CRASH_STEPS, "seed": CRASH_SEED,
+            "sigkills": report.sigkills, "restores": report.restores,
+            "checkpoints": report.checkpoints, "writes_accepted": report.writes_accepted,
+            "ops_lost_to_crashes": report.ops_lost_to_crashes,
+            "rounds_to_converge": report.rounds_to_converge, "event_lines": report.event_lines,
+            "boot_s": boot_s, "restart_to_serving_s": restarts, "soak_s": soak_s,
+            "assemble": {k: summary[k] for k in ("records", "trace_events", "n_visible",
+                                                 "n_spikes")}}
+    line["phase_s"] = time.perf_counter() - t_phase
+    log(f"python -m crdt_tpu_torch.obs assemble over the {CRASH_REPLICAS} event logs: exit 0, "
+        f"{summary['records']} records -> {summary['trace_events']} trace events, a track a "
+        f"slot; restart to serving {[round(t, 2) for t in restarts]} s")
+    log(f"phase 21: {line['phase_s']:.1f} s (budget {CRASH_BUDGET_S} s) [{card}]")
+    log(json.dumps({"crash_soak": line}))
+    return line
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4222,6 +4442,8 @@ def main() -> int:
     http_phase(card)
     net_phase(card)
     ks_phase(card)
+    nemesis_phase(card)
+    crash_phase(card)
 
     print(card, flush=True)
     log(json.dumps({"kernels": rows}))

@@ -369,7 +369,7 @@ class PendingMerge:
 
     def _finish_recording(self) -> None:
         node = self.node
-        if self.births:
+        if self.births and node.recorder.enabled:
             node.recorder.note_births(self.births)
         if self.vv_before is None:
             return
@@ -475,7 +475,8 @@ class ReplicaNode:
             seq = self._seq.next()
             with self.metrics.timer("write"):
                 self._ingest([(ts, self.rid, seq, dict(cmd))])
-            self.recorder.note_birth(seq, ts + self.clock.epoch_ms)
+            if self.recorder.enabled:
+                self.recorder.note_birth(seq, ts + self.clock.epoch_ms)
             return True
 
     def _stamps(self, n: int, tss: Optional[List[Optional[int]]]) -> List[int]:
@@ -512,8 +513,9 @@ class ReplicaNode:
                 ops, fresh = self._pack_local_batch(cmds, tss, seq0)
                 if fresh:
                     self._merge_batch(ops, fresh)
-            epoch = self.clock.epoch_ms
-            self.recorder.note_births([(seq0 + i, t + epoch) for i, t in enumerate(tss)])
+            if self.recorder.enabled:
+                epoch = self.clock.epoch_ms
+                self.recorder.note_births([(seq0 + i, t + epoch) for i, t in enumerate(tss)])
             return [(self.rid, seq0 + i) for i in range(n)]
 
     # ---- read path ----
@@ -750,13 +752,19 @@ class ReplicaNode:
         decoded = [self._decode_payload(p) for p in payloads if p]
         if not decoded:
             return 0
+        # a muted recorder (a checkpoint replay: recovery, not
+        # propagation) or a disabled registry records nothing
+        recording = self.recorder.enabled
+        vv_before = vv_after = None
         with self._lock:
             with self.metrics.timer("merge"), span(span_name):
-                vv_before = self._version_vector_locked()
+                if recording:
+                    vv_before = self._version_vector_locked()
                 adopted, rows_all = self._adopt_all_locked(decoded)
                 fresh = self._ingest(rows_all)
-                vv_after = self._version_vector_locked()
-        if vv_after != vv_before:
+                if recording:
+                    vv_after = self._version_vector_locked()
+        if recording and vv_after != vv_before:
             # one vv delta covers the whole round: per (origin, seq) the
             # payloads' duplicates collapse to one visibility
             epoch = self.clock.epoch_ms
@@ -794,7 +802,8 @@ class ReplicaNode:
         pending = PendingMerge(self)
         self._lock.acquire()
         try:
-            pending.vv_before = self._version_vector_locked()
+            if self.recorder.enabled:
+                pending.vv_before = self._version_vector_locked()
             if self.alive and decoded:
                 pending.adopted, pending.rows = self._adopt_all_locked(decoded)
                 accepted = self._accept_locked(pending.rows)

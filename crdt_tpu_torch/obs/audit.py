@@ -20,15 +20,15 @@ online:
   compares each against the locally recomputed digest at the SAME
   frontier, and raises a ``divergence_detected`` event, which latches the
   ``crdt_audit_state`` gauge at 2 and writes a
-  ``postmortem-<seed>.tar.gz`` bundle (the node's event logs and the two
-  digest witnesses).  Its ``evaluate()`` tick also runs the continuous
+  ``postmortem-<seed>.tar.gz`` bundle through
+  :func:`crdt_tpu_torch.obs.assemble.write_postmortem` (the node's event
+  logs, the assembled trace, the blame report and the two digest
+  witnesses).  Its ``evaluate()`` tick also runs the continuous
   evaluators: store scrub (recompute the digest FROM the store so silent
   bit-rot enters the served digest), frontier stall and convergence-lag
   EWMA breach.
 
-Not ported: the device-mesh digest fold (ROADMAP Queue 1 item 6), and
-the assembled trace and blame report inside the postmortem bundle
-(``obs/assemble``, Queue 1 item 3b).
+Not ported: the device-mesh digest fold (ROADMAP Queue 1 item 6).
 
 False-positive immunity comes from the frontier clamp, not from luck:
 ``digest_at(F)`` is computed only when this node's own compaction
@@ -482,6 +482,8 @@ class AuditWatchdog:
             return
         import os
 
+        from crdt_tpu_torch.obs import assemble
+
         out = os.path.join(self._pm_dir,
                            f"postmortem-{self._pm_seed}.tar.gz")
         extra: Dict[str, Any] = {"audit_witnesses.json": {
@@ -494,7 +496,7 @@ class AuditWatchdog:
             except Exception as e:  # the bundle must land regardless
                 extra["fleet_rollup.txt"] = f"<unavailable: {e}>"
         try:
-            self.postmortem_path = write_postmortem(
+            self.postmortem_path = assemble.write_postmortem(
                 out, self._pm_logs, extra=extra)
             self.events.emit("audit_postmortem", path=self.postmortem_path)
         except Exception as e:
@@ -531,46 +533,6 @@ class AuditWatchdog:
 
     def report_json(self) -> bytes:
         return json.dumps(self.report()).encode()
-
-
-def write_postmortem(out_path: str, node_log_paths: Sequence[str],
-                     extra: Optional[Dict[str, Any]] = None) -> str:
-    """Bundle a divergence's forensic record into one tar.gz: every
-    node's JSONL event log that exists, and ``extra`` by archive name
-    (str, bytes or a JSON-able object).  Returns the bundle path.  (The
-    JAX package's bundle also carries the assembled trace and the blame
-    report of ``obs/assemble``, which is not ported.)"""
-    import io
-    import pathlib
-    import tarfile
-    import time
-
-    out = pathlib.Path(out_path)
-    out.parent.mkdir(parents=True, exist_ok=True)
-    mtime = int(time.time())
-    paths = [pathlib.Path(p) for p in node_log_paths if pathlib.Path(p).exists()]
-    # logs often share one basename (node<i>/events.jsonl): qualify every
-    # archive name by its parent dir when any basename repeats
-    qualify = len({p.name for p in paths}) != len(paths)
-    with tarfile.open(out, "w:gz") as tf:
-        seen = set()
-        for p in paths:
-            arcname = f"{p.parent.name}-{p.name}" if qualify else p.name
-            if arcname not in seen:
-                seen.add(arcname)
-                tf.add(str(p), arcname=arcname)
-        for name, payload in (extra or {}).items():
-            if isinstance(payload, bytes):
-                data = payload
-            elif isinstance(payload, str):
-                data = payload.encode()
-            else:
-                data = json.dumps(payload, indent=2, sort_keys=True).encode()
-            info = tarfile.TarInfo(name)
-            info.size = len(data)
-            info.mtime = mtime
-            tf.addfile(info, io.BytesIO(data))
-    return str(out)
 
 
 def store_digest_hex(node) -> str:

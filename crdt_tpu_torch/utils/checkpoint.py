@@ -50,6 +50,19 @@ import torch
 MANIFEST_NAME = "MANIFEST.json"
 QUARANTINE_PREFIX = "quarantine-"
 LOG_COLUMNS = ("ts", "rid", "seq", "key", "val", "payload", "is_num")
+
+# fault-injection indirection (crdt_tpu_torch.faults.disk.fsync_stall): a
+# slow fsync is a real disk failure mode, injectable without patching the
+# os module process-wide
+_FSYNC_STALL_S = 0.0
+
+
+def _fsync(fd: int) -> None:
+    if _FSYNC_STALL_S > 0:
+        import time
+
+        time.sleep(_FSYNC_STALL_S)
+    os.fsync(fd)
 def _interner_dump(interner) -> list:
     return [interner.lookup(i) for i in range(len(interner))]
 
@@ -296,7 +309,7 @@ def _replace_file(path: pathlib.Path, data: str) -> None:
     with open(tmp, "w") as f:
         f.write(data)
         f.flush()
-        os.fsync(f.fileno())
+        _fsync(f.fileno())
     os.replace(tmp, path)
 
 

@@ -200,8 +200,9 @@ def test_fleet_cli_files_logs_and_coverage_gate(tmp_path, capsys):
 def test_obs_cli_runs_without_jax(tmp_path):
     """``python -m crdt_tpu_torch.obs fleet`` as a process that cannot
     import JAX (a meta-path hook refuses it): exit 0 with the JAX CLI's
-    report; ``assemble`` exits 2 naming ROADMAP Queue 1 item 3b; the
-    usage and unknown-subcommand exits match the JAX CLI's."""
+    report; ``assemble`` over the same node logs and fault log exits 0 in
+    both packages with equal summaries and byte-equal trace and blame
+    files; the usage and unknown-subcommand exits match the JAX CLI's."""
     texts = two_member_texts(TRegistry)
     paths = []
     for name, text in texts.items():
@@ -230,8 +231,35 @@ def test_obs_cli_runs_without_jax(tmp_path):
     jout = cli("fleet", *paths, "--out", str(tmp_path / "j.json"), module="crdt_tpu.obs")
     assert jout.returncode == 0 and out.stdout == jout.stdout
     assert (tmp_path / "t.json").read_text() == (tmp_path / "j.json").read_text()
-    asm = cli("assemble", "x.jsonl")
-    assert asm.returncode == 2 and "Queue 1 item 3b" in asm.stderr
+    logs = []
+    for node in ("0", "1"):
+        recs = [{"ts_ms": 1000 + i, "node": node, "event": ev, "v": 2, "step": i, **extra}
+                for i, (ev, extra) in enumerate((
+                    ("boot", {}),
+                    ("op_birth", {"origin": int(node), "seq": 0}),
+                    ("gossip_serve", {"trace": f"t{node}"}),
+                    ("pull_merge", {"trace": f"t{1 - int(node)}", "peer": "p"}),
+                    ("op_visible", {"origin": 1 - int(node), "seq_lo": 0, "seq_hi": 0,
+                                    "lag_steps": 20 + int(node)}),
+                    *[("op_visible", {"origin": 1 - int(node), "seq_lo": q, "seq_hi": q,
+                                      "lag_steps": 1}) for q in (1, 2, 3)]))]
+        log = tmp_path / f"node{node}.jsonl"
+        log.write_text("".join(json.dumps(r) + "\n" for r in recs) + '{"torn')
+        logs.append(str(log))
+    faults = tmp_path / "faults.jsonl"
+    faults.write_text(json.dumps({"step": 2, "fault": "drop", "src": "0", "dst": "1"}) + "\n")
+    summaries = []
+    for tag, module in (("t", None), ("j", "crdt_tpu.obs")):
+        asm = cli("assemble", *logs, "--fault-log", str(faults),
+                  "--out", str(tmp_path / f"{tag}-trace.json"),
+                  "--blame", str(tmp_path / f"{tag}-blame.json"), module=module)
+        assert asm.returncode == 0, asm.stderr
+        summaries.append({k: v for k, v in json.loads(asm.stdout).items() if k != "out"})
+    assert summaries[0] == summaries[1]
+    assert summaries[0]["n_spikes"] == summaries[0]["n_explained"] == 2
+    for name in ("trace", "blame"):
+        assert (tmp_path / f"t-{name}.json").read_bytes() == \
+            (tmp_path / f"j-{name}.json").read_bytes()
     assert cli().returncode == 2 and cli("--help").returncode == 0
     assert cli("nope").stdout == "unknown subcommand 'nope' (only: assemble, fleet, audit)\n"
 

@@ -14,6 +14,8 @@ from crdt_tpu_torch.api.cluster import LocalCluster
 from crdt_tpu_torch.api.compositenode import CompositeNode
 from crdt_tpu_torch.api.mapnode import MapNode
 from crdt_tpu_torch.api.net import NodeHost
+from crdt_tpu_torch.harness.crashsoak import CrashSoakRunner
+from crdt_tpu_torch.harness.nemesis_soak import NemesisSoak, run_soak
 from crdt_tpu_torch.api.node import ReplicaNode
 from crdt_tpu_torch.api.seqnode import SeqNode
 from crdt_tpu_torch.api.setnode import SetNode
@@ -73,7 +75,8 @@ def test_scan_sees_the_whole_package():
             "admission.py", "shim.py", "soak.py", "__main__.py", "net.py",
             "compositenode.py", "checkpoint.py", "digest.py", "audit.py", "routing.py",
             "shards.py", "frontdoor.py", "reshard.py", "leases.py", "plane.py",
-            "fleet.py"} <= names
+            "fleet.py", "schedule.py", "transport.py", "disk.py", "assemble.py",
+            "crashsoak.py", "nemesis_soak.py"} <= names
     assert ROOT / "crdt_tpu_torch" / "obs" / "__main__.py" in PORT_FILES
 
 
@@ -128,6 +131,9 @@ def test_scan_sees_the_whole_package():
     lambda: ShardedKeyspace(0, 2),
     lambda: keyspace_from_config(0, tconfig.ClusterConfig(keyspace_shards=2)),
     lambda: NodeHost(rid=0, peers=[], config=tconfig.ClusterConfig(keyspace_shards=2)),
+    lambda: NemesisSoak(0, nodes=2, steps=10),
+    lambda: run_soak(0, 2, 10),
+    lambda: CrashSoakRunner(n=2),
 ], ids=["oplog.empty", "from_ops", "columnar.empty", "random_peers",
         "convert", "default_device", "orset.empty", "bitmap_empty",
         "bucketed_empty", "g_empty", "tp_empty", "convert.orset", "set_swarm",
@@ -138,7 +144,8 @@ def test_scan_sees_the_whole_package():
         "vvclock.zero", "ormap.empty", "ormap_gc.wrap", "SetNode", "SeqNode", "MapNode",
         "rand_orset", "small_gset", "registry_neutral", "convert.vvclock", "SetSoakRunner",
         "MapSoakRunner", "SeqSoakRunner", "CompositeNode", "NodeHost", "ShardedKeyspace",
-        "keyspace_from_config", "NodeHost_keyspace"])
+        "keyspace_from_config", "NodeHost_keyspace", "NemesisSoak", "run_soak",
+        "CrashSoakRunner"])
 def test_constructor_without_device_raises_when_no_card(make, monkeypatch):
     """device=None means the CUDA card; without one it raises rather than
     returning CPU tensors."""

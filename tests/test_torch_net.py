@@ -472,16 +472,24 @@ def test_mixed_fleet_pulls_shards_and_forwards_cas():
         for s in range(4):
             assert len({json.dumps(h.keyspace.version_vector(s), sort_keys=True)
                         for h in hosts}) == 1
-        forwarded = 0
+        # every (host, key) pair: two of the three CAS on each key reach a
+        # non-coordinator, whatever ports the OS gave the members; each
+        # call's forward count (a delta, not the running counter) is the
+        # one its host's routing view predicts
+        forwards = []
         for k in range(9):
-            h = hosts[k % 3]
-            key = f"c{k % 3}"
+            h, key = hosts[k % 3], f"c{k // 3}"
+            slot = h.leases.slot_of(key)
+            predicted = int(h.leases.coordinator_of(slot) != h.url)
+            before = h.node.metrics.registry.counter_value("cas_forwarded") or 0
             cur = json.loads(request(h.url, "GET", f"/read?key={key}&level=linearizable")[2])
             status, _, body = request(h.url, "POST", "/cas", post(
                 {"key": key, "expect": cur["value"], "update": f"n{k}"}))
             assert status == 200, body
-            forwarded += h.node.metrics.registry.counter_value("cas_forwarded") or 0
-        assert forwarded > 0
+            got = (h.node.metrics.registry.counter_value("cas_forwarded") or 0) - before
+            forwards.append((got, predicted))
+        assert all(got == predicted for got, predicted in forwards), forwards
+        assert sum(got for got, _ in forwards) == 6, forwards
         for key in ("c0", "c1", "c2"):
             values = {json.loads(request(h.url, "GET", f"/read?key={key}&level=linearizable")[2])
                       ["value"] for h in hosts}
