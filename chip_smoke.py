@@ -1,8 +1,8 @@
 """Drive the PyTorch port's OpLog, OR-Set and RSeq swarm paths, the OR-Set
 union floors, the counter and register family, the replica-node cluster,
 the join registry, the typed sibling nodes, the reference's HTTP surface,
-the network daemon, the keyspace tier and the fault plane's soaks on a
-CUDA card and check them.
+the network daemon, the keyspace tier, the fault plane's soaks, the
+native host runtime and the mesh plane on a CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -10,7 +10,8 @@ Phases (any failure exits non-zero and prints no result):
 
 1. card and build — the card's name and power limit (nvidia-smi), then
    every kernel built from ``crdt_tpu_torch/csrc`` (one nvcc per source,
-   all started together);
+   all started together), then the native host runtime
+   (``crdt_tpu_torch/native/ingest.cpp``, g++, timed);
 2. OpLog: the lexn_union kernel vs its plain twin on the card, bit-exact
    on every plane and n_unique: a mid-gossip swarm at C=1024, L=10,240, an
    overflow case, ragged lane counts, and the tile body's edges (lane
@@ -200,7 +201,28 @@ Phases (any failure exits non-zero and prints no result):
     SIGKILLs and restores, heals and checks every invariant (I1-I4,
     S1-S3, Q1-Q3, M1-M3, K1, the black boxes), then ``python -m
     crdt_tpu_torch.obs assemble`` over the three slots' event logs exits 0
-    with a track for each slot; one ``{"crash_soak": ...}`` JSON line.
+    with a track for each slot; one ``{"crash_soak": ...}`` JSON line;
+22. the host runtime, the mesh plane and tracing (budget 90 s): (a) one
+    ``ReplicaNode`` on the native runtime and one on the Python path
+    (``use_native=False``) take the same 65,536 writes in batches of 512
+    (Python, native, native, Python): planes, n_unique, vv and state
+    equal, the wire store's bytes == the payload's compact JSON, writes/s
+    each way; then phase 15's never-pruned cluster mix once each way, every
+    view == the oracle and the two equal, writes/s, ``tick()`` p50/p99
+    and one profiled tick each; (b) F1: after a -500 ms clock skew a
+    node's ``GET /gossip`` bytes keep each op's entry key, == the CPU
+    run's; (c) ``ShardedKeyspace(0, 64)`` with ``mesh="on"`` and with
+    ``"off"`` take the same 16,384 tenant writes (bench_keyspace's shape,
+    four tenants, seed 0) through a ``KeyspaceFrontDoor`` in pages of
+    512, one ``flush_all`` a page: every shard's state, vv, payload and
+    digest equal, one fused merge a page, no fallback, an injected step
+    failure landing every lane inline with no lock held, page p50/p99
+    both ways; (d) ``trace_to`` around one OpLog swarm converge at phase
+    2's shape: the trace holds the ``oplog_columnar.converge`` region and
+    its ``lexn_union`` launches, traced == untraced; the nemesis
+    ``multitenant`` arm with ``ks_mesh="on"`` (3 nodes, 120 steps, seed 0)
+    on the card == on the CPU, no fused step falling back; one
+    ``{"host_runtime": ...}`` JSON line.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -2209,14 +2231,14 @@ KV_BATCH = 2048                        # merge_checked's batch in the timing
 
 
 def kv_drive(cluster, oracles, commands, rounds: int, down: int, up: int,
-             profile_last: bool = False) -> dict:
+             profile_last: bool = False, label: str = "") -> dict:
     """Land ``commands`` ((cmd, target) pairs, ts = their index) in ``rounds``
     rounds, each one add_commands batch per live replica and one tick(),
     with replica KV_DEAD down from round ``down`` to round ``up``; mirror
     every acknowledged write into the oracles; then tick until converged.
     Returns the host-clock times, each ending in a sync."""
     per_round = len(commands) // rounds
-    add_s, ticks, barriers, acked = 0.0, [], [], 0
+    add_s, ticks, barriers, acked, prof = 0.0, [], [], 0, None
     compact = cluster.compact
 
     def timed_compact():
@@ -2253,7 +2275,8 @@ def kv_drive(cluster, oracles, commands, rounds: int, down: int, up: int,
             for cmd, ts in zip(*batches[r]):
                 oracles[r].add_command(cmd, ts)
         if profile_last and rnd == rounds - 1:
-            profile("KV node path: one tick() after the last write round", cluster.tick)
+            prof = profile(f"KV node path{label}: one tick() after the last write round",
+                           cluster.tick)
         else:
             timed_tick()
     extra = 0
@@ -2264,7 +2287,7 @@ def kv_drive(cluster, oracles, commands, rounds: int, down: int, up: int,
         extra += 1
     del cluster.compact
     return {"acked": acked, "add_s": add_s, "ticks": ticks, "barriers": barriers,
-            "extra_ticks": extra}
+            "extra_ticks": extra, "profile": prof}
 
 
 def kv_check(label: str, cluster, want: dict) -> list:
@@ -4408,6 +4431,355 @@ def crash_phase(card: str) -> dict:
     return line
 
 
+# ---- phase 22: the host runtime, the mesh plane and tracing ----
+
+HR_BUDGET_S = 90
+HR_WRITES, HR_BATCH = 65_536, 512         # (a) one node each way
+HR_KS_SHARDS, HR_KS_WRITES, HR_KS_PAGE = 64, 16_384, 512
+HR_SOAK_STEPS, HR_SOAK_SEED = 120, 0
+HR_RUN_DIR = "build/host_runtime"         # git-ignored: the trace, fault logs
+NATIVE_BUILD: dict = {}
+
+
+def native_build() -> dict:
+    """Build (or load) the native host runtime once and time it: g++ of
+    ``crdt_tpu_torch/native/ingest.cpp`` into ``build/native/``."""
+    from crdt_tpu_torch import native
+
+    if not NATIVE_BUILD:
+        fresh = not native.library_path().exists()
+        t0 = time.perf_counter()
+        native.lib()
+        NATIVE_BUILD.update(seconds=time.perf_counter() - t0, built=fresh,
+                            library=native.library_path().name)
+    return NATIVE_BUILD
+
+
+def python_path_cluster(config):
+    """A LocalCluster whose nodes take the Python path (use_native=False):
+    the cluster builds its nodes with the module's ReplicaNode, swapped for
+    the construction only."""
+    import functools
+
+    from crdt_tpu_torch.api import cluster as cluster_mod
+
+    plain = cluster_mod.ReplicaNode
+    cluster_mod.ReplicaNode = functools.partial(plain, use_native=False)
+    try:
+        return cluster_mod.LocalCluster(config)
+    finally:
+        cluster_mod.ReplicaNode = plain
+
+
+def hr_nodes(card: str) -> dict:
+    """(a) one node each way on the same batched writes, then phase 15's
+    never-pruned cluster mix each way."""
+    from crdt_tpu_torch import workload
+    from crdt_tpu_torch.api.cluster import LocalCluster
+    from crdt_tpu_torch.api.node import ReplicaNode
+    from crdt_tpu_torch.models import oplog
+    from crdt_tpu_torch.oracle import OracleReplica, Quirks
+    from crdt_tpu_torch.utils.clock import HostClock
+    from crdt_tpu_torch.utils.config import ClusterConfig
+
+    out = {"build": native_build()}
+    gen = workload.WorkloadGenerator(ClusterConfig(seed=SEED + 22))
+    cmds = [gen.next_command()[0] for _ in range(HR_WRITES)]
+    # python, native, native, python: each way's rate is the mean of its
+    # two runs, so neither takes the process's warm-up alone
+    clock, nodes, rates = HostClock(), {}, {"native": [], "python": []}
+    for way in ("python", "native", "native", "python"):
+        kw = {} if way == "native" else {"use_native": False}
+        node = ReplicaNode(rid=0, capacity=1024, clock=clock, device="cuda", **kw)
+        if node._native != (way == "native"):
+            raise AssertionError(f"the {way} node took the other path")
+        t0 = time.perf_counter()
+        for i in range(0, HR_WRITES, HR_BATCH):
+            node.add_commands(cmds[i:i + HR_BATCH], list(range(i, i + HR_BATCH)))
+        torch.cuda.synchronize()
+        rates[way].append(HR_WRITES / (time.perf_counter() - t0))
+        nodes[way] = node
+    for way, r in rates.items():
+        out[f"node_writes_per_s_{way}"] = statistics.mean(r)
+        out[f"node_writes_per_s_{way}_runs"] = r
+    n, p = nodes["native"], nodes["python"]
+    for f in oplog._FIELDS:
+        if not torch.equal(getattr(n.log, f), getattr(p.log, f)):
+            raise AssertionError(f"(a) native and Python nodes differ on plane {f}")
+    if int(oplog.size(n.log)) != int(oplog.size(p.log)) or \
+            n.version_vector() != p.version_vector() or n.get_state() != p.get_state():
+        raise AssertionError("(a) native and Python nodes differ in n_unique, vv or state")
+    if n.gossip_payload_json() != json.dumps(p.gossip_payload(), separators=(",", ":")).encode():
+        raise AssertionError("(a) the wire store's bytes != the payload's compact JSON")
+    log(f"(a) one node, {HR_WRITES} writes in batches of {HR_BATCH}, Python/native/native/"
+        f"Python: native {out['node_writes_per_s_native']:.1f} writes/s "
+        f"({', '.join(f'{x:.1f}' for x in rates['native'])}), Python "
+        f"{out['node_writes_per_s_python']:.1f} writes/s "
+        f"({', '.join(f'{x:.1f}' for x in rates['python'])}); planes, n_unique, vv, state "
+        f"equal [{card}]")
+    del nodes, n, p
+
+    gen = workload.WorkloadGenerator(ClusterConfig(seed=SEED))
+    commands = [gen.next_command() for _ in range(KV_WRITES)]
+    states = {}
+    for way in ("native", "python"):
+        cfg = ClusterConfig(delta_gossip=True, compact_every=0, seed=SEED)
+        cluster = LocalCluster(cfg) if way == "native" else python_path_cluster(cfg)
+        if any(node._native != (way == "native") for node in cluster.nodes):
+            raise AssertionError(f"the {way} cluster's nodes took the other path")
+        oracles = [OracleReplica(r, Quirks()) for r in range(cfg.n_replicas)]
+        t = kv_drive(cluster, oracles, commands, KV_ROUNDS, KV_DOWN, KV_UP,
+                     profile_last=True, label=f" ({way})")
+        states[way] = kv_check(f"(a) {way} cluster", cluster, OracleReplica.converged_state(oracles))
+        ticks = t["ticks"]
+        prof = t["profile"] or {}
+        out[f"cluster_{way}"] = {
+            "writes_per_s": t["acked"] / t["add_s"], "tick_ms_p50": quantile(ticks, 0.5),
+            "tick_ms_p99": quantile(ticks, 0.99), "ticks": len(ticks),
+            "profiled_tick_idle_share": prof.get("idle_share"),
+            "profiled_tick_wall_ms": prof.get("wall_ms")}
+        log(f"(a) phase 15's never-pruned cluster mix, {way}: "
+            f"{out[f'cluster_{way}']['writes_per_s']:.1f} writes/s, tick() median "
+            f"{quantile(ticks, 0.5):.4f} ms, p99 {quantile(ticks, 0.99):.4f} ms over "
+            f"{len(ticks)} ticks; all 5 views == the oracle [{card}]")
+        del cluster
+    if states["native"] != states["python"]:
+        raise AssertionError("(a) the native cluster's views != the Python cluster's")
+    return out
+
+
+def hr_skew(card: str) -> dict:
+    """(b) F1 on the card: after a clock skew, GET /gossip's bytes keep the
+    key each op got when it entered, and equal the CPU run's."""
+    from crdt_tpu_torch.api.node import ReplicaNode
+    from crdt_tpu_torch.utils.clock import ManualClock
+
+    bodies = {}
+    for device in ("cuda", "cpu"):
+        clock = ManualClock(start=1_000_100)
+        clock.epoch_ms = 1_000_000
+        node = ReplicaNode(rid=0, capacity=8, clock=clock, device=device)
+        node.add_command({"a": "1", "b": 'x"y'})
+        clock.advance(100)
+        node.add_command({"a": "2"})
+        clock.epoch_ms -= 500
+        clock.advance(100)
+        node.add_command({"c": "\n"})
+        bodies[device] = [node.gossip_payload_json(s) for s in (None, {0: 0})]
+    full = bodies["cuda"][0]
+    if bodies["cuda"] != bodies["cpu"]:
+        raise AssertionError("(b) the card's gossip bytes != the CPU run's")
+    if b'"2000100:0:0":{"a":"1","b":"x\\"y"}' not in full or b'"1999600:0:0"' in full:
+        raise AssertionError(f"(b) an op was re-timed after the skew: {full!r}")
+    log(f"(b) F1 after a -500 ms clock skew: GET /gossip keeps each op's entry key "
+        f"({full.decode()}), card == CPU bytes, full and delta")
+    return {"gossip_bytes": len(full)}
+
+
+def hr_mesh(card: str) -> dict:
+    """(c) the mesh plane against the host path over one card: the same
+    tenant writes through a door over each keyspace."""
+    from crdt_tpu_torch.keyspace import KeyspaceFrontDoor, ShardedKeyspace, qualify
+    from crdt_tpu_torch.utils.clock import HostClock
+    from crdt_tpu_torch.utils.metrics import Metrics
+
+    clock = HostClock()
+    writes = ks_stream(HR_KS_WRITES, 0)
+    kss, doors, page_ms = {}, {}, {}
+    for mode in ("on", "off"):
+        ks = ShardedKeyspace(0, HR_KS_SHARDS, clock=clock, metrics=Metrics(), mesh=mode,
+                             device="cuda")
+        ks.enable_audit()
+        if ks.mesh_active != (mode == "on"):
+            raise AssertionError(f"(c) mesh={mode} keyspace: mesh_active {ks.mesh_active}")
+        kss[mode] = ks
+        doors[mode] = KeyspaceFrontDoor(ks, max_batch=1 << 20, flush_deadline_s=3600.0)
+        page_ms[mode] = []
+
+    def page(mode, rows):
+        ks, door = kss[mode], doors[mode]
+        by_tenant = {}
+        for j, (tenant, key, value) in rows:
+            by_tenant.setdefault(tenant, {}).setdefault(ks.shard_of(tenant, key), []).append(
+                (j, {qualify(tenant, key): value}, tenant))
+        t0 = time.perf_counter()
+        tickets = [tk for tenant, groups in by_tenant.items()
+                   for _, tk in door._submit_groups(groups, tenant)]
+        door.flush_all()
+        idents = [i for tk in tickets for i in tk.wait(0)]
+        torch.cuda.synchronize()
+        if len(idents) != len(rows) or None in idents:
+            raise AssertionError(f"(c) mesh={mode}: a page's writes were not all acknowledged")
+        return (time.perf_counter() - t0) * 1e3
+
+    reg = {m: kss[m].metrics.registry for m in kss}
+    before = reg["on"].counter_value("merge_dispatches")
+    indexed = list(enumerate(writes))
+    n_pages = 0
+    for p0 in range(0, HR_KS_WRITES, HR_KS_PAGE):
+        rows = indexed[p0:p0 + HR_KS_PAGE]
+        for mode in ("on", "off"):
+            page_ms[mode].append(page(mode, rows))
+        n_pages += 1
+    fused = reg["on"].counter_value("merge_dispatches") - before
+    if fused != n_pages or reg["on"].counter_value("meshplane_fallbacks"):
+        raise AssertionError(f"(c) {fused} fused merges for {n_pages} flushes, fallbacks "
+                             f"{reg['on'].counter_value('meshplane_fallbacks')}")
+
+    def check(label):
+        for i, (a, b) in enumerate(zip(kss["on"].shards, kss["off"].shards)):
+            if (a.get_state() != b.get_state() or a.version_vector() != b.version_vector()
+                    or a.gossip_payload_json({}) != b.gossip_payload_json({})
+                    or a.audit_snapshot()[2] != b.audit_snapshot()[2]):
+                raise AssertionError(f"(c) {label}: shard {i} differs mesh vs host")
+            if not a._lock.acquire(blocking=False):
+                raise AssertionError(f"(c) {label}: shard {i}'s node lock is held")
+            a._lock.release()
+
+    check("after the writes")
+    # a failure injected into one fused step: every lane lands inline
+    plane = kss["on"]._plane()
+
+    def boom(capacity, batch_cap):
+        raise RuntimeError("injected step failure")
+
+    plane._step_for = boom
+    extra = list(enumerate(ks_stream(HR_KS_PAGE, 1, first=HR_KS_WRITES), HR_KS_WRITES))
+    for mode in ("on", "off"):
+        page(mode, extra)
+    del plane._step_for
+    if reg["on"].counter_value("meshplane_fallbacks") != 1:
+        raise AssertionError("(c) the injected failure did not fall back inline")
+    check("after the injected failure")
+    out = {"shards": HR_KS_SHARDS, "writes": HR_KS_WRITES, "page": HR_KS_PAGE,
+           "pages": n_pages, "fused_merges": fused, "fallbacks_normal": 0,
+           "merges_host": reg["off"].counter_value("merge_dispatches")}
+    for mode in ("on", "off"):
+        out[f"page_ms_{mode}"] = [quantile(page_ms[mode], 0.5), quantile(page_ms[mode], 0.99)]
+    out["tenant_writes_per_s_on"] = HR_KS_WRITES / (sum(page_ms["on"][:n_pages]) / 1e3)
+    out["tenant_writes_per_s_off"] = HR_KS_WRITES / (sum(page_ms["off"][:n_pages]) / 1e3)
+    log(f"(c) ShardedKeyspace(0, {HR_KS_SHARDS}) mesh on vs off, {HR_KS_WRITES} tenant writes "
+        f"in pages of {HR_KS_PAGE}: page p50/p99 {out['page_ms_on'][0]:.3f} / "
+        f"{out['page_ms_on'][1]:.3f} ms fused vs {out['page_ms_off'][0]:.3f} / "
+        f"{out['page_ms_off'][1]:.3f} ms host ({out['tenant_writes_per_s_on']:.1f} vs "
+        f"{out['tenant_writes_per_s_off']:.1f} tenant writes/s); {fused:.0f} fused merges for "
+        f"{n_pages} flushes (host path {out['merges_host']:.0f}), 0 fallbacks; every shard's "
+        f"state, vv, payload and digest equal; an injected step failure landed every lane "
+        f"inline (1 fallback), no lock held, states still equal [{card}]")
+    return out
+
+
+def trace_region_kernels(path: Path, region: str) -> tuple:
+    """(the region's host spans, kernels launched inside them whose name
+    holds ``union_kernel``) in a Chrome trace: the launch calls inside a
+    span, matched to their kernels by correlation."""
+    events = json.loads(path.read_text())["traceEvents"]
+    spans = [(e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+             if e.get("name") == region and e.get("cat") == "user_annotation"]
+    corr = {e["args"]["correlation"] for e in events
+            if e.get("cat") in ("cuda_runtime", "cuda_driver") and "Launch" in e.get("name", "")
+            and "correlation" in e.get("args", {})
+            and any(a <= e["ts"] <= b for a, b in spans)}
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"
+               and e.get("args", {}).get("correlation") in corr and "union_kernel" in e["name"]]
+    return spans, kernels
+
+
+def hr_trace_and_soak(card: str, root: Path) -> dict:
+    """(d) trace_to around one OpLog swarm converge at phase 2's shape,
+    then the nemesis multitenant arm with the mesh plane, card == CPU."""
+    from crdt_tpu_torch import workload
+    from crdt_tpu_torch.harness import nemesis_soak as ns
+    from crdt_tpu_torch.models import oplog_columnar as oc, oplog_engine as eng
+    from crdt_tpu_torch.ops import hopper_union as hu
+    from crdt_tpu_torch.parallel import meshplane
+    from crdt_tpu_torch.utils import tracing
+
+    w = workload.reference_writes(N_WRITES, R, SEED)
+    logs, _ = workload.subset_swarm(w.ops, R, C, HOLD_FRACTION, SEED, device="cuda")
+    alive = torch.ones(R, dtype=torch.bool, device="cuda")
+    alive[DEAD] = False
+    col = eng.plan(logs, alive=alive).columnar
+    want, want_nu = oc.converge_checked(col, alive)
+    before = hu.LAUNCHES["lexn_union"]
+    with tracing.trace_to(str(root / "trace")):
+        got, nu = oc.converge_checked(col, alive)
+        torch.cuda.synchronize()
+    launches = hu.LAUNCHES["lexn_union"] - before
+    if int(nu) != int(want_nu) or not all(torch.equal(getattr(got, f), getattr(want, f))
+                                          for f in ("hi", "lo", "val", "pay")):
+        raise AssertionError("(d) the traced converge != the untraced one")
+    [path] = list((root / "trace").glob("*.json"))
+    spans, kernels = trace_region_kernels(path, "oplog_columnar.converge")
+    # late in a long process the profiler may drop some device records
+    # (PERF.md §7 q. 2): every kernel it keeps must sit in the region
+    if len(spans) != 1 or not 1 <= len(kernels) <= launches:
+        raise AssertionError(f"(d) trace: {len(spans)} oplog_columnar.converge spans, "
+                             f"{len(kernels)} union kernels inside, {launches} launched")
+    out = {"trace_bytes": path.stat().st_size, "region_launches": launches,
+           "region_kernels_traced": len(kernels), "region_kernel_names": sorted(set(kernels))}
+    log(f"(d) trace_to around converge_checked (R={R}, C={C}): the trace holds the "
+        f"oplog_columnar.converge region and {len(kernels)} of its {launches} lexn_union "
+        f"launches ({sorted(set(kernels))}); traced == untraced")
+
+    fallbacks = []
+    converge = meshplane.MeshPlane.converge
+
+    def counted(plane, pendings):
+        res = converge(plane, pendings)
+        fallbacks.append(plane.metrics.registry.counter_value("meshplane_fallbacks"))
+        return res
+
+    meshplane.MeshPlane.converge = counted
+    try:
+        runs = {}
+        for device in ("cuda", "cpu"):
+            flog = root / f"multitenant-mesh-{device}.jsonl"
+            runs[device] = nemesis_arm(ns, HR_SOAK_SEED, HR_SOAK_STEPS, device,
+                                       fault_log=str(flog), postmortem_dir=str(root),
+                                       multitenant=True, ks_mesh="on")
+            runs[device] += (flog.read_bytes(),)
+    finally:
+        meshplane.MeshPlane.converge = converge
+    (rep, secs, _, flog), (cpu, cpu_s, _, cpu_log) = runs["cuda"], runs["cpu"]
+    if flog != cpu_log:
+        raise AssertionError("(d) the card's multitenant fault log != the CPU run's")
+    for key in ("final_vv", "state_json", "writes_ledger"):
+        if getattr(rep, key) != getattr(cpu, key):
+            raise AssertionError(f"(d) the card's multitenant {key} != the CPU run's")
+    if not fallbacks or any(fallbacks):
+        raise AssertionError(f"(d) {len(fallbacks)} fused steps, fallbacks {max(fallbacks)}")
+    out.update(soak_s=secs, soak_cpu_s=cpu_s, soak_fused_steps=len(fallbacks),
+               soak_writes=rep.writes, soak_fault_records=len(flog.splitlines()))
+    log(f"(d) nemesis multitenant, ks_mesh=on, {NEM_NODES} nodes x {HR_SOAK_STEPS} steps, "
+        f"seed {HR_SOAK_SEED}: {rep.summary()} [{secs:.2f} s on the card, CPU {cpu_s:.2f} s]; "
+        f"{len(fallbacks)} fused steps, 0 fallbacks; card == CPU: fault log, vv, state, ledger")
+    return out
+
+
+def hr_phase(card: str) -> dict:
+    """Phase 22: the native host runtime, F1 on the card, the mesh plane and
+    tracing; one {"host_runtime": ...} JSON line."""
+    import shutil
+
+    t_phase = time.perf_counter()
+    log(f"phase 22 (the host runtime, the mesh plane and tracing): budget {HR_BUDGET_S} s")
+    root = Path(__file__).resolve().parent / HR_RUN_DIR
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    line = {"card": card}
+    for part, fn in (("nodes", lambda: hr_nodes(card)), ("skew", lambda: hr_skew(card)),
+                     ("mesh", lambda: hr_mesh(card)),
+                     ("trace", lambda: hr_trace_and_soak(card, root))):
+        t0 = time.perf_counter()
+        line[part] = fn()
+        line[part]["part_s"] = time.perf_counter() - t0
+    line["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 22: {line['phase_s']:.1f} s (budget {HR_BUDGET_S} s) [{card}]")
+    log(json.dumps({"host_runtime": line}))
+    return line
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4423,6 +4795,9 @@ def main() -> int:
     _build.build(_build.SOURCES)
     log(f"build: {time.perf_counter() - t0:.2f} s (nvcc, sm_90a, "
         f"{len(_build.SOURCES)} sources in parallel)")
+    nb = native_build()
+    log(f"native host runtime: {nb['seconds']:.2f} s (g++ -O2, "
+        f"{'built' if nb['built'] else 'reused'} build/native/{nb['library']})")
     for name in _build.SOURCES:
         func = ""  # the kernel (mangled) that ptxas's next lines describe
         for line in _build.build_log(name).splitlines():
@@ -4444,6 +4819,7 @@ def main() -> int:
     ks_phase(card)
     nemesis_phase(card)
     crash_phase(card)
+    hr_phase(card)
 
     print(card, flush=True)
     log(json.dumps({"kernels": rows}))

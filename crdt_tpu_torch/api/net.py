@@ -30,9 +30,9 @@ Each daemon is its own process with its own CUDA context and its own
 and nothing serializes merges across processes (as nothing does in the
 JAX package).
 
-The keyspace's shard planes fold on the host path, one merge per shard
-and payload (the JAX package's ``_ks_pull_mesh`` device-mesh round is
-ROADMAP Queue 1 item 6).
+A keyspace pull round folds its shard planes one merge per shard and
+payload on the host path, or all of them in one step of the mesh plane
+(``_ks_pull_mesh``) when the keyspace's plane is active.
 """
 from __future__ import annotations
 
@@ -1038,6 +1038,8 @@ class NetworkAgent:
         # this round flips ks.epoch; folding a pre-cutover payload into
         # a reborn plane would mix generations)
         e0 = ks.epoch
+        if ks.mesh_active:
+            return self._ks_pull_mesh(ks, peer, tid, e0)
         fresh_total = 0
         trackers = self.ks_trackers  # pinned: a cutover rebuilds the list
         for i, shard in enumerate(ks.shards):
@@ -1077,6 +1079,71 @@ class NetworkAgent:
             self.node.events.emit(
                 "ks_pull_merge" if fresh else "ks_pull_noop",
                 trace=tid, peer=peer.url, shard=i, fresh=fresh)
+            try:
+                vv = {int(r): int(s)
+                      for r, s in (body.get("vv") or {}).items()}
+                frontier = {int(r): int(s)
+                            for r, s in (body.get("frontier") or {}).items()}
+            except (ValueError, TypeError):
+                continue  # summary malformed: merge stood, tracker skips
+            trackers[i].note(peer.url, vv, frontier)
+            dig = body.get("digest")
+            if dig is not None:
+                self.watchdog.note_shard(peer.url, i, frontier, dig)
+        self.metrics.inc("net_ks_pulls")
+        if fresh_total:
+            self.metrics.inc("net_ks_fresh", fresh_total)
+        return fresh_total
+
+    def _ks_pull_mesh(self, ks, peer: RemotePeer, tid: str,
+                      e0: int) -> int:
+        """The fused pull round: fetch every shard's delta first (the S
+        HTTP GETs are unchanged), then fold ALL shards in ONE mesh-plane
+        step (`ShardedKeyspace.receive_all` -> `MeshPlane.converge`).
+        Same quarantine semantics as the host loop — a corrupt shard
+        payload isolates that shard's lane inside the fused step while
+        the siblings still fold.  Epoch-pinned like the host loop: a
+        fenced response ends the round with one client fence record, and
+        a cutover racing the fetches drops the whole fold."""
+        payloads: List[Optional[Dict[str, Any]]] = [None] * ks.n_shards
+        bodies: List[Optional[dict]] = [None] * ks.n_shards
+        trackers = self.ks_trackers  # pinned: a cutover rebuilds the list
+        for i, shard in enumerate(ks.shards):
+            since = shard.version_vector() \
+                if self.config.delta_gossip else None
+            body = peer.ks_gossip(i, since, trace=tid, epoch=e0)
+            if body is None:
+                self.metrics.inc("net_ks_pull_skips")
+                self.node.events.emit("ks_pull_skip", trace=tid,
+                                      peer=peer.url, shard=i)
+                continue
+            if body.get("fenced"):
+                self.metrics.inc("net_ks_fenced")
+                self.node.events.emit(
+                    "ks_reshard_fence", role="client",
+                    surface="ks_gossip", trace=tid, peer=peer.url,
+                    epoch=e0, got=int(body.get("epoch", -1)))
+                return 0
+            bodies[i] = body
+            payloads[i] = body.get("payload")
+        if ks.epoch != e0:
+            return 0  # cutover landed mid-round: drop the stale fold
+        with span("crdt.ks_pull_mesh", tid):
+            results = ks.receive_all(payloads, quarantine=True)
+        fresh_total = 0
+        for i, (body, res) in enumerate(zip(bodies, results)):
+            if body is None:
+                continue
+            if isinstance(res, str):  # quarantined lane: siblings folded
+                self.metrics.inc("net_ks_quarantined")
+                self.node.events.emit(
+                    "payload_quarantine", surface="ks_gossip",
+                    trace=tid, peer=peer.url, shard=i, error=res)
+                continue
+            fresh_total += res
+            self.node.events.emit(
+                "ks_pull_merge" if res else "ks_pull_noop",
+                trace=tid, peer=peer.url, shard=i, fresh=res)
             try:
                 vv = {int(r): int(s)
                       for r, s in (body.get("vv") or {}).items()}

@@ -23,9 +23,13 @@ of the node's winner rows on the host (:mod:`crdt_tpu_torch.obs.audit`);
 its hooks sit inside the node's locked sections and never take the device
 lock.  Checkpoints are :mod:`crdt_tpu_torch.utils.checkpoint`.
 
-Not ported (each raises when asked for): the native C++ interner and wire
-store (``use_native=True``), and the device-mesh digest check of
-``PendingMerge.commit(digest=)`` (ROADMAP Queue 1 item 6).
+By default the node interns, packs and serves gossip through the port's
+native host runtime (:mod:`crdt_tpu_torch.native`, C++ built by g++ at
+first use): the wire store keeps each op under the absolute key it got
+when it entered and emits ``GET /gossip`` bytes straight from it, as the
+JAX node does with its native runtime.  ``use_native=False`` is the Python
+path: ``json.dumps`` with keys encoded when served, as the JAX node's
+Python path.  A failed build raises; nothing falls back quietly.
 """
 from __future__ import annotations
 
@@ -37,7 +41,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from crdt_tpu_torch import default_device
+from crdt_tpu_torch import default_device, native
 from crdt_tpu_torch.models import compactlog, oplog
 from crdt_tpu_torch.obs import devtime, health
 from crdt_tpu_torch.obs.events import EventLog
@@ -87,18 +91,6 @@ def _parse_wire_key(k: str) -> Tuple[int, int, int]:
         ts, rid, seq = k.split(":")
         return int(ts), int(rid), int(seq)
     return int(k), -1, 0  # Go-format key: millisecond timestamp only
-
-
-_WIRE_ESCAPES = {'"': '\\"', "\\": "\\\\", "\b": "\\b", "\f": "\\f", "\n": "\\n",
-                 "\r": "\\r", "\t": "\\t"}
-_WIRE_ESCAPES.update({chr(c): f"\\u{c:04x}" for c in range(0x20) if chr(c) not in _WIRE_ESCAPES})
-_WIRE_ESCAPE_TABLE = str.maketrans(_WIRE_ESCAPES)
-
-
-def _wire_escape(s: str) -> str:
-    """A string escaped as the wire store escapes it (see
-    ``ReplicaNode._wire_json_locked``)."""
-    return s.translate(_WIRE_ESCAPE_TABLE)
 
 
 def stable_frontier_host(vvs, frontiers) -> Dict[int, int]:
@@ -321,22 +313,30 @@ class PendingMerge:
         return n
 
     def commit(self, merged_log: oplog.OpLog, n_unique: int, digest=None) -> int:
-        """Finish the deferred merge with the caller's merged log: rebind
-        the log, finish accounting, release the node lock.  ``n_unique``
-        must already be a host int.  ``digest`` (the device-mesh plane's
-        folded digest lanes, checked against :attr:`dig_sum`) is not
-        ported and raises."""
+        """Finish the deferred merge with the caller's merged log (the mesh
+        plane's lane of its fused step): rebind the log, finish accounting,
+        release the node lock.  ``n_unique`` must already be a host int.
+        ``digest`` (optional) is this lane's audit-digest rows folded on
+        the device, synced in the same transfer, and is compared with the
+        host's :attr:`dig_sum`: a mismatch emits ``audit_mesh_mismatch``
+        rather than failing the merge, whose log the union already
+        checked."""
         node = self.node
-        if digest is not None:
-            self.abort()
-            raise NotImplementedError(
-                "PendingMerge.commit(digest=): the device-mesh digest check is not "
-                "ported (ROADMAP Queue 1 item 6)")
         try:
             if self.fresh:
                 assert n_unique <= merged_log.ts.shape[-1], (
                     f"fused union {n_unique} rows overflowed lane capacity "
                     f"{merged_log.ts.shape[-1]}")
+                if digest is not None and self.dig_sum is not None:
+                    dev = np.asarray(digest, np.uint32)
+                    if not np.array_equal(dev, self.dig_sum):
+                        from crdt_tpu_torch.ops import digest as digkernel
+
+                        node.metrics.inc("audit_mesh_mismatch")
+                        node.events.emit(
+                            "audit_mesh_mismatch",
+                            host=digkernel.digest_hex(self.dig_sum),
+                            device=digkernel.digest_hex(dev))
                 node.log = merged_log
                 node._log_rows = int(n_unique)
                 node.metrics.inc("ops_ingested", self.fresh)
@@ -399,10 +399,6 @@ class ReplicaNode:
         events: Optional[EventLog] = None,
         device=None,
     ):
-        if use_native:
-            raise ValueError(
-                "use_native=True: the native C++ interner and wire store are "
-                "not ported; the port interns and packs in Python")
         self.rid = rid
         self.device = default_device(device)
         self.events = events if events is not None else EventLog(node=str(rid))
@@ -423,8 +419,26 @@ class ReplicaNode:
         self.recorder = FlightRecorder(rid, self.metrics.registry, events=self.events)
         if self.events.registry is None:
             self.events.registry = self.metrics.registry
-        self.keys = Interner()
-        self.values = Interner()
+        # the native runtime (None means native: a failed build raises) or
+        # the Python path (use_native=False), identical in ids and columns
+        self._native = use_native is None or bool(use_native)
+        if self._native:
+            self.keys = native.NativeInterner()
+            self.values = native.NativeInterner()
+            self._packer = native.OpBatchPacker(self.keys, self.values)
+            # the command map mirrored in C++, each op under the absolute
+            # wire key it got when it entered: GET /gossip's bytes
+            self._wire = native.WireStore(self.keys, self.values)
+        else:
+            self.keys = Interner()
+            self.values = Interner()
+            self._packer = None
+            self._wire = None
+        # write-behind appends for the wire store: both write paths queue
+        # their rows here as one column chunk a batch (ts_abs, rid, seq,
+        # pairs an op, key ids, value ids) and every reader of _wire drains
+        # them first, in one native call (_flush_wire_locked)
+        self._wire_pending: List[Tuple[np.ndarray, ...]] = []
         self.log = oplog.empty(capacity, device=self.device)
         # host-tracked live row count of self.log, or None when unknown
         # (after a fold): spares a size reduction and a sync per write batch
@@ -647,40 +661,22 @@ class ReplicaNode:
     def gossip_payload_json(
         self, since: Optional[Dict[int, int]] = None
     ) -> Optional[bytes]:
-        """``gossip_payload`` as UTF-8 JSON bytes (the HTTP serving path),
-        the bytes the JAX node serves: while no compaction section is
-        needed, its wire store's compact form (:meth:`_wire_json_locked`);
-        otherwise ``json.dumps`` of the payload.  One lock acquisition
-        either way."""
+        """``gossip_payload`` as UTF-8 JSON bytes (the HTTP serving path).
+        With the native runtime and no compaction section needed, the C++
+        wire store emits them (compact JSON in identity order, each op
+        under the key it got when it entered); otherwise ``json.dumps`` of
+        the Python payload.  One lock acquisition either way."""
         if not self.alive:
             return None
         with self._lock:
-            if not self._frontier and not (self.go_compat_gossip and since is None):
-                return self._wire_json_locked(since)
+            if self._wire is not None and not self._frontier \
+                    and not (self.go_compat_gossip and since is None):
+                # (the emitter writes ts:rid:seq keys and no sections, so a
+                # folded node and a go-compat full dump serve json.dumps)
+                self._flush_wire_locked()
+                return self._wire.payload_json(since)
             payload = self._payload_locked(since)
         return json.dumps(payload).encode()
-
-    def _wire_json_locked(self, since: Optional[Dict[int, int]]) -> bytes:
-        """The op payload as the JAX package's native wire store emits it:
-        ``{"ts:rid:seq":{"key":"value",...},...}`` in identity order, no
-        whitespace, strings escaped byte-wise (``\\"``, ``\\\\``, the
-        short escapes of \\b \\f \\n \\r \\t, ``\\u00xx`` for the other
-        control characters, every other character raw UTF-8).  With
-        ``since`` the ops it covers are skipped; rid<0 ops always ride."""
-        epoch = self.clock.epoch_ms
-        if since is None:
-            items = sorted(self._commands.items())
-        else:
-            items = list(self._foreign)
-            for w, lst in self._by_writer.items():
-                if lst:
-                    items += lst[max(since.get(w, -1) + 1 - lst[0][0][2], 0):]
-            items.sort(key=lambda kv: kv[0])
-        ops = (f'"{ts + epoch}:{rid}:{seq}":{{'
-               + ",".join(f'"{_wire_escape(k)}":"{_wire_escape(v)}"' for k, v in cmd.items())
-               + "}"
-               for (ts, rid, seq), cmd in items)
-        return ("{" + ",".join(ops) + "}").encode()
 
     def _decode_payload(self, payload: Dict[str, Any], check_cmds: bool = True):
         """Wire payload -> (remote_frontier, remote_summary, op rows),
@@ -1013,6 +1009,11 @@ class ReplicaNode:
         f = self._frontier
         kept = {k: v for k, v in self._commands.items()
                 if not (k[1] >= 0 and k[2] <= f.get(k[1], -1))}
+        if self._wire is not None:
+            self._flush_wire_locked()  # removals must see deferred adds
+            epoch = self.clock.epoch_ms
+            for k in self._commands.keys() - kept.keys():
+                self._wire.remove(k[0] + epoch, k[1], k[2])
         reclaimed = len(self._commands) - len(kept)
         if reclaimed:
             self.metrics.inc("gc_reclaimed_ops", reclaimed)
@@ -1031,6 +1032,14 @@ class ReplicaNode:
         self._vv = {}
         self._ts_seen = {k[0] for k in self._commands} if self.go_compat_gossip else set()
         self._summary_cache = None
+        if self._wire is not None:
+            # pending rows are already in _commands: the rebuild re-adds
+            # them, so the write-behind queue just resets
+            self._wire_pending.clear()
+            self._wire = native.WireStore(self.keys, self.values)
+            epoch = self.clock.epoch_ms
+            for (ts, rid, seq), cmd in self._commands.items():
+                self._wire.add(ts + epoch, rid, seq, cmd)
         for ident in sorted(self._commands, key=lambda k: (k[1], k[2], k[0])):
             stored = self._commands[ident]
             rid, seq = ident[1], ident[2]
@@ -1118,6 +1127,14 @@ class ReplicaNode:
         in (rid, seq) order so each writer's index list stays seq-ascending."""
         accepted = []
         f = self._frontier
+        # the wire store's rows, each under its entry key: interned here
+        # (each distinct string once a call) and queued write-behind
+        wire = self._wire is not None
+        w_ops: List[Tuple[int, int, int, int]] = []
+        w_kids: List[int] = []
+        w_vids: List[int] = []
+        kmemo: Dict[str, int] = {}
+        vmemo: Dict[str, int] = {}
         for ts, rid, seq, cmd in sorted(rows, key=lambda r: (r[1], r[2], r[0])):
             ident = (ts, rid, seq)
             if ident in self._commands:
@@ -1130,6 +1147,17 @@ class ReplicaNode:
             self._commands[ident] = stored
             if self.go_compat_gossip:
                 self._ts_seen.add(ts)
+            if wire:
+                w_ops.append((ts, rid, seq, len(stored)))
+                for k, v in stored.items():
+                    kid = kmemo.get(k)
+                    if kid is None:
+                        kid = kmemo[k] = self.keys.intern(k)
+                    vid = vmemo.get(v)
+                    if vid is None:
+                        vid = vmemo[v] = self.values.intern(v)
+                    w_kids.append(kid)
+                    w_vids.append(vid)
             if rid >= 0:
                 self._by_writer.setdefault(rid, []).append((ident, stored))
                 if seq > self._vv.get(rid, -1):
@@ -1137,6 +1165,9 @@ class ReplicaNode:
             else:
                 self._foreign.append((ident, stored))
             accepted.append((ts, rid, seq, stored))
+        if w_ops:
+            ts_, rid_, seq_, n_ = zip(*w_ops)
+            self._queue_wire_locked(ts_, rid_, seq_, n_, w_kids, w_vids)
         if accepted and self.digest is not None and self.digest.enabled:
             self.digest.observe_rows(accepted, self.clock.epoch_ms)
         return accepted
@@ -1146,6 +1177,13 @@ class ReplicaNode:
     ) -> Tuple[Optional[Dict[str, np.ndarray]], int]:
         """Pack accepted rows into merge-ready op columns; ``(ops, fresh)``
         with ``ops=None`` when nothing is fresh."""
+        if self._packer is not None:  # the native packer
+            fresh = 0
+            for ts, rid, seq, cmd in accepted:
+                for k, v in cmd.items():
+                    self._packer.add(ts, rid, seq, k, v)
+                    fresh += 1
+            return (self._packer.take(), fresh) if fresh else (None, 0)
         cols = {n: [] for n in oplog._FIELDS}
         for ts, rid, seq, cmd in accepted:
             for k, v in cmd.items():
@@ -1185,9 +1223,9 @@ class ReplicaNode:
         by_writer = self._by_writer.setdefault(rid, [])
         kcache: Dict[str, int] = {}
         vcache: Dict[str, Tuple[int, int, bool]] = {}
-        # id(cmd) -> entry idxs; every cmd stays referenced by `cmds` for
-        # the whole loop, so ids are stable
-        icache: Dict[int, List[int]] = {}
+        # id(cmd) -> (entry idxs, key ids, value ids); every cmd stays
+        # referenced by `cmds` for the whole loop, so ids are stable
+        icache: Dict[int, Tuple[List[int], List[int], List[int]]] = {}
         # entry planes: one slot per distinct (key, value) pair
         e_key: List[int] = []
         e_val: List[int] = []
@@ -1199,6 +1237,7 @@ class ReplicaNode:
         c_eidx: List[int] = []
         commands = self._commands
         go_compat = self.go_compat_gossip
+        n_pairs: List[int] = []  # (key, value) pairs of each op
         seq = seq0
         for cmd, ts in zip(cmds, tss):
             ident = (ts, rid, seq)
@@ -1206,9 +1245,9 @@ class ReplicaNode:
             if go_compat:
                 self._ts_seen.add(ts)
             by_writer.append((ident, cmd))
-            eidxs = icache.get(id(cmd))
-            if eidxs is None:
-                eidxs = icache[id(cmd)] = []
+            ent = icache.get(id(cmd))
+            if ent is None:
+                ent = icache[id(cmd)] = ([], [], [])
                 for k, v in cmd.items():
                     kid = kcache.get(k)
                     if kid is None:
@@ -1216,15 +1255,18 @@ class ReplicaNode:
                     enc = vcache.get(v)
                     if enc is None:
                         enc = vcache[v] = encode_value(v, self.values)
-                    eidxs.append(len(e_key))
+                    ent[0].append(len(e_key))
+                    ent[1].append(kid)
+                    ent[2].append(enc[1])  # payload == the raw string's id
                     e_key.append(kid)
                     e_val.append(enc[0])
                     e_pay.append(enc[1])
                     e_num.append(enc[2])
-            for e in eidxs:  # multi-key command: one log row per pair
+            for e in ent[0]:  # multi-key command: one log row per pair
                 c_eidx.append(e)
                 c_ts.append(ts)
                 c_seq.append(seq)
+            n_pairs.append(len(ent[0]))
             seq += 1
         self._vv[rid] = max(self._vv.get(rid, -1), seq - 1)
         if self.digest is not None and self.digest.enabled:
@@ -1232,18 +1274,42 @@ class ReplicaNode:
                 [(t, rid, seq0 + i, c) for i, (c, t) in enumerate(zip(cmds, tss))],
                 self.clock.epoch_ms)
         fresh = len(c_eidx)
+        eidx = np.asarray(c_eidx, np.intp)
+        key = np.asarray(e_key, np.int32)[eidx]
+        payload = np.asarray(e_pay, np.int32)[eidx]
+        if self._wire is not None:
+            # the ops' key and value ids, op by op, are the packed columns
+            self._queue_wire_locked(tss, np.full(len(tss), rid), np.arange(seq0, seq),
+                                    n_pairs, key, payload)
         if not fresh:
             return None, 0
-        eidx = np.asarray(c_eidx, np.intp)
         return {
             "ts": np.asarray(c_ts, np.int32),
             "rid": np.full(fresh, rid, np.int32),
             "seq": np.asarray(c_seq, np.int32),
-            "key": np.asarray(e_key, np.int32)[eidx],
+            "key": key,
             "val": np.asarray(e_val, np.int32)[eidx],
-            "payload": np.asarray(e_pay, np.int32)[eidx],
+            "payload": payload,
             "is_num": np.asarray(e_num, bool)[eidx],
         }, fresh
+
+    def _queue_wire_locked(self, ts, rid, seq, n_pairs, kids, vids) -> None:
+        """Queue ops for the wire store, write-behind: op i is (ts[i] +
+        epoch, rid[i], seq[i]) with n_pairs[i] (key id, value id) pairs
+        taken in order from kids/vids (caller holds the lock)."""
+        self._wire_pending.append((
+            np.asarray(ts, np.int64) + self.clock.epoch_ms, np.asarray(rid, np.int32),
+            np.asarray(seq, np.int32), np.asarray(n_pairs, np.int32),
+            np.asarray(kids, np.int32), np.asarray(vids, np.int32)))
+
+    def _flush_wire_locked(self) -> None:
+        """Drain the write-behind queue into the wire store in one native
+        call (caller holds the lock): the write paths defer their native
+        calls to the serving path, and every reader of _wire drains
+        first."""
+        if self._wire is not None and self._wire_pending:
+            self._wire.add_many(*(np.concatenate(c) for c in zip(*self._wire_pending)))
+        self._wire_pending.clear()
 
     def _count_lane_fold(self) -> None:
         # labeled per-lane merge accounting (see _metric_labels)

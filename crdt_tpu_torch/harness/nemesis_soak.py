@@ -105,8 +105,8 @@ The same seed gives the same fault-log bytes, write ledger, converged
 state, vv, wire-call census and report counters in both packages.  Not
 ported: ``--race-check`` (the witnessed-race detector,
 ``analysis.verify.race``, ROADMAP Queue 1 item 8: the CLI exits 2 naming
-it) and ``--ks-mesh on`` (the device-mesh shard plane, item 6: raises);
-``"auto"`` and ``"off"`` take the host path.
+it).  ``--ks-mesh on`` folds the keyspace's shards through the mesh plane
+(:mod:`crdt_tpu_torch.parallel.meshplane`).
 
     python -m crdt_tpu_torch.harness.nemesis_soak --nodes 3 --steps 120 --device cuda
 """
@@ -535,10 +535,6 @@ class NemesisSoak:
                  audit: bool = False,
                  audit_plant: bool = True,
                  device=None):
-        if ks_mesh == "on":
-            raise NotImplementedError(
-                'ks_mesh="on": the device-mesh shard plane is not ported '
-                '(ROADMAP Queue 1 item 6); use "auto" or "off"')
         # resolved before anything boots: no card and no explicit device
         # raises here
         self.device = default_device(device)
@@ -749,7 +745,9 @@ class NemesisSoak:
                 keyspace_capacity=max(256, 4 * steps) * (
                     nodes + 1 if reshard else 1),
                 keyspace_tenant_quota={self.MT_NOISY: self.MT_NOISY_QUOTA},
-                # "auto" and "off" take the host path ("on" raised above)
+                # the mesh plane's fused shard convergence: "on" forces the
+                # fused step even on one device, so the corrupt-shard
+                # isolation INSIDE the fused step runs deterministically
                 keyspace_mesh=ks_mesh,
             )
         self.config = ClusterConfig(
@@ -2869,10 +2867,10 @@ def main(argv=None) -> int:
                          "wire-call census (zero new round trips)")
     ap.add_argument("--ks-mesh", choices=("auto", "on", "off"),
                     default="auto",
-                    help="keyspace_mesh knob for --multitenant: 'auto' "
-                         "and 'off' take the host path; 'on' (the "
-                         "device-mesh shard plane) is not ported and "
-                         "raises (ROADMAP Queue 1 item 6)")
+                    help="keyspace_mesh knob for --multitenant: route "
+                         "shard convergence through the mesh plane's fused "
+                         "step (parallel.meshplane); 'on' forces fusion "
+                         "even on one device")
     ap.add_argument("--race-check", action="store_true",
                     help="not ported: the witnessed-race detector "
                          "(analysis.verify.race) is ROADMAP Queue 1 item "

@@ -302,14 +302,81 @@ class KeyspaceFrontDoor:
             return dict(self._tenant_depth)
 
     def flush_all(self) -> int:
+        if self.ks.mesh_active:
+            return self.flush_all_fused()
         return sum(lane.flush() for lane in self.lanes)
 
     def flush_all_fused(self) -> int:
-        """Drain every shard lane in one step: in the JAX package one
-        device-mesh fold of all lanes when its plane is active, else (as
-        here: the port's keyspace has no mesh plane, ROADMAP Queue 1 item
-        6) each lane's inline flush, in lane order."""
-        return self.flush_all()
+        """Drain EVERY shard lane through ONE mesh-plane step.
+
+        Shard-aligned drains feed the mesh step: claim all lanes (drain
+        slots, lane index ascending), mint seqs + host bookkeeping per
+        shard (``add_commands_begin``, node locks index ascending —
+        drain locks strictly before node locks, the same order every
+        other path uses), fold all lanes in one ``MeshPlane.converge``
+        step, then resolve every ticket with its idents.  Accounting
+        (drains/admitted/latency, tenant ops, ks_births) is identical to
+        S inline flushes — only the dispatch count changes."""
+        plane = self.ks._plane()
+        if plane is None:
+            return sum(lane.flush() for lane in self.lanes)
+        # drain slots, lane index ascending, built INCREMENTALLY so a claim
+        # failing mid-sweep can fail (and release) every slot already held
+        claims: List[Optional[Any]] = []
+        try:
+            for lane in self.lanes:
+                claims.append(lane.claim())
+        except BaseException as exc:
+            for claim in claims:
+                if claim is not None:
+                    claim.fail(exc)
+            raise
+        if not any(c is not None for c in claims):
+            return 0
+        pendings: List[Any] = []
+        per_shard: List[Tuple[Any, List[Any], Dict[str, int], Any]] = []
+        for i, claim in enumerate(claims):
+            items = [] if claim is None else claim.flat
+            try:
+                drained = self._pre_drain(items) if items else {}
+                tss = [ts for ts, _, _ in items]
+                cmds = [cmd for _, cmd, _ in items]
+                idents, pending = \
+                    self.ks.shards[i].add_commands_begin(cmds, tss)
+            except BaseException as exc:
+                # this lane's mint failed whole (e.g. out-of-window ts):
+                # its tickets observe the error — exactly what an inline
+                # flush does — and a zero-fresh pending rides along so
+                # the fused step keeps its static lane layout
+                if claim is not None:
+                    claim.fail(exc)
+                    claims[i] = None
+                items, drained = [], {}
+                idents, pending = \
+                    self.ks.shards[i].add_commands_begin([], None)
+            pendings.append(pending)
+            per_shard.append((claims[i], items, drained, idents))
+        try:
+            plane.converge(pendings)  # commits (or inline-falls-back) + unlocks
+        except BaseException as exc:
+            # converge releases every node lock before re-raising, but the
+            # drain slots are still held — fail every outstanding claim so
+            # waiting tickets observe the error instead of hanging forever
+            for claim, _, _, _ in per_shard:
+                if claim is not None:
+                    claim.fail(exc)
+            raise
+        total = 0
+        for i, (claim, items, drained, idents) in enumerate(per_shard):
+            if claim is None:
+                continue
+            if idents is None:  # shard down: every op in the drain 502s
+                claim.resolve([None] * len(items))
+            else:
+                self._post_drain(i, items, idents, drained)
+                claim.resolve(idents)
+            total += len(items)
+        return total
 
     def flush_expired(self) -> int:
         return sum(lane.flush_expired() for lane in self.lanes)

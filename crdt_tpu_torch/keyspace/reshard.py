@@ -383,7 +383,8 @@ class ReshardCoordinator:
         admission lock), drains the lanes, re-mints each winner into
         its new owner plane with its ORIGINAL timestamp, swaps the
         shard set + router + epoch atomically, then runs the reshape
-        callbacks (door lanes, stability trackers, recorders).  Reads stay served off the old planes until the swap —
+        callbacks (door lanes, stability trackers, recorders, mesh
+        plane).  Reads stay served off the old planes until the swap —
         zero read unavailability; writes wait out the window and
         observe only latency, never loss."""
         with self._phase_lock:
@@ -440,7 +441,8 @@ class ReshardCoordinator:
                    minted=minted)
         # reshape callbacks AFTER the swap: door lane rebuild
         # (the admission lock is still held — the door's
-        # contract), stability trackers, recorder re-install
+        # contract), stability trackers, recorder re-install,
+        # meshplane reset
         if door is not None:
             door.rebuild_lanes()
         for cb in list(self.ks._reshape_cbs):

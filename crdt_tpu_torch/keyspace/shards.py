@@ -25,11 +25,10 @@ shards never merge with each other.  Deterministic routing guarantees
 shard i holds the same key set on every node, so per-shard convergence
 is fleet convergence.
 
-Every shard folds on the host path: one merge per shard and payload, as
-the JAX package does with ``mesh="off"`` and with ``mesh="auto"`` on
-fewer than two devices.  The device-mesh plane that folds all S shards
-in one step (``mesh="on"``, and ``"auto"`` on a multi-device mesh) is
-not ported (ROADMAP Queue 1 item 6): ``"on"`` raises.
+Shards fold on the host path (one merge per shard and payload) or, with
+``mesh="on"`` (and ``"auto"`` with at least two cards), all S at once in
+one step of the mesh plane (:mod:`crdt_tpu_torch.parallel.meshplane`),
+as in the JAX package.
 """
 from __future__ import annotations
 
@@ -76,11 +75,7 @@ class ShardedKeyspace:
     def __init__(self, rid: int, n_shards: int, *, capacity: int = 1024,
                  metrics=None, events=None, clock=None, mesh: str = "auto",
                  device=None):
-        if mesh == "on":
-            raise NotImplementedError(
-                'ShardedKeyspace(mesh="on"): the device-mesh shard plane is '
-                'not ported (ROADMAP Queue 1 item 6); use "auto" or "off"')
-        if mesh not in ("auto", "off"):
+        if mesh not in ("auto", "on", "off"):
             raise ValueError(f"mesh={mesh!r} must be one of auto|on|off")
         n_shards = int(n_shards)
         if n_shards < 1:
@@ -117,9 +112,12 @@ class ShardedKeyspace:
         # are NEVER stored or gossiped; arrival order may differ per node)
         self._tenants: Dict[str, int] = {}
         self._tenant_lock = threading.Lock()
-        # the host path serves "auto" and "off" alike (no device-mesh
-        # plane in the port)
-        self.mesh_mode = "off"
+        # the fused shard plane (parallel.meshplane): built lazily on first
+        # use, so a keyspace that never folds through it pays nothing
+        self.mesh_mode = mesh
+        self._mesh_requested = mesh  # pre-resolution mode, for reshapes
+        self._meshplane = None
+        self._meshplane_lock = threading.Lock()
         # online resharding: the monotone reshard epoch fencing every
         # keyspace wire surface, the per-node state machine over it, the
         # tenant door (registered by KeyspaceFrontDoor, drained at
@@ -191,11 +189,15 @@ class ShardedKeyspace:
                       shards: List[ReplicaNode], epoch: int) -> None:
         """Atomic swap at cutover: router + plane set + shard count +
         epoch move together (callers hold the coordinator lock and the
-        door's admission lock)."""
+        door's admission lock).  The mesh plane resets to the REQUESTED
+        mode: auto may resolve differently at the new shard count."""
         self.router = router
         self.shards = shards
         self.n_shards = len(shards)
         self.epoch = int(epoch)
+        with self._meshplane_lock:
+            self.mesh_mode = self._mesh_requested
+            self._meshplane = None
 
     def reshape_for_restore(self, n_shards: int, epoch: int) -> None:
         """Snapshot restore found a ledger at a different shard count:
@@ -219,44 +221,105 @@ class ShardedKeyspace:
         ledger — after the shard files have loaded."""
         self.reshard.restore_ledger(snap)
 
-    # ---- shard folds (host path) ----
+    # ---- the fused shard plane ----
+
+    def _plane(self):
+        """The lazily built MeshPlane, or None on the host path (mode off,
+        or auto without enough devices or shards).  The decision is
+        cached: the mode resolves once."""
+        if self.mesh_mode == "off":
+            return None
+        with self._meshplane_lock:
+            if self._meshplane is None:
+                from crdt_tpu_torch.parallel.meshplane import MeshPlane, select_engine
+                if select_engine(self.n_shards, self.mesh_mode, self.device) is None:
+                    self.mesh_mode = "off"  # cache the host-path decision
+                    return None
+                self._meshplane = MeshPlane(
+                    self.n_shards, mode=self.mesh_mode,
+                    metrics=self.shards[0].metrics, device=self.device)
+            return self._meshplane
 
     @property
     def mesh_active(self) -> bool:
-        """Does this keyspace fold its shards through a device mesh?  Never
-        in the port (``mesh="on"`` is refused at construction)."""
-        return False
+        """Does this keyspace fold its shards through the mesh plane?"""
+        return self._plane() is not None
 
     @property
     def mesh_engine(self) -> Optional[str]:
-        return None
+        plane = self._plane()
+        return None if plane is None else plane.engine
 
     def receive_all(self, payloads: List[Optional[Dict[str, Any]]],
                     quarantine: bool = False) -> List[Any]:
-        """Fold one payload per shard, one host dispatch per shard.
+        """Fold one payload per shard: ALL shards in one fused step when the
+        mesh plane is active, else one host merge per shard.
 
         ``payloads[i]`` lands in shard i (None = nothing for that shard
         this round).  Returns a per-shard result list: an int (ops
         absorbed) or, with ``quarantine=True``, an error string for a
-        shard whose payload failed structural validation, while its
-        SIBLINGS still converge.  Without quarantine a bad payload
-        raises."""
+        shard whose payload failed structural validation; that shard's
+        lane folds empty while its SIBLINGS still converge.  Without
+        quarantine a bad payload raises, after every lane was released."""
         if len(payloads) != self.n_shards:
             raise ValueError(
                 f"receive_all needs one payload per shard "
                 f"({self.n_shards}), got {len(payloads)}")
-        out: List[Any] = []
-        for shard, p in zip(self.shards, payloads):
-            if p is None:
-                out.append(0)
-                continue
-            if quarantine:
-                err = shard.validate_payload(p)
-                if err is not None:
-                    out.append(err)
+        plane = self._plane()
+        if plane is None:
+            out: List[Any] = []
+            for shard, p in zip(self.shards, payloads):
+                if p is None:
+                    out.append(0)
                     continue
-            out.append(shard.receive(p))
-        return out
+                if quarantine:
+                    err = shard.validate_payload(p)
+                    if err is not None:
+                        out.append(err)
+                        continue
+                out.append(shard.receive(p))
+            return out
+        results: List[Any] = [0] * self.n_shards
+        clean: List[Optional[Dict[str, Any]]] = [None] * self.n_shards
+        for i, (shard, p) in enumerate(zip(self.shards, payloads)):
+            if p is None:
+                continue
+            err = shard.validate_payload(p)
+            if err is not None:
+                if not quarantine:
+                    raise ValueError(f"shard {i} payload failed validation: {err}")
+                results[i] = err  # the lane folds empty; siblings unaffected
+                continue
+            clean[i] = p
+        # lock order: shard index ascending (as every multi-shard path);
+        # merge_begin HOLDS each lock until the plane commits the lane
+        pendings: List[Any] = []
+        try:
+            for i, (shard, p) in enumerate(zip(self.shards, clean)):
+                try:
+                    pendings.append(shard.merge_begin([p] if p is not None else []))
+                except ValueError as exc:
+                    # an adoption-time refusal (incomparable frontier, a
+                    # frontier without __summary__) depends on this shard's
+                    # state, so validate_payload cannot screen it; merge_begin
+                    # released shard i's lock.  Quarantine folds the lane
+                    # empty so the siblings converge; otherwise re-raise once
+                    # the held lanes landed (below).
+                    if not quarantine:
+                        raise
+                    results[i] = f"{type(exc).__name__}: {exc}"
+                    pendings.append(shard.merge_begin([]))
+        except BaseException:
+            # a lane failed mid-build: land every held lane with its own
+            # inline merge so no shard lock leaks
+            from crdt_tpu_torch.parallel.meshplane import land_all_inline
+            land_all_inline(pendings)
+            raise
+        plane.converge(pendings)
+        for i, p in enumerate(pendings):
+            if not isinstance(results[i], str):
+                results[i] = p.fresh + p.adopted
+        return results
 
     # ---- routing & interning ----
 

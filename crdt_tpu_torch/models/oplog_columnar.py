@@ -34,6 +34,7 @@ from crdt_tpu_torch.models import oplog
 from crdt_tpu_torch.ops import hopper_union
 from crdt_tpu_torch.utils.constants import SENTINEL_PY
 from crdt_tpu_torch.utils.tables import grow_into
+from crdt_tpu_torch.utils.tracing import trace_region
 from crdt_tpu_torch.utils.tree import tree_map
 
 # Default lo-word split: 256 writers x 64K ops/writer x 128 interned keys.
@@ -255,7 +256,7 @@ def converge_checked(col: ColumnarOpLog, alive: torch.Tensor | None = None):
     (ColumnarOpLog, max_n_unique): max_n_unique > capacity means some
     pairwise union overflowed (newest ops dropped)."""
     lanes = col.lanes
-    with torch.profiler.record_function("oplog_columnar.converge"):
+    with trace_region("oplog_columnar.converge"):
         work, max_nu = lub_lane(col, alive)
         # the broadcast is a stride-0 view: materialise it (the kernel
         # wrapper rejects non-contiguous planes)

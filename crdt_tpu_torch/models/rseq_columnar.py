@@ -37,6 +37,7 @@ from crdt_tpu_torch.models import rseq
 from crdt_tpu_torch.models.oplog_engine import EngineFallback
 from crdt_tpu_torch.ops import hopper_union
 from crdt_tpu_torch.utils.constants import SENTINEL_PY
+from crdt_tpu_torch.utils.tracing import trace_region
 from crdt_tpu_torch.utils.tree import tree_map
 
 HALF_BITS = rseq.HALF_BITS  # 30: both position words stay under 2^30
@@ -285,7 +286,7 @@ def converge_checked(col: ColumnarRSeq, alive: torch.Tensor | None = None):
     tables — swarm.converge for the sequence CRDT on the lexN kernels.
     Returns (ColumnarRSeq, max_n_unique); max_n_unique > capacity means
     some pairwise union truncated."""
-    with torch.profiler.record_function("rseq_columnar.converge"):
+    with trace_region("rseq_columnar.converge"):
         work, max_nu = lub_lane(col, alive)
         return _broadcast_top(col, work, alive), max_nu
 

@@ -37,6 +37,7 @@ import torch
 from crdt_tpu_torch import default_device
 from crdt_tpu_torch.ops import sorted_union as su
 from crdt_tpu_torch.utils.constants import SENTINEL_PY
+from crdt_tpu_torch.utils.tracing import trace_region
 from crdt_tpu_torch.utils.tree import leaves, tree_map
 
 
@@ -204,7 +205,7 @@ def gc_round(sw, adapter, neutral_inner, engine: str = "auto"):
                    device=sw.state.floor.device)
     cap = adapter.capacity_of(neutral_inner)
 
-    with torch.profiler.record_function("tomb_gc.barrier"):
+    with trace_region("tomb_gc.barrier"):
         converged = None
         hook = getattr(adapter, "columnar_converge", None)
         if engine != "generic" and hook is not None:

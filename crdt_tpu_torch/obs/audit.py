@@ -28,7 +28,9 @@ online:
   bit-rot enters the served digest), frontier stall and convergence-lag
   EWMA breach.
 
-Not ported: the device-mesh digest fold (ROADMAP Queue 1 item 6).
+The mesh plane folds each lane's digest rows on the device in its fused
+step (``ops.digest.lane_sum``), and ``PendingMerge.commit`` compares the
+sum with the host's (``audit_mesh_mismatch`` on a difference).
 
 False-positive immunity comes from the frontier clamp, not from luck:
 ``digest_at(F)`` is computed only when this node's own compaction

@@ -16,12 +16,15 @@ properties:
 The KEY contributes 4 lanes of ``blake2b(key, 16)``, computed once per
 distinct key (cached by the caller); the ``(ts, rid, seq)`` ident is
 whitened into each lane with a splitmix-style uint32 finalizer.  The
-uint32 functions here take numpy arrays; the pure-int mirrors below them
-are the ingest hot path's form, pinned bit-equal to the arrays by the
-tests.  The digest is hashed on the host in both packages, so a digest
-computed by either matches the other's bit for bit.  (The JAX package's
-functions are also traced into its device-mesh fold; that plane is not
-ported.)
+lane functions (``mix32``, ``rotl32``, ``row_lanes``, ``lane_sum``) take
+numpy uint32 arrays on the host and torch tensors on the device, where
+torch has no uint32 arithmetic: a device lane is a uint32 value held in
+int64 and masked with ``& 0xFFFFFFFF`` after each add, multiply and
+shift, so both forms give the same bits (the mesh plane's fused fold,
+:mod:`crdt_tpu_torch.parallel.meshplane`, sums its batch's lanes on the
+card with ``lane_sum``).  The pure-int mirrors below are the ingest hot
+path's form, pinned bit-equal to the arrays by the tests.  A digest
+computed by either package matches the other's bit for bit.
 
 128 bits (4 lanes x 32) keep accidental collisions far below anything a
 soak can hit; the lanes use distinct salts, so they are independent hash
@@ -33,6 +36,7 @@ import hashlib
 from typing import Iterable, Optional, Tuple
 
 import numpy as np
+import torch
 
 LANES = 4
 
@@ -43,10 +47,21 @@ LANE_SALTS = np.array(
 
 _MASK64 = (1 << 64) - 1
 
+_M32 = 0xFFFFFFFF
+
 
 def mix32(x):
-    """splitmix32-style finalizer over uint32 arrays (xor, shift and
-    wrap-around multiply)."""
+    """splitmix32-style finalizer over uint32 lanes (xor, shift and
+    wrap-around multiply): numpy uint32 arrays, or torch int64 tensors of
+    uint32 values."""
+    if isinstance(x, torch.Tensor):
+        # int64 products of two uint32 values may wrap past 2**63; the low
+        # 32 bits survive the wrap and the mask keeps just them
+        x = x ^ (x >> 16)
+        x = (x * 0x7FEB352D) & _M32
+        x = x ^ (x >> 15)
+        x = (x * 0x846CA68B) & _M32
+        return x ^ (x >> 16)
     c1 = x.dtype.type(0x7FEB352D)
     c2 = x.dtype.type(0x846CA68B)
     x = x ^ (x >> 16)
@@ -58,7 +73,10 @@ def mix32(x):
 
 
 def rotl32(x, r: int):
-    """Rotate-left on uint32 arrays; r must be 1..31."""
+    """Rotate-left on uint32 lanes (numpy uint32 or torch int64); r must be
+    1..31."""
+    if isinstance(x, torch.Tensor):
+        return ((x << r) & _M32) | (x >> (32 - r))
     return (x << r) | (x >> (32 - r))
 
 
@@ -84,17 +102,25 @@ def row_lanes(klanes, ts, rid, seq):
     arrays broadcastable to ``klanes[..., 0]`` (fold 64-bit timestamps
     through ``fold_ts`` first; cast signed ids via ``.astype(uint32)`` —
     two's-complement reinterpretation is fine, it just has to be the
-    same on every side).  Returns uint32[..., 4].
+    same on every side).  Returns uint32[..., 4].  On torch every argument
+    is an int64 tensor of uint32 values (``x & 0xFFFFFFFF`` of a signed
+    id), and so is the result.
     """
     ident = ts ^ rotl32(rid, 7) ^ rotl32(seq, 13)
-    lanes = mix32(ident[..., None] ^ LANE_SALTS)
+    salts = LANE_SALTS
+    if isinstance(ident, torch.Tensor):
+        salts = torch.as_tensor(LANE_SALTS.astype(np.int64), device=ident.device)
+    lanes = mix32(ident[..., None] ^ salts)
     return mix32(klanes ^ lanes)
 
 
 def lane_sum(rows):
     """Sum rows' lanes mod 2**32: uint32[..., n, 4] -> uint32[..., 4]
-    (the explicit dtype pins the wrap-around sum; numpy would otherwise
-    widen to uint64).  All-zero padding rows are the additive identity."""
+    (numpy: the explicit dtype pins the wrap-around sum, which numpy would
+    otherwise widen to uint64; torch: the int64 sum, masked).  All-zero
+    padding rows are the additive identity."""
+    if isinstance(rows, torch.Tensor):
+        return rows.sum(dim=-2) & _M32
     return rows.sum(axis=-2, dtype=rows.dtype)
 
 
@@ -117,8 +143,6 @@ def row_lanes_one(klanes: np.ndarray, ts: int, rid: int, seq: int
 LANE_SALTS_INT: Tuple[int, int, int, int] = tuple(int(s) for s in LANE_SALTS)
 
 ZERO_INTS: Tuple[int, int, int, int] = (0, 0, 0, 0)
-
-_M32 = 0xFFFFFFFF
 
 
 def mix32_int(x: int) -> int:

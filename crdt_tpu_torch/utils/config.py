@@ -8,10 +8,10 @@ and five never-started ports (main.go:220-222), a 1500 ms gossip period
 (main.go:229), the 62-character key alphabet and deltas in [-20, -11]
 (main.go:274-276), a 300 ms bootstrap stagger (main.go:320).
 
-``keyspace_mesh`` accepts the JAX package's three modes; "auto" and
-"off" both take the keyspace's host path (on one card that is what the
-JAX package's "auto" selects too), and a keyspace built with "on" raises:
-the device-mesh shard plane is ROADMAP Queue 1 item 6.
+``keyspace_mesh`` takes the JAX package's three modes: "on" folds the
+keyspace's shards in one step of the mesh plane, "off" one merge per
+shard, and "auto" fuses only with at least two cards (on one card it
+takes the host path, as the JAX package's "auto" does on one device).
 """
 from __future__ import annotations
 
@@ -90,8 +90,7 @@ class ClusterConfig:
     # per-tenant quota slices for ShedPolicy.tenant_high_water: a listed
     # tenant sheds on its OWN pending-op depth before the lane fills
     keyspace_tenant_quota: Optional[Dict[str, int]] = None
-    # the JAX package's device-mesh fold knob: "auto" and "off" take the
-    # host path here; "on" is refused by the keyspace (Queue 1 item 6)
+    # fused shard convergence (parallel.meshplane): auto | on | off
     keyspace_mesh: str = "auto"
 
     # ---- stability-frontier GC (crdt_tpu_torch.consistency.stability) ----

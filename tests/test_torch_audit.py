@@ -63,6 +63,46 @@ def test_row_hash_forms_equal_the_jax_package(seed):
     assert np.array_equal(tdig.sub_lanes(tdig.add_lanes(batch[0], batch[1]), batch[1]), batch[0])
 
 
+@pytest.mark.parametrize("seed", [0, 1])
+def test_device_lane_functions_equal_the_jax_package(seed):
+    """The digest's device half: mix32, rotl32, row_lanes and lane_sum on
+    torch int64 tensors of uint32 lanes equal the JAX package's functions
+    on jnp uint32 arrays (its device form) and on numpy, bit for bit,
+    with the wrap-around at 2**32 in every add, multiply and shift."""
+    import jax.numpy as jnp
+    import torch
+
+    rng = np.random.default_rng(seed)
+
+    def u32(*shape):
+        return rng.integers(0, 2 ** 32, shape, dtype=np.uint64).astype(np.uint32)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a).astype(np.int64))
+
+    x = u32(513)
+    x[:5] = [0, 1, 0xFFFFFFFF, 0x80000000, 0x7FFFFFFF]
+    for r in (1, 7, 13, 31):
+        want = np.asarray(jdig.rotl32(jnp.asarray(x), r))
+        np.testing.assert_array_equal(tdig.rotl32(t(x), r).numpy(), want.astype(np.int64))
+    np.testing.assert_array_equal(tdig.mix32(t(x)).numpy(),
+                                  np.asarray(jdig.mix32(jnp.asarray(x))).astype(np.int64))
+    klanes = u32(3, 40, 4)
+    klanes[0, :8] = 0xFFFFFFFF
+    ts, rid, seq = u32(3, 40), u32(3, 40), u32(3, 40)
+    want = np.asarray(jdig.row_lanes(*(jnp.asarray(a) for a in (klanes, ts, rid, seq))))
+    got = tdig.row_lanes(t(klanes), t(ts), t(rid), t(seq))
+    assert got.dtype == torch.int64 and int(got.min()) >= 0 and int(got.max()) < 2 ** 32
+    np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
+    np.testing.assert_array_equal(got.numpy(), tdig.row_lanes(klanes, ts, rid, seq))
+    rows = np.concatenate([want, np.full((3, 5, 4), 0xFFFFFFFF, np.uint32),
+                           np.zeros((3, 7, 4), np.uint32)], axis=1)  # wraps, padding
+    jsum = np.asarray(jdig.lane_sum(jnp.asarray(rows)))
+    np.testing.assert_array_equal(tdig.lane_sum(t(rows)).numpy(), jsum.astype(np.int64))
+    np.testing.assert_array_equal(tdig.lane_sum(rows), jsum)
+    assert (rows.astype(np.int64).sum(axis=-2) >= 2 ** 32).any()  # the wrap is exercised
+
+
 def test_digest_hex_round_trip_and_garbage_rejected():
     acc = (1, 2, 0xFFFFFFFF, 0)
     s = tdig.digest_hex(acc)

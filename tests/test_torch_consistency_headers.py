@@ -81,7 +81,8 @@ class FakeClock:
 def _nodes_with_writes(rng):
     """A JAX node and a port node holding the same writes and fold."""
     jn = jnode.ReplicaNode(rid=0, capacity=16, clock=jclock.ManualClock(), use_native=False)
-    tn = tnode.ReplicaNode(rid=0, capacity=16, clock=tclock.ManualClock(), device="cpu")
+    tn = tnode.ReplicaNode(rid=0, capacity=16, clock=tclock.ManualClock(), use_native=False,
+                           device="cpu")
     for i in range(rng.randrange(3, 9)):
         for n in (jn, tn):
             n.add_command({f"k{i % 3}": str(i)}, ts=i)

@@ -250,7 +250,7 @@ def test_admission_lane_batching_expiry_failures_alike(max_batch, high_water, fa
 def _door_pair(**kw):
     jc, tc = jclock.ManualClock(), tclock.ManualClock()
     jn = jnode.ReplicaNode(rid=3, capacity=16, clock=jc, use_native=False)
-    tn = tnode.ReplicaNode(rid=3, capacity=16, clock=tc, device="cpu")
+    tn = tnode.ReplicaNode(rid=3, capacity=16, clock=tc, use_native=False, device="cpu")
     from crdt_tpu.api.mapnode import MapNode as JMapNode
 
     jd = jadm.front_door_from_config(jn, map_node=JMapNode(rid=3, metrics=jn.metrics),

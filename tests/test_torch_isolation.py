@@ -3,13 +3,14 @@ chip_smoke.py, nor tools/) imports jax, flax or crdt_tpu; constructors never qui
 fall back to the CPU; the kernel entry point never reaches its plain twin
 for a non-CPU tensor."""
 import ast
+import re
 from pathlib import Path
 
 import pytest
 import torch
 
 import crdt_tpu_torch
-from crdt_tpu_torch import convert, workload
+from crdt_tpu_torch import convert, native, workload
 from crdt_tpu_torch.api.cluster import LocalCluster
 from crdt_tpu_torch.api.compositenode import CompositeNode
 from crdt_tpu_torch.api.mapnode import MapNode
@@ -29,7 +30,7 @@ from crdt_tpu_torch.models import oplog_columnar, orset, pncounter, rseq
 from crdt_tpu_torch.models import ormap, ormap_gc, rseq_columnar, tomb_gc
 from crdt_tpu_torch.ops import hopper_union, joins, orset_floor
 from crdt_tpu_torch.ops import randstate as rs
-from crdt_tpu_torch.parallel import swarm
+from crdt_tpu_torch.parallel import meshplane, swarm
 from crdt_tpu_torch.utils import config as tconfig
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -76,7 +77,8 @@ def test_scan_sees_the_whole_package():
             "compositenode.py", "checkpoint.py", "digest.py", "audit.py", "routing.py",
             "shards.py", "frontdoor.py", "reshard.py", "leases.py", "plane.py",
             "fleet.py", "schedule.py", "transport.py", "disk.py", "assemble.py",
-            "crashsoak.py", "nemesis_soak.py"} <= names
+            "crashsoak.py", "nemesis_soak.py", "meshplane.py", "tracing.py"} <= names
+    assert ROOT / "crdt_tpu_torch" / "native" / "__init__.py" in PORT_FILES
     assert ROOT / "crdt_tpu_torch" / "obs" / "__main__.py" in PORT_FILES
 
 
@@ -134,6 +136,8 @@ def test_scan_sees_the_whole_package():
     lambda: NemesisSoak(0, nodes=2, steps=10),
     lambda: run_soak(0, 2, 10),
     lambda: CrashSoakRunner(n=2),
+    lambda: meshplane.MeshPlane(4, mode="on"),
+    lambda: ShardedKeyspace(0, 2, mesh="on"),
 ], ids=["oplog.empty", "from_ops", "columnar.empty", "random_peers",
         "convert", "default_device", "orset.empty", "bitmap_empty",
         "bucketed_empty", "g_empty", "tp_empty", "convert.orset", "set_swarm",
@@ -145,7 +149,7 @@ def test_scan_sees_the_whole_package():
         "rand_orset", "small_gset", "registry_neutral", "convert.vvclock", "SetSoakRunner",
         "MapSoakRunner", "SeqSoakRunner", "CompositeNode", "NodeHost", "ShardedKeyspace",
         "keyspace_from_config", "NodeHost_keyspace", "NemesisSoak", "run_soak",
-        "CrashSoakRunner"])
+        "CrashSoakRunner", "MeshPlane", "ShardedKeyspace_mesh"])
 def test_constructor_without_device_raises_when_no_card(make, monkeypatch):
     """device=None means the CUDA card; without one it raises rather than
     returning CPU tensors."""
@@ -154,22 +158,50 @@ def test_constructor_without_device_raises_when_no_card(make, monkeypatch):
         make()
 
 
-def _commit_with_digest():
+def test_native_sources_name_nothing_of_the_jax_package():
+    """The native runtime is an own copy: no file under
+    crdt_tpu_torch/native/ names a path or module of the JAX package."""
+    files = sorted(p for p in (ROOT / "crdt_tpu_torch" / "native").iterdir() if p.is_file())
+    assert {p.name for p in files} >= {"__init__.py", "ingest.cpp"}
+    for path in files:
+        text = path.read_text()
+        assert not re.search(r"crdt_tpu(?!_torch)[/.]", text), path.name
+        assert "crdt_tpu/" not in text and "Makefile" not in text, path.name
+
+
+def test_native_library_lands_under_build():
+    """The default node builds (or reuses) libcrdt_ingest under the
+    repository's git-ignored build/ directory."""
     node = ReplicaNode(rid=0, device="cpu")
-    pending = node.merge_begin([])
-    pending.commit(node.log, 0, digest=[0, 0, 0, 0])
+    assert node._native and node._wire is not None
+    path = native.library_path()
+    assert path.exists() and path.is_relative_to(ROOT / "build" / "native")
+    assert path.name.startswith("libcrdt_ingest-") and path.suffix == ".so"
 
 
-@pytest.mark.parametrize("ask", [
-    lambda: ReplicaNode(rid=0, use_native=True, device="cpu"),
-    _commit_with_digest,
-], ids=["use_native", "commit_digest"])
-def test_left_out_node_features_raise(ask):
-    """The node features the port leaves out refuse to run rather than run
-    without their effect (the device-mesh digest check: ROADMAP Queue 1
-    item 6)."""
-    with pytest.raises((ValueError, NotImplementedError), match="not ported"):
-        ask()
+def test_failed_native_build_raises_without_fallback(monkeypatch, tmp_path):
+    """When g++ fails, the default node raises with the compiler's words
+    and does not fall back to the Python path; only use_native=False gets
+    the Python path."""
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(native, "CXX", "false")
+    with pytest.raises(RuntimeError, match="false failed to build ingest.cpp"):
+        ReplicaNode(rid=0, device="cpu")
+    monkeypatch.setattr(native, "CXX", str(tmp_path / "no-such-compiler"))
+    with pytest.raises(RuntimeError, match="could not run"):
+        ReplicaNode(rid=0, use_native=True, device="cpu")
+    assert not list(tmp_path.glob("*.so"))
+    node = ReplicaNode(rid=0, use_native=False, device="cpu")
+    assert not node._native and node._wire is None
+
+
+@pytest.mark.parametrize("engine", ["pjit", "shard_map"])
+def test_multi_device_mesh_engines_raise_naming_item_6b(engine):
+    """The mesh plane's one engine is the single-device batched step; the
+    multi-device engines refuse, naming their ROADMAP item."""
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6b"):
+        meshplane.MeshPlane(4, mode="on", engine=engine, device="cpu")
 
 
 def test_enable_audit_attaches_the_digest():

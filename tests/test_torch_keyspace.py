@@ -6,10 +6,11 @@ tests/test_keyspace.py case by case.
 
 The JAX package runs 8 virtual CPU devices under pytest, so its
 ``ShardedKeyspace`` with ``mesh="auto"`` and at least 2 shards folds
-through its device-mesh plane.  The twins build the JAX side with
-``mesh="off"`` (the port's only path: its mesh plane is ROADMAP Queue 1
-item 6); one test holds JAX's ``"auto"`` (mesh) shard states and vvs
-equal to the port's host path.
+through its multi-device mesh plane, where the port's ``"auto"`` on one
+CPU takes the host path.  The twins build the JAX side with
+``mesh="off"``; two tests hold JAX's ``"auto"`` (mesh) shard states and
+vvs equal to the port's host path and to its one-device mesh plane
+(``mesh="on"``); tests/test_torch_meshplane.py holds the plane itself.
 """
 from __future__ import annotations
 
@@ -298,9 +299,51 @@ def test_mesh_auto_states_equal_the_port_host_path():
     assert ks_j.state() == ks_t.state()
 
 
+def test_mesh_on_states_equal_jax_mesh_and_host_paths():
+    """The port's mesh="on" keyspace (its batched step) against JAX's
+    "auto" (pjit over 8 virtual devices) and both host paths: the same
+    door drain (flush_all_fused on the mesh sides), a receive_all with a
+    quarantined shard and a redelivery give equal results, shard states,
+    vvs and payloads."""
+    kss = {"j-mesh": make_ks("j", 0, 4, mesh="auto", capacity=64),
+           "j-host": make_ks("j", 0, 4, capacity=64),
+           "t-mesh": make_ks("t", 0, 4, mesh="on", capacity=64),
+           "t-host": make_ks("t", 0, 4, capacity=64)}
+    assert kss["j-mesh"].mesh_engine in ("pjit", "shard_map")
+    assert kss["t-mesh"].mesh_engine == "vmap" and not kss["t-host"].mesh_active
+    src = make_ks("t", 5, 4, capacity=64)
+    sdoor = tks.KeyspaceFrontDoor(src, max_batch=64)
+    for i in range(30):
+        sdoor.admit_cmd(("t-crab", "t-dune")[i % 2], {f"s{i % 11}": f"w{i}"}, timeout=5.0)
+    payloads = [src.gossip_payload(i, None) or None for i in range(4)]
+    payloads[3] = {"1:0:0": "not a command"}
+    results = {}
+    for name, ks in kss.items():
+        door = PKG[name[0]]["ks"].KeyspaceFrontDoor(ks, max_batch=64)
+        groups = {}
+        for i in range(40):
+            t = ("t-acme", "t-bolt")[i % 3 % 2]
+            groups.setdefault(ks.shard_of(t, f"k{i % 13}"), []).append(
+                (None, {tks.qualify(t, f"k{i % 13}"): f"v{i}"}, t))
+        tickets = door._submit_groups(groups, "t-acme")
+        assert door.flush_all() == 40
+        assert all(tk.done for _, tk in tickets)
+        results[name] = (ks.receive_all(payloads, quarantine=True),
+                         ks.receive_all(payloads[:3] + [None]))
+    assert len({repr(r) for r in results.values()}) == 1
+    assert isinstance(results["t-mesh"][0][3], str)
+    for name, ks in kss.items():
+        for i in range(4):
+            t = kss["t-mesh"]
+            assert ks.shards[i].get_state() == t.shards[i].get_state(), name
+            assert ks.version_vector(i) == t.version_vector(i), name
+            assert ks.gossip_payload(i, None) == t.gossip_payload(i, None), name
+    assert kss["t-mesh"].state() == kss["j-mesh"].state() != {}
+
+
 def test_mesh_on_and_no_card_refuse():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        tks.ShardedKeyspace(0, 2, device="cpu", mesh="on")
+    ks = tks.ShardedKeyspace(0, 2, device="cpu", mesh="on")
+    assert ks.mesh_active and ks.mesh_engine == "vmap"
     with pytest.raises(ValueError, match="auto"):
         tks.ShardedKeyspace(0, 2, device="cpu", mesh="sometimes")
     assert both(lambda p: raised(lambda: make_ks(p, 0, 0)))[0] == "ValueError"

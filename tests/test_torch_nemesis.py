@@ -19,6 +19,7 @@ import torch
 
 from crdt_tpu.harness import nemesis_soak as jns
 from crdt_tpu_torch.harness import nemesis_soak as tns
+from crdt_tpu_torch.parallel import meshplane as tmeshplane
 
 # report fields that time the host (seconds, not steps): not compared
 WALL_CLOCK = ("propagation_s_count", "propagation_s_p50", "propagation_s_p99")
@@ -34,13 +35,14 @@ def _record(soak, rep, log_path):
 
 
 def run_twins(tmp_path, seed, nodes, steps, **modes):
-    """One NemesisSoak per package (the JAX side's keyspace on
-    ``ks_mesh="off"``, the host path the port's ``"auto"`` takes), each
-    with its fault log; returns the port's record after asserting the
-    two equal."""
+    """One NemesisSoak per package, each with its fault log; returns the
+    port's record after asserting the two equal.  Unless ``ks_mesh`` is
+    given (then both sides take it), the JAX side's keyspace runs
+    ``ks_mesh="off"``: the host path the port's ``"auto"`` takes on one
+    device, where JAX's ``"auto"`` fuses over its 8 virtual devices."""
     out = {}
-    for name, mod, kw in (("j", jns, {"ks_mesh": "off"} if modes.get("multitenant")
-                           or modes.get("reshard") else {}),
+    pin_off = (modes.get("multitenant") or modes.get("reshard")) and "ks_mesh" not in modes
+    for name, mod, kw in (("j", jns, {"ks_mesh": "off"} if pin_off else {}),
                           ("t", tns, {"device": "cpu"})):
         log = tmp_path / f"{name}-{seed}.jsonl"
         soak = mod.NemesisSoak(seed, nodes=nodes, steps=steps, fault_log=str(log), **modes, **kw)
@@ -69,6 +71,17 @@ def test_default_arm_more_seeds_match_jax(tmp_path, seed):
     assert rep["heal_rounds"] >= 1 and rep["writes"] > 0
 
 
+@pytest.mark.parametrize("seed,modes", [(5, {}), (3, {"composite": True})],
+                         ids=["default-5", "composite-3"])
+def test_clock_skew_arms_match_jax(tmp_path, seed, modes):
+    """Seeds whose schedules skew a node's clock between its writes and
+    its serving: each op keeps the wire key it got when it entered, so no
+    peer keeps a second, re-timed row of one (rid, seq) and the raw
+    commands retained (``gc_retained``) equal the JAX package's."""
+    rep, _ = run_twins(tmp_path, seed, 3, 40, **modes)
+    assert rep["writes"] > 0
+
+
 def test_replay_check_cli_and_summary(tmp_path, capsys):
     """``--replay-check`` through each package's CLI: two same-seed runs
     with byte-identical fault logs, and the same printed summary."""
@@ -89,11 +102,24 @@ def test_race_check_refused_naming_item_8(capsys):
     assert "ROADMAP Queue 1 item 8" in err and "analysis.verify.race" in err
 
 
-def test_ks_mesh_on_refused_naming_item_6():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
-        tns.run_soak(0, 2, 30, multitenant=True, ks_mesh="on", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
-        tns.main(["--multitenant", "--ks-mesh", "on", "--device", "cpu"])
+def test_multitenant_mesh_on_matches_jax(tmp_path, monkeypatch):
+    """The multitenant arm with ``ks_mesh="on"`` in both packages (the
+    port's one-device batched step, JAX's fused mesh step): the same
+    fault log, ledger, state, vv and report, corrupt-shard isolation
+    inside the fused step included.  The port's shards really fold
+    through the plane, and no step falls back inline."""
+    fallbacks = []
+    converge = tmeshplane.MeshPlane.converge
+
+    def counted(plane, pendings):
+        out = converge(plane, pendings)
+        fallbacks.append(plane.metrics.registry.counter_value("meshplane_fallbacks"))
+        return out
+
+    monkeypatch.setattr(tmeshplane.MeshPlane, "converge", counted)
+    rep, _ = run_twins(tmp_path, 0, 3, 40, multitenant=True, ks_mesh="on")
+    assert rep["writes"] > 0
+    assert len(fallbacks) > 10 and not any(fallbacks)
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="checks the refusal without a card")

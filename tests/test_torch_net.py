@@ -390,8 +390,9 @@ def test_the_fleet_tier_routes_differ(ks_fleets):
 
 def test_daemon_without_the_tier_and_its_refusals(fleets):
     """Without ``keyspace_shards`` the /ks routes are the demo mode's
-    404s in both packages, while the leases and the plane serve; the
-    keyspace refuses ``mesh="on"`` naming ROADMAP Queue 1 item 6."""
+    404s in both packages, while the leases and the plane serve; a
+    daemon built with ``keyspace_mesh="on"`` folds its shards through the
+    mesh plane."""
     f = fleets
     for method, path in (("GET", "/ks/gossip?shard=0"), ("POST", "/ks/compact"),
                          ("POST", "/ks/migrate"), ("GET", "/ks/data")):
@@ -400,8 +401,11 @@ def test_daemon_without_the_tier_and_its_refusals(fleets):
     assert f.both(0, "POST", "/admin/ks_reshard", b"{}")[0] == 400
     assert f.json(0, "POST", "/admin/ks_gc", b"{}") == (200, {"shards": {}})
     assert f.t[0].keyspace is None and f.t[0].leases is not None
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        _thost(5, cfg=dict(keyspace_shards=2, keyspace_mesh="on"))
+    host = _thost(5, cfg=dict(keyspace_shards=2, keyspace_mesh="on"))
+    try:
+        assert host.keyspace.mesh_active and host.keyspace.mesh_engine == "vmap"
+    finally:
+        host._server.server_close()
 
 
 def test_mixed_fleet_converges(tmp_path):

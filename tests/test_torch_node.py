@@ -70,12 +70,12 @@ class Pair:
     """One schedule driven through a JAX node and a port node: every call
     goes to both, and both must answer alike."""
 
-    def __init__(self, rid, capacity=8, clocks=None, **kw):
+    def __init__(self, rid, capacity=8, clocks=None, native=False, **kw):
         jc, tc = clocks or (jclock.ManualClock(), tclock.ManualClock())
         self.j = jnode.ReplicaNode(rid=rid, capacity=capacity, clock=jc,
-                                   use_native=False, **kw)
+                                   use_native=native, **kw)
         self.t = tnode.ReplicaNode(rid=rid, capacity=capacity, clock=tc,
-                                   device="cpu", **kw)
+                                   use_native=native, device="cpu", **kw)
 
     def both(self, name, *args, **kw):
         a = getattr(self.j, name)(*args, **kw)
@@ -89,14 +89,16 @@ class Pair:
         return pj
 
 
-def test_node_schedule_matches_jax():
+@pytest.mark.parametrize("native", [False, True], ids=["python", "native"])
+def test_node_schedule_matches_jax(native):
     """Writes single and batched (multi-key and non-numeric values, same-ms
     collisions), growth past capacity 8, full and delta pulls, a fused
     pull, a compaction barrier, a dead node's refusals and its revival by
-    summary adoption: equal after every step."""
+    summary adoption: equal after every step, with both packages' Python
+    paths and with both native runtimes."""
     rng = np.random.default_rng(0)
     clocks = (jclock.ManualClock(), tclock.ManualClock())
-    nodes = [Pair(r, clocks=clocks) for r in range(3)]
+    nodes = [Pair(r, clocks=clocks, native=native) for r in range(3)]
 
     def check():
         vvs = [n.t.version_vector() for n in nodes]
@@ -216,6 +218,56 @@ def test_merge_begin_commit_and_abort_match():
     a.j._lock.release()
     a.t._lock.release()
     assert a.j.version_vector() == a.t.version_vector() == {0: 2, 1: 11}
+
+
+def _skewed_pair(native):
+    """A JAX node and a port node (rid 0, ``epoch_ms`` 1,000,000) given the
+    same writes at local ms 1,000,100 and 1,000,200, then a clock skew of
+    -500 ms and one more write.  ``native`` picks the native runtime in
+    the JAX node and the port's default; otherwise both Python paths."""
+    nodes = []
+    for mod, clock, kw in ((jnode, jclock, {"use_native": native}),
+                           (tnode, tclock, {"device": "cpu", **({} if native else
+                                                               {"use_native": False})})):
+        c = clock.ManualClock(start=1_000_100)
+        c.epoch_ms = 1_000_000
+        n = mod.ReplicaNode(rid=0, capacity=8, clock=c, **kw)
+        n.add_command({"a": "1", "b": 'x"y'})
+        c.advance(100)
+        n.add_command({"a": "2"})
+        c.epoch_ms -= 500
+        c.advance(100)
+        n.add_command({"c": "\n"})
+        nodes.append(n)
+    return nodes
+
+
+@pytest.mark.parametrize("native", [True, False], ids=["native", "python"])
+def test_gossip_bytes_after_a_clock_skew_match_jax(native):
+    """After a clock skew the port serves the bytes the JAX node serves:
+    natively, each op keeps the wire key it got when it entered
+    (``"2000100:0:0"``, not re-timed to 1999600); on the Python path both
+    serve ``json.dumps`` with keys encoded when served.  A peer decodes
+    the same rows from either."""
+    j, t = _skewed_pair(native)
+    for since in (None, {}, {0: 0}, {0: 2}):
+        assert t.gossip_payload_json(since) == j.gossip_payload_json(since), since
+    body = t.gossip_payload_json()
+    assert (b'"2000100:0:0":{"a":"1","b":"x\\"y"}' in body) == native
+    assert (b'"1999600:0:0"' in body) == (not native)
+    peers = []
+    for mod, clock, kw in ((jnode, jclock, {"use_native": native}),
+                           (tnode, tclock, {"device": "cpu", "use_native": native})):
+        c = clock.ManualClock(start=5)
+        c.epoch_ms = 1_000_000
+        peers.append(mod.ReplicaNode(rid=1, capacity=8, clock=c, **kw))
+    for peer, src in zip(peers, (j, t)):
+        assert peer.receive(json.loads(src.gossip_payload_json())) == 4
+    pj, pt = peers
+    assert sorted(pt._commands.items()) == sorted(pj._commands.items())
+    assert pt.get_state() == pj.get_state()
+    assert_logs_equal(pj, pt)
+    assert pt.gossip_payload_json() == pj.gossip_payload_json()
 
 
 def _configs(**kw):
