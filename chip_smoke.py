@@ -2,7 +2,8 @@
 union floors, the counter and register family, the replica-node cluster,
 the join registry, the typed sibling nodes, the reference's HTTP surface,
 the network daemon, the keyspace tier, the fault plane's soaks, the
-native host runtime and the mesh plane on a CUDA card and check them.
+native host runtime, the mesh plane, the multi-device layer, the prover
+and the race detector on a CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -122,8 +123,8 @@ Phases (any failure exits non-zero and prints no result):
     CLI defaults; one ``{"typed_nodes": ...}`` JSON line;
 17. the reference's HTTP surface (budget 60 s): ``api.http_shim``'s
     ``HttpCluster`` over a ``LocalCluster()`` of 5 replicas on the card,
-    on loopback: (a) 8,192 single-op ``POST /data`` from 8 client threads
-    (replica 4 down for the second quarter, its 502s counted), (b) 122,880
+    on loopback: (a) 2,048 single-op ``POST /data`` from 8 client threads
+    (replica 4 down for the second quarter, its 502s counted), (b) 129,024
     writes through ``/ingest/page`` in pages of 512 (429 back-off counted),
     one profiled burst of 256 concurrent posts, (c) 64 rounds of pulls
     over HTTP (``GET /gossip?vv=`` → ``POST /push``, each stability header
@@ -162,7 +163,7 @@ Phases (any failure exits non-zero and prints no result):
     --daemon --keyspace-shards 64`` processes on the card (ports picked up
     front, daemon 0 coordinating with ``--compact-every 8``, gossip every
     1500 ms, checkpoint dirs and event logs under ``build/keyspace``): (a)
-    62,500 writes with benches/bench_keyspace.py's shape (keys from the
+    31,250 writes with benches/bench_keyspace.py's shape (keys from the
     coprime walk, four tenants drawn with seed 0) in tenant op pages of
     512, a client thread a daemon, 429 back-offs counted; (b)
     ``/admin/ks_pull`` rounds until every daemon's ``GET
@@ -222,7 +223,38 @@ Phases (any failure exits non-zero and prints no result):
     its ``lexn_union`` launches, traced == untraced; the nemesis
     ``multitenant`` arm with ``ks_mesh="on"`` (3 nodes, 120 steps, seed 0)
     on the card == on the CPU, no fused step falling back; one
-    ``{"host_runtime": ...}`` JSON line.
+    ``{"host_runtime": ...}`` JSON line;
+23. several devices (budget 75 s), each held bit for bit against the
+    single-device converge on the card: (a) a world of 1 over NCCL in this
+    process runs ``oplog_columnar.sharded_converge`` at phase 3's shape
+    (R=10,240, C=1024, one lane dead), ``rseq_columnar.sharded_converge``
+    and ``rseq_engine.sharded_gc_converge`` at phase 10's (depth 6; the
+    GC twin with floor -1), ``mesh.sharded_converge`` with the generic
+    OpLog join and ``mesh.pmax_converge`` on a G-Counter swarm of 2^20 x
+    8: planes and max_n_unique equal, kernel 1's launches, each step's ms
+    beside the single converge's; (b) four ranks sharing the card at R = 4
+    x 2,560 (``torch.multiprocessing.spawn``, a ``file://`` store under
+    ``build/multidevice``): NCCL's refusal of two ranks on one device is
+    printed, then the gloo world (every shard on the card, each collective
+    staged through host memory) runs the same five steps, every rank's
+    shard == its lanes of the single-device result; wall time split into
+    start-up and steps; (c) ``pipeline.run_striped`` at
+    benches/bench_pipeline.py's default shape (8 stripes, C=2^18, fill
+    C/2, the port's ``sorted_union``, stripes copied from pinned memory):
+    pipelined == serial, 8 dispatches each, occupancy, stage and wait
+    seconds; (d) ``MeshPlane(engine="pjit")`` on the one-card mesh against
+    the vmap engine at phase 22 (c)'s shape with 4,096 writes: every
+    shard's state, vv, payload and digest equal, one fused merge a page,
+    an injected group failure landing every lane inline with no lock held;
+    one ``{"multidevice": ...}`` JSON line;
+24. crdtprove and the race detector (budget 60 s): (a) ``prove_spec`` of
+    every registered join with its states on the card == the port's
+    committed ledger (verdicts, laws and spaces, domains), the launches of
+    kernels 1-3 in the sweeps; (b) ``python -m crdt_tpu_torch.analysis
+    verify --check-ledger`` exits 0; (c) the nemesis default arm under
+    ``--race-check --device cuda`` (3 nodes, 120 steps, seed 0): 0
+    witnesses over a non-zero count of watched accesses; one
+    ``{"verify": ...}`` JSON line.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -2860,14 +2892,16 @@ def typed_phase(card: str, rows: list, kv: dict) -> None:
 # ClusterConfig()'s 5 replicas (the reference's deployment, main.go:316-327)
 # behind api.http_shim on loopback, taking phase 15's traffic shape over
 # HTTP: 131,072 reference-shaped writes (WorkloadGenerator, seed 0) as (a)
-# 8,192 single-op POST /data from 8 client threads, replica 4 down for the
-# second quarter, and (b) 122,880 writes in op pages of 512; then (c) 64
+# 2,048 single-op POST /data from 8 client threads, replica 4 down for the
+# second quarter, and (b) 129,024 writes in op pages of 512; then (c) 64
 # rounds of pulls over HTTP (each replica GETs a seeded peer's /gossip?vv=
 # and POSTs it to its own /push), a barrier over HTTP every 8 rounds; and (d)
 # `python -m crdt_tpu_torch` as a subprocess on the card.
 HTTP_BUDGET_S = 60
-HTTP_SINGLE, HTTP_THREADS = 8_192, 8   # 16,384 took 90 s at ~180/s
-HTTP_PAGE_WRITES, HTTP_PAGE = 122_880, 512
+# 16,384 single-op posts took 90 s at ~180/s; 8,192 took the phase to 99 s
+# of its 60 and the smoke past its 900 s aim (PERF.md §4)
+HTTP_SINGLE, HTTP_THREADS = 2_048, 8
+HTTP_PAGE_WRITES, HTTP_PAGE = 129_024, 512
 HTTP_ROUNDS, HTTP_BARRIER_EVERY = 64, 8
 HTTP_EXTRA_ROUNDS = 64
 HTTP_BURST = 256
@@ -3677,11 +3711,12 @@ def net_phase(card: str) -> dict:
 KS_BUDGET_S = 240
 KS_REPLICAS = 5
 KS_SHARDS, KS_TARGET = 64, 128          # the million-key tier, resharded 64 -> 128
-# benches/bench_keyspace.py's million-key walk, cut to a sixteenth: at
+# benches/bench_keyspace.py's million-key walk, cut to a 32nd: at
 # 1,000,000 writes (and 65,536 through the window) the writes alone took
 # 373 s of the 240 s budget and the reshard's start passed 120 s; at
-# 125,000 the phase took 303 s in the whole smoke (PERF.md §4)
-KS_WRITES = 62_500
+# 125,000 the phase took 303 s in the whole smoke, at 62,500 186-231 s
+# and the smoke past its 900 s aim (PERF.md §4)
+KS_WRITES = 31_250
 KS_WINDOW_WRITES = 4_096                # written through the open reshard window
 KS_PAGE = 512
 KS_TENANTS = ("t-acme", "t-bolt", "t-crab", "t-dune")
@@ -4780,6 +4815,559 @@ def hr_phase(card: str) -> dict:
     return line
 
 
+# ---- phase 23: several devices ----
+#
+# The sharded converges, the generic join all-reduce and pmax over a
+# torch.distributed group, the stripe pipeline and the mesh plane's
+# partitioned engine, each held bit for bit against the single-device
+# path on the card.  One card allows two multi-rank arms: a world of 1
+# over NCCL in this process, and four ranks sharing the card (NCCL refuses
+# two ranks on one device, so the four run gloo with every shard on the
+# card and each collective staged through host memory).
+
+MD_BUDGET_S = 75
+MD_RANKS = 4
+MD_PMAX_R = 1 << 20                      # phase 14's G-Counter swarm, x 8 nodes
+MD_STRIPES, MD_STRIPE_C = 8, 1 << 18     # benches/bench_pipeline.py's default shape
+MD_KS_WRITES = 4_096                     # phase 22 (c)'s shape, cut from 16,384
+MD_RUN_DIR = "build/multidevice"         # git-ignored: the four ranks' inputs and results
+MD_REPS = 3
+
+
+def md_inputs() -> dict:
+    """(a)'s inputs at full width, on the card: phase 3's OpLog swarm, phase
+    10's RSeq swarm (its GC-wrapped twin with floor -1), and a G-Counter
+    swarm of 2^20 x 8; one lane dead in each."""
+    from crdt_tpu_torch import workload
+    from crdt_tpu_torch.models import gcounter, oplog_engine as eng, rseq_columnar as rc
+    from crdt_tpu_torch.models import rseq_engine as reng
+
+    w = workload.reference_writes(N_WRITES, R, SEED)
+    logs, _ = workload.subset_swarm(w.ops, R, C, HOLD_FRACTION, SEED, device="cuda")
+    alive = torch.ones(R, dtype=torch.bool, device="cuda")
+    alive[DEAD] = False
+    col = eng.plan(logs, alive=alive).columnar
+    pool = workload.seq_pool(SEED)
+    sw = workload.seq_swarm(pool, R, SEQ_C, SEED + 31, device="cuda")
+    rcol, reason = rc.plan(sw.states)
+    if rcol is None:
+        raise AssertionError(f"phase 23: the RSeq plan fell back: {reason}")
+    # the GC-wrapped twin: reng.stack of (sw.states, floor -1) at rcol's split
+    # is rcol's planes with a floor plane, so it shares them
+    cg = reng.ColumnarGc(col=rcol, floor=torch.full((SEQ_W, R), -1, dtype=torch.int32,
+                                                    device="cuda"))
+    counts = torch.from_numpy(workload.counter_bank(SEED + 71, (MD_PMAX_R, GC_NODES))).to("cuda")
+    pm_alive = torch.ones(MD_PMAX_R, dtype=torch.bool, device="cuda")
+    pm_alive[DEAD] = False
+    return {"logs": logs, "alive": alive, "col": col, "rcol": rcol, "cg": cg,
+            "gcounter": gcounter.GCounter(counts=counts), "pm_alive": pm_alive}
+
+
+def md_steps(mesh, x: dict) -> dict:
+    """The five sharded steps of this slice over ``mesh``: name -> a call
+    on ``x``'s shards returning (flat output tensors, max_n_unique or
+    None)."""
+    from crdt_tpu_torch.models import oplog, oplog_columnar as oc, rseq_columnar as rc
+    from crdt_tpu_torch.models import rseq_engine as reng
+    from crdt_tpu_torch.parallel import mesh as mesh_lib, swarm
+    from crdt_tpu_torch.utils.tree import leaves
+
+    col, rcol, cg = x["col"], x["rcol"], x["cg"]
+    steps = {
+        "oplog_columnar": oc.sharded_converge(mesh, bits=col.bits),
+        "rseq_columnar": rc.sharded_converge(mesh, depth=rcol.depth, seq_bits=rcol.seq_bits),
+        "rseq_gc": reng.sharded_gc_converge(mesh, depth=rcol.depth, seq_bits=rcol.seq_bits),
+    }
+    generic = mesh_lib.sharded_converge(mesh, oplog.merge, oplog.merge,
+                                        oplog.empty(C, device="cuda"))
+    pmax = mesh_lib.pmax_converge(mesh)
+
+    def columnar(name, state):
+        out, nu = steps[name](state, x["alive"])
+        return leaves(out), nu
+
+    return {
+        "oplog_columnar": lambda: columnar("oplog_columnar", col),
+        "rseq_columnar": lambda: columnar("rseq_columnar", rcol),
+        "rseq_gc": lambda: columnar("rseq_gc", cg),
+        "mesh_generic": lambda: (leaves(generic(swarm.make(x["logs"], x["alive"])).state), None),
+        "mesh_pmax": lambda: (leaves(pmax(swarm.make(x["gcounter"], x["pm_alive"])).state),
+                              None),
+    }
+
+
+def md_single(x: dict) -> dict:
+    """The single-device converges the sharded steps are held against."""
+    from crdt_tpu_torch.models import gcounter, oplog, oplog_columnar as oc
+    from crdt_tpu_torch.models import rseq_columnar as rc, rseq_engine as reng
+    from crdt_tpu_torch.parallel import swarm
+    from crdt_tpu_torch.utils.tree import leaves
+
+    def columnar(fn, state):
+        out, nu = fn(state, x["alive"])
+        return leaves(out), nu
+
+    return {
+        "oplog_columnar": lambda: columnar(oc.converge_checked, x["col"]),
+        "rseq_columnar": lambda: columnar(rc.converge_checked, x["rcol"]),
+        "rseq_gc": lambda: columnar(reng.gc_converge_checked, x["cg"]),
+        "mesh_generic": lambda: (leaves(swarm.converge(
+            swarm.make(x["logs"], x["alive"]), oplog.merge, oplog.empty(C, device="cuda")).state),
+            None),
+        "mesh_pmax": lambda: (leaves(swarm.converge(
+            swarm.make(x["gcounter"], x["pm_alive"]), gcounter.join,
+            gcounter.zero(GC_NODES, device="cuda")).state), None),
+    }
+
+
+#: the lane (replica) axis of each step's state leaves: columnar planes
+#: carry the lanes last, row-major swarms first
+MD_LANE_AXIS = {"oplog_columnar": -1, "rseq_columnar": -1, "rseq_gc": -1,
+                "mesh_generic": 0, "mesh_pmax": 0}
+
+
+def md_shard(x: dict, rank: int, world: int) -> dict:
+    """Rank ``rank``'s lanes of every input (contiguous, on the card)."""
+    from crdt_tpu_torch.utils.tree import tree_map
+
+    def cut(t, axis, n):
+        k = n // world
+        return t.narrow(axis, rank * k, k).contiguous()
+
+    out = {}
+    for key, v in x.items():
+        if key in ("col", "rcol", "cg"):
+            out[key] = tree_map(lambda t: cut(t, t.dim() - 1, R), v)
+        elif key in ("gcounter", "pm_alive"):
+            out[key] = tree_map(lambda t: cut(t, 0, MD_PMAX_R), v)
+        else:
+            out[key] = tree_map(lambda t: cut(t, 0, R), v)
+    if x["cg"].col is x["rcol"]:  # keep the shared planes shared
+        out["cg"].col = out["rcol"]
+    return out
+
+
+def md_digest(tensors) -> str:
+    import hashlib
+
+    h = hashlib.sha1()
+    for t in tensors:
+        h.update(str(tuple(t.shape)).encode())
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def md_world_a(card: str, x: dict, want: dict) -> dict:
+    """(a) a world of 1 over NCCL in this process: every step == the
+    single-device converge, with its ms beside the single converge's and
+    kernel 1's launches."""
+    import torch.distributed as dist
+
+    from crdt_tpu_torch.ops import hopper_union as hu
+    from crdt_tpu_torch.parallel import mesh as mesh_lib
+
+    port = free_ports(1)[0]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1,
+                            rank=0)
+    try:
+        mesh = mesh_lib.make_mesh(device="cuda")
+        if (mesh.size, mesh.backend) != (1, "nccl"):
+            raise AssertionError(f"(a) mesh {mesh}")
+        steps, single = md_steps(mesh, x), md_single(x)
+        out = {}
+        for name, step in steps.items():
+            for k in hu.LAUNCHES:
+                hu.LAUNCHES[k] = 0
+            got, nu = step()
+            torch.cuda.synchronize()
+            launches = hu.LAUNCHES["lexn_union"]
+            same(f"(a) {name}: NCCL world of 1 vs the single-device converge",
+                 got, want[name][0])
+            if nu is not None and int(nu) != int(want[name][1]):
+                raise AssertionError(f"(a) {name}: max_n_unique {int(nu)} != "
+                                     f"{int(want[name][1])}")
+            if name in ("oplog_columnar", "rseq_columnar", "rseq_gc") and launches == 0:
+                raise AssertionError(f"(a) {name}: kernel 1 was not launched")
+            ms = time_ms(step, reps=MD_REPS, warmup=1)
+            single_ms = time_ms(single[name], reps=MD_REPS, warmup=1)
+            out[name] = {"ms": ms, "single_ms": single_ms, "lexn_union_launches": launches,
+                         "max_n_unique": None if nu is None else int(nu)}
+            log(f"(a) {name}: NCCL world of 1 == single-device converge, {ms:.4f} ms vs "
+                f"{single_ms:.4f} ms single, kernel 1 launched {launches} times [{card}]")
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def md_rank(rank: int, world: int, root: str) -> None:
+    """One of (b)'s ranks: NCCL first (refused on one card: its message is
+    recorded), then the gloo world with this rank's shard on the card;
+    writes each step's output digest, max_n_unique and times."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from crdt_tpu_torch.ops import hopper_union as hu
+    from crdt_tpu_torch.parallel import mesh as mesh_lib
+
+    t_entry = time.time()
+    res = {"rank": rank}
+    timeout = datetime.timedelta(seconds=60)
+    dist.init_process_group("nccl", init_method=f"file://{root}/nccl-store",
+                            world_size=world, rank=rank, timeout=timeout)
+    try:
+        probe = torch.ones(1, device="cuda")
+        dist.all_reduce(probe)
+        torch.cuda.synchronize()
+        res["nccl"] = "accepted"
+    except Exception as e:  # noqa: BLE001 - the refusal is the finding
+        res["nccl"] = f"{type(e).__name__}: {e}".splitlines()[-1][:300]
+    dist.destroy_process_group()
+    backend = "nccl" if res["nccl"] == "accepted" else "gloo"
+    dist.init_process_group(backend, init_method=f"file://{root}/store", world_size=world,
+                            rank=rank, timeout=timeout)
+    try:
+        from crdt_tpu_torch.utils.tree import tree_map
+
+        mesh = mesh_lib.make_mesh(device="cuda")
+        x = torch.load(f"{root}/inputs{rank}.pt", map_location="cpu", weights_only=False)
+        x = {k: tree_map(lambda t: t.to("cuda"), v) for k, v in x.items()}
+        torch.cuda.synchronize()
+        dist.barrier()
+        res["ready"] = time.time()
+        res["startup_s"] = res["ready"] - t_entry
+        res["steps"] = {}
+        for name, step in md_steps(mesh, x).items():
+            for k in hu.LAUNCHES:
+                hu.LAUNCHES[k] = 0
+            t0 = time.perf_counter()
+            got, nu = step()
+            torch.cuda.synchronize()
+            dist.barrier()
+            res["steps"][name] = {"s": time.perf_counter() - t0, "digest": md_digest(got),
+                                  "max_n_unique": None if nu is None else int(nu),
+                                  "lexn_union_launches": hu.LAUNCHES["lexn_union"]}
+        res["backend"] = mesh.backend
+    finally:
+        dist.destroy_process_group()
+    Path(f"{root}/rank{rank}.json").write_text(json.dumps(res))
+
+
+def md_world_b(card: str, x: dict, want: dict) -> dict:
+    """(b) four ranks sharing the card at R = 4 x 2,560: each rank's output
+    shard == its lanes of the single-device result."""
+    import shutil
+
+    import torch.multiprocessing as mp
+
+    root = Path(__file__).resolve().parent / MD_RUN_DIR
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    from crdt_tpu_torch.utils.tree import tree_map
+
+    for r in range(MD_RANKS):
+        torch.save({k: tree_map(lambda t: t.cpu(), v) for k, v in md_shard(x, r, MD_RANKS).items()},
+                   root / f"inputs{r}.pt")
+    t0 = time.time()
+    mp.spawn(md_rank, args=(MD_RANKS, str(root)), nprocs=MD_RANKS, join=True)
+    wall = time.time() - t0
+    ranks = [json.loads((root / f"rank{r}.json").read_text()) for r in range(MD_RANKS)]
+    nccl = ranks[0]["nccl"]
+    log(f"(b) NCCL with {MD_RANKS} ranks on one card: {nccl}")
+    backend = ranks[0]["backend"]
+    out = {"ranks": MD_RANKS, "lanes_per_rank": R // MD_RANKS, "nccl": nccl,
+           "backend": backend, "wall_s": wall,
+           "startup_s": max(r["ready"] for r in ranks) - t0, "steps": {}}
+    for name in want:
+        for r in ranks:
+            k = (R if name != "mesh_pmax" else MD_PMAX_R) // MD_RANKS
+            axis = MD_LANE_AXIS[name]
+            mine = [t.narrow(axis if axis >= 0 else t.dim() + axis, r["rank"] * k, k)
+                    for t in want[name][0]]
+            got = r["steps"][name]
+            if got["digest"] != md_digest(mine):
+                raise AssertionError(f"(b) {name}: rank {r['rank']}'s shard != its lanes of "
+                                     "the single-device result")
+            if want[name][1] is not None and got["max_n_unique"] != int(want[name][1]):
+                raise AssertionError(f"(b) {name}: rank {r['rank']} max_n_unique "
+                                     f"{got['max_n_unique']} != {int(want[name][1])}")
+        out["steps"][name] = {
+            "s": max(r["steps"][name]["s"] for r in ranks),
+            "lexn_union_launches": sum(r["steps"][name]["lexn_union_launches"] for r in ranks)}
+    out["step_s"] = sum(s["s"] for s in out["steps"].values())
+    log(f"(b) {MD_RANKS} ranks on one card ({backend}, each collective staged through host "
+        f"memory), R = {MD_RANKS} x {R // MD_RANKS}: every shard of all five steps == the "
+        f"single-device result; wall {wall:.2f} s = start-up {out['startup_s']:.2f} s + "
+        f"steps {out['step_s']:.3f} s ({', '.join(f'{k} {v['s'] * 1e3:.1f} ms' for k, v in out['steps'].items())}) [{card}]")
+    return out
+
+
+def md_pipeline(card: str) -> dict:
+    """(c) run_striped at benches/bench_pipeline.py's default shape, the
+    port's sorted_union, stripes host-staged from pinned memory:
+    pipelined == serial, 8 dispatches each."""
+    from crdt_tpu_torch.obs.registry import MetricsRegistry
+    from crdt_tpu_torch.ops import sorted_union as su
+    from crdt_tpu_torch.parallel import pipeline
+
+    cap, fill = MD_STRIPE_C, MD_STRIPE_C // 2
+    # two pinned buffer sets: with one stripe in flight, build(i+1) writes the
+    # set stripe i-1 used, whose copy has finished (the queue blocked on it)
+    pinned = [torch.empty((4, cap), dtype=torch.int32, pin_memory=True) for _ in range(2)]
+
+    def run(pipelined, registry=None):
+        rng = np.random.default_rng(SEED + 91)
+
+        def build(i):
+            buf = pinned[i % 2]
+            for side in (0, 2):
+                ks = np.sort(rng.integers(0, 1 << 30, size=fill, dtype=np.int32))
+                keys = np.full(cap, SENTINEL, np.int32)
+                keys[:fill] = ks
+                vals = np.zeros(cap, np.int32)
+                vals[:fill] = ks & 1
+                buf[side].copy_(torch.from_numpy(keys))
+                buf[side + 1].copy_(torch.from_numpy(vals))
+            return tuple(buf.to("cuda", non_blocking=True).unbind(0))
+
+        def dispatch(i, ka, va, kb, vb):
+            keys, vals, n = su.sorted_union((ka,), va, (kb,), vb, out_size=cap)
+            return keys[0], vals, n
+
+        t0 = time.perf_counter()
+        res, stats = pipeline.run_striped(MD_STRIPES, build, dispatch, pipelined=pipelined,
+                                          registry=registry, pipeline="orset_stripe")
+        torch.cuda.synchronize()
+        return res, stats, time.perf_counter() - t0
+
+    run(True)  # warm-up
+    reg = MetricsRegistry()
+    (res_p, st_p, wall_p), (res_s, st_s, wall_s) = run(True, reg), run(False)
+    for i, (a, b) in enumerate(zip(res_p, res_s)):
+        same(f"(c) stripe {i}: pipelined vs serial", list(a), list(b))
+    if (st_p["dispatches"], st_s["dispatches"], len(res_p)) != (MD_STRIPES,) * 3:
+        raise AssertionError(f"(c) dispatches {st_p['dispatches']}/{st_s['dispatches']}")
+    if reg.counter_value("pipeline_dispatches", pipeline="orset_stripe") != MD_STRIPES:
+        raise AssertionError("(c) the registry missed the pipeline's dispatches")
+    out = {"stripes": MD_STRIPES, "c": cap, "fill": fill,
+           "pipelined": {k: st_p[k] for k in ("occupancy", "stage_s", "wait_s")} | {"wall_s": wall_p},
+           "serial": {k: st_s[k] for k in ("occupancy", "stage_s", "wait_s")} | {"wall_s": wall_s}}
+    log(f"(c) run_striped, {MD_STRIPES} stripes at C={cap}, fill C/2, sorted_union from "
+        f"pinned memory: pipelined == serial, {MD_STRIPES} dispatches each; pipelined "
+        f"occupancy {st_p['occupancy']:.3f}, stage {st_p['stage_s']:.4f} s, wait "
+        f"{st_p['wait_s']:.4f} s, wall {wall_p:.4f} s; serial stage {st_s['stage_s']:.4f} s, "
+        f"wait {st_s['wait_s']:.4f} s, wall {wall_s:.4f} s [{card}]")
+    return out
+
+
+def md_meshplane(card: str) -> dict:
+    """(d) MeshPlane(engine="pjit") on the one-card mesh against the vmap
+    engine: the same tenant writes through a door over each keyspace."""
+    from crdt_tpu_torch.keyspace import KeyspaceFrontDoor, ShardedKeyspace, qualify
+    from crdt_tpu_torch.parallel.meshplane import MeshPlane
+    from crdt_tpu_torch.utils.clock import HostClock
+    from crdt_tpu_torch.utils.metrics import Metrics
+
+    clock = HostClock()
+    writes = ks_stream(MD_KS_WRITES, 0)
+    kss, doors, page_ms = {}, {}, {}
+    for engine in ("pjit", "vmap"):
+        ks = ShardedKeyspace(0, HR_KS_SHARDS, clock=clock, metrics=Metrics(), mesh="on",
+                             device="cuda")
+        ks._meshplane = MeshPlane(HR_KS_SHARDS, mode="on", engine=engine, device="cuda",
+                                  metrics=ks.shards[0].metrics)
+        ks.enable_audit()
+        kss[engine] = ks
+        doors[engine] = KeyspaceFrontDoor(ks, max_batch=1 << 20, flush_deadline_s=3600.0)
+        page_ms[engine] = []
+    plane = kss["pjit"]._meshplane
+    if (plane.engine, plane.n_devices, kss["pjit"].mesh_engine) != ("pjit", 1, "pjit"):
+        raise AssertionError(f"(d) plane {plane.engine} on {plane.n_devices} devices")
+
+    def page(engine, rows):
+        ks, door = kss[engine], doors[engine]
+        by_tenant = {}
+        for j, (tenant, key, value) in rows:
+            by_tenant.setdefault(tenant, {}).setdefault(ks.shard_of(tenant, key), []).append(
+                (j, {qualify(tenant, key): value}, tenant))
+        t0 = time.perf_counter()
+        tickets = [tk for tenant, groups in by_tenant.items()
+                   for _, tk in door._submit_groups(groups, tenant)]
+        door.flush_all()
+        idents = [i for tk in tickets for i in tk.wait(0)]
+        torch.cuda.synchronize()
+        if len(idents) != len(rows) or None in idents:
+            raise AssertionError(f"(d) {engine}: a page's writes were not all acknowledged")
+        return (time.perf_counter() - t0) * 1e3
+
+    reg = {e: kss[e].metrics.registry for e in kss}
+    indexed = list(enumerate(writes))
+    n_pages = 0
+    for p0 in range(0, MD_KS_WRITES, HR_KS_PAGE):
+        for engine in ("pjit", "vmap"):
+            page_ms[engine].append(page(engine, indexed[p0:p0 + HR_KS_PAGE]))
+        n_pages += 1
+    for e in kss:
+        if reg[e].counter_value("merge_dispatches") != n_pages or \
+                reg[e].counter_value("meshplane_fallbacks"):
+            raise AssertionError(f"(d) {e}: {reg[e].counter_value('merge_dispatches')} fused "
+                                 f"merges for {n_pages} pages")
+
+    def check(label):
+        for i, (a, b) in enumerate(zip(kss["pjit"].shards, kss["vmap"].shards)):
+            if (a.get_state() != b.get_state() or a.version_vector() != b.version_vector()
+                    or a.gossip_payload_json({}) != b.gossip_payload_json({})
+                    or a.audit_snapshot()[2] != b.audit_snapshot()[2]):
+                raise AssertionError(f"(d) {label}: shard {i} differs pjit vs vmap")
+            if not a._lock.acquire(blocking=False):
+                raise AssertionError(f"(d) {label}: shard {i}'s node lock is held")
+            a._lock.release()
+
+    check("after the writes")
+    fold = plane._fold_group
+
+    def boom(k, *args):
+        raise RuntimeError("injected group failure")
+
+    plane._fold_group = boom
+    extra = list(enumerate(ks_stream(HR_KS_PAGE, 1, first=MD_KS_WRITES), MD_KS_WRITES))
+    for engine in ("pjit", "vmap"):
+        page(engine, extra)
+    plane._fold_group = fold
+    if reg["pjit"].counter_value("meshplane_fallbacks") != 1:
+        raise AssertionError("(d) the injected failure did not land every lane inline")
+    from crdt_tpu_torch.api.node import device_lock
+
+    if device_lock("cuda").locked():
+        raise AssertionError("(d) the card's device lock is held after the failure")
+    check("after the injected failure")
+    out = {"shards": HR_KS_SHARDS, "writes": MD_KS_WRITES, "page": HR_KS_PAGE,
+           "pages": n_pages, "fused_merges": n_pages, "fallbacks_injected": 1}
+    for e in kss:
+        out[f"page_ms_{e}"] = [quantile(page_ms[e][:n_pages], 0.5),
+                               quantile(page_ms[e][:n_pages], 0.99)]
+    log(f"(d) MeshPlane(engine=\"pjit\") on the one-card mesh vs vmap, {MD_KS_WRITES} tenant "
+        f"writes on {HR_KS_SHARDS} shards in pages of {HR_KS_PAGE}: every shard's state, vv, "
+        f"payload and digest equal, one fused merge a page each; page p50/p99 "
+        f"{out['page_ms_pjit'][0]:.3f}/{out['page_ms_pjit'][1]:.3f} ms pjit vs "
+        f"{out['page_ms_vmap'][0]:.3f}/{out['page_ms_vmap'][1]:.3f} ms vmap; an injected "
+        f"group failure landed every lane inline, no lock held [{card}]")
+    return out
+
+
+def md_phase(card: str) -> dict:
+    """Phase 23: several devices; one {"multidevice": ...} JSON line."""
+    t_phase = time.perf_counter()
+    log(f"phase 23 (several devices): budget {MD_BUDGET_S} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    x = md_inputs()
+    single = md_single(x)
+    want = {}
+    for name, fn in single.items():
+        got, nu = fn()
+        want[name] = ([t.clone() for t in got], None if nu is None else int(nu))
+    torch.cuda.synchronize()
+    line = {"card": card, "inputs_s": time.perf_counter() - t0}
+    for part, fn in (("a", lambda: md_world_a(card, x, want)),
+                     ("b", lambda: md_world_b(card, x, want)),
+                     ("c", lambda: md_pipeline(card)),
+                     ("d", lambda: md_meshplane(card))):
+        t0 = time.perf_counter()
+        line[part] = fn()
+        line[part]["part_s"] = time.perf_counter() - t0
+    del x, want
+    torch.cuda.empty_cache()
+    line["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 23: {line['phase_s']:.1f} s (budget {MD_BUDGET_S} s) [{card}]")
+    log(json.dumps({"multidevice": line}))
+    return line
+
+
+# ---- phase 24: crdtprove and the race detector ----
+
+VERIFY_BUDGET_S = 60
+
+
+def verify_phase(card: str) -> dict:
+    """Phase 24: (a) every registered join proved with its states on the
+    card == the port's committed ledger, (b) ``verify --check-ledger``,
+    (c) the nemesis default arm under ``--race-check``; one
+    {"verify": ...} JSON line."""
+    from crdt_tpu_torch.analysis.verify import ledger, prove
+    from crdt_tpu_torch.ops import hopper_union as hu
+    from crdt_tpu_torch.ops.joins import registered_joins
+
+    t_phase = time.perf_counter()
+    log(f"phase 24 (crdtprove and the race detector): budget {VERIFY_BUDGET_S} s")
+    root = Path(__file__).resolve().parent
+    committed = ledger.load()["joins"]
+    registry = registered_joins()
+    for k in hu.LAUNCHES:
+        hu.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    per_join = {}
+    for name, spec in sorted(registry.items()):
+        t1 = time.perf_counter()
+        e = prove.prove_spec(spec, registry, device="cuda")
+        want = committed[name]
+        for key in ("verdict", "domain"):
+            if e[key] != want[key]:
+                raise AssertionError(f"(a) {name}: {key} {e[key]} != the ledger's {want[key]}")
+        for group in ("laws", "obligations"):
+            got = {k: (v["holds"], v["space"]) for k, v in e[group].items()}
+            if got != {k: (v["holds"], v["space"]) for k, v in want[group].items()}:
+                raise AssertionError(f"(a) {name}: {group} {got} != the ledger's")
+        per_join[name] = time.perf_counter() - t1
+    torch.cuda.synchronize()
+    prove_s = time.perf_counter() - t0
+    launches = {k: hu.LAUNCHES[k] for k in ("lexn_union", "set_union", "bucketed_union")}
+    if launches["bucketed_union"] == 0:
+        raise AssertionError("(a) orset_bucketed's sweeps launched no bucketed_union")
+    log(f"(a) prove_spec of all {len(registry)} registered joins with their states on the "
+        f"card == the committed ledger (verdicts, laws and spaces, domains): {prove_s:.2f} s, "
+        f"slowest {max(per_join, key=per_join.get)} {max(per_join.values()):.2f} s; kernel "
+        f"launches in the sweeps {launches} [{card}]")
+
+    t0 = time.perf_counter()
+    gate = subprocess.run([sys.executable, "-m", "crdt_tpu_torch.analysis", "verify",
+                           "--check-ledger"], cwd=root, capture_output=True, text=True,
+                          timeout=120)
+    gate_s = time.perf_counter() - t0
+    if gate.returncode != 0:
+        raise AssertionError(f"(b) verify --check-ledger exited {gate.returncode}: "
+                             f"{gate.stdout[-2000:]}{gate.stderr[-2000:]}")
+    log(f"(b) python -m crdt_tpu_torch.analysis verify --check-ledger: exit 0, "
+        f"{gate.stdout.strip().splitlines()[-1]} ({gate_s:.2f} s)")
+
+    t0 = time.perf_counter()
+    soak = subprocess.run([sys.executable, "-m", "crdt_tpu_torch.harness.nemesis_soak",
+                           "--race-check", "--device", "cuda", "--nodes", str(NEM_NODES),
+                           "--steps", str(NEM_STEPS), "--seeds", "1",
+                           "--seed-base", str(NEM_SEED)], cwd=root, capture_output=True,
+                          text=True, timeout=300)
+    soak_s = time.perf_counter() - t0
+    ok = [ln for ln in soak.stdout.splitlines() if "race-check OK" in ln]
+    if soak.returncode != 0 or not ok:
+        raise AssertionError(f"(c) --race-check exited {soak.returncode}: "
+                             f"{soak.stdout[-2000:]}{soak.stderr[-2000:]}")
+    import re
+
+    reads, writes = (int(v) for v in re.findall(r"(\d+) (?:reads|writes)", ok[0]))
+    if reads + writes == 0 or "0 witnesses" not in ok[0]:
+        raise AssertionError(f"(c) {ok[0]}")
+    log(f"(c) the nemesis default arm under --race-check on the card ({NEM_NODES} nodes, "
+        f"{NEM_STEPS} steps, seed {NEM_SEED}): 0 witnesses over {reads} reads / {writes} "
+        f"writes ({soak_s:.2f} s)")
+    line = {"card": card, "joins": len(registry), "prove_s": prove_s,
+            "prove_s_by_join": per_join, "launches": launches, "check_ledger_s": gate_s,
+            "race": {"witnesses": 0, "reads": reads, "writes": writes, "s": soak_s},
+            "phase_s": time.perf_counter() - t_phase}
+    log(f"phase 24: {line['phase_s']:.1f} s (budget {VERIFY_BUDGET_S} s) [{card}]")
+    log(json.dumps({"verify": line}))
+    return line
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4820,6 +5408,8 @@ def main() -> int:
     nemesis_phase(card)
     crash_phase(card)
     hr_phase(card)
+    md_phase(card)
+    verify_phase(card)
 
     print(card, flush=True)
     log(json.dumps({"kernels": rows}))

@@ -1,6 +1,5 @@
 """Nemesis soak — the jepsen-lite composition harness of the fault plane
-(own copy of ``crdt_tpu.harness.nemesis_soak``, every mode but
-``--race-check``).
+(own copy of ``crdt_tpu.harness.nemesis_soak``, every mode).
 
 Drives an IN-PROCESS NodeHost fleet on one torch device (``device=None``:
 the CUDA card, and the soak raises without one; the tests pass
@@ -102,11 +101,14 @@ jitter.  Two same-seed runs therefore produce BYTE-IDENTICAL fault logs
 nothing but its number.
 
 The same seed gives the same fault-log bytes, write ledger, converged
-state, vv, wire-call census and report counters in both packages.  Not
-ported: ``--race-check`` (the witnessed-race detector,
-``analysis.verify.race``, ROADMAP Queue 1 item 8: the CLI exits 2 naming
-it).  ``--ks-mesh on`` folds the keyspace's shards through the mesh plane
-(:mod:`crdt_tpu_torch.parallel.meshplane`).
+state, vv, wire-call census and report counters in both packages.
+``--race-check`` runs the fleet under the witnessed-race detector
+(:mod:`crdt_tpu_torch.analysis.verify.race`), installed before the fleet
+is built, and fails on any witness or on a run that touched no watched
+attribute.  The JAX package also maps each witness to its static
+lock-discipline findings (crdtflow); that cross-check comes with the lint
+tiers (ROADMAP Queue 1 item 8).  ``--ks-mesh on`` folds the keyspace's
+shards through the mesh plane (:mod:`crdt_tpu_torch.parallel.meshplane`).
 
     python -m crdt_tpu_torch.harness.nemesis_soak --nodes 3 --steps 120 --device cuda
 """
@@ -135,10 +137,6 @@ from crdt_tpu_torch.obs import assemble, health
 from crdt_tpu_torch.obs.events import read_jsonl
 from crdt_tpu_torch.obs.provenance import BirthLedger, propagation_summary
 from crdt_tpu_torch.utils.config import ClusterConfig
-
-RACE_CHECK_NOT_PORTED = (
-    "--race-check: the witnessed-race detector (analysis.verify.race) is "
-    "not ported (ROADMAP Queue 1 item 8)")
 
 # --strong clock pinning: every node runs a _BandClock whose now_ms lands
 # in the current step's private band [(step+1)*_TS_PIN_MS, ...), so ts
@@ -2872,22 +2870,54 @@ def main(argv=None) -> int:
                          "step (parallel.meshplane); 'on' forces fusion "
                          "even on one device")
     ap.add_argument("--race-check", action="store_true",
-                    help="not ported: the witnessed-race detector "
-                         "(analysis.verify.race) is ROADMAP Queue 1 item "
-                         "8; the command exits 2")
+                    help="run under the witnessed-race detector "
+                         "(analysis.verify.race) and fail on any "
+                         "unsynchronized shared-state access pair")
     ap.add_argument("--device", default=None,
                     help="the fleet's torch device (default: the CUDA "
                          "card; the command exits 2 without one rather "
                          "than fall back; cpu is for the tests)")
     args = ap.parse_args(argv)
-    if args.race_check:
-        print(RACE_CHECK_NOT_PORTED, file=sys.stderr)
-        return 2
     try:
         device = default_device(args.device)
     except RuntimeError as e:
         print(f"nemesis_soak: {e}", file=sys.stderr)
         return 2
+    race = None
+    if args.race_check:
+        # install BEFORE any NodeHost is built: locks created before the
+        # install are invisible to the vector clocks and would surface as
+        # false witnesses
+        from crdt_tpu_torch.analysis.verify import race
+        race.install()
+    try:
+        return _run_seeds(args, device, race)
+    finally:
+        if race is not None:
+            race.uninstall()
+
+
+def _race_check(seed: int, race) -> None:
+    """Fail the seed on any witness, or on a run that touched no watched
+    attribute (a check that observed nothing proves nothing)."""
+    rpt = race.report()
+    reads = sum(c["reads"] for c in rpt["access_counts"].values())
+    writes = sum(c["writes"] for c in rpt["access_counts"].values())
+    assert reads + writes > 0, (
+        "race detector observed zero watched accesses: "
+        "instrumentation dead or watch list empty")
+    if rpt["witness_count"]:
+        for w in rpt["witnesses"]:
+            print(w)
+        raise AssertionError(
+            f"seed {seed}: {rpt['witness_count']} witnessed race(s) on shared "
+            f"runtime state (above)")
+    print(f"[nemesis] race-check OK: 0 witnesses over {reads} reads / "
+          f"{writes} writes across {len(rpt['access_counts'])} watchpoints")
+    race.reset()
+
+
+def _run_seeds(args, device, race) -> int:
     modes = dict(composite=args.composite, overload=args.overload,
                  gc=args.gc, strong=args.strong or args.crash_coordinator,
                  crash_coordinator=args.crash_coordinator,
@@ -2917,6 +2947,8 @@ def main(argv=None) -> int:
                            postmortem_dir=args.postmortem_dir,
                            assemble_check=args.assemble_check, **modes)
             print(f"[nemesis] {rep.summary()}")
+        if race is not None:
+            _race_check(seed, race)
     return 0
 
 

@@ -292,3 +292,43 @@ def rebuild(col: ColumnarOpLog, n_keys: int) -> oplog.KVState:
     """Per-lane materialized view (batched KVState over the lane axis):
     unpack + the two-scatter rebuild, one batched scatter over all lanes."""
     return oplog.rebuild(unstack(col), n_keys)
+
+
+def sharded_converge(mesh, bits=DEFAULT_BITS):
+    """Multi-card columnar convergence: the lane (replica) axis split over
+    the ranks of ``mesh`` (``parallel.mesh``), kernel 1 doing every merge.
+
+    Build once per mesh; every rank calls the returned
+    ``step(col_shard, alive_shard)`` with its own lanes, and it returns
+    ``(col_shard, max_n_unique)`` after one global anti-entropy fixpoint:
+
+      1. each rank tree-reduces its lane shard to a one-lane LUB
+         (:func:`lub_lane`: every merge on the kernel, no traffic);
+      2. one ``all_gather`` of the P one-lane LUBs along the lane axis,
+         in rank order (JAX's ``tiled=True``): the ONLY collective,
+         4 planes x C rows x P lanes;
+      3. each rank reduces the gathered lanes to the global LUB and
+         broadcasts it over its alive lanes.
+
+    ``max_n_unique`` is made equal on every rank by ``all_reduce(MAX)``
+    (JAX's ``pmax``).  The shard's device picks the kernel's route."""
+    from crdt_tpu_torch.parallel import mesh as mesh_lib
+
+    bits = tuple(bits)
+
+    def step(col: ColumnarOpLog, alive: torch.Tensor):
+        if col.bits != bits:
+            raise ValueError(
+                f"state packed with bits={col.bits} but this step was built "
+                f"for bits={bits}: the output would be relabeled and "
+                "unpack to garbage")
+        local_lub, nu_local = lub_lane(col, alive)
+        hi, lo, val, pay = mesh_lib.gather_lanes(
+            mesh, (local_lub.hi, local_lub.lo, local_lub.val, local_lub.pay))
+        top, nu_global = lub_lane(ColumnarOpLog(hi=hi, lo=lo, val=val, pay=pay,
+                                                bits=bits))
+        a = alive[None, :]
+        out = tree_map(lambda t, x: torch.where(a, t[:, :1], x), top, col)
+        return out, mesh_lib.all_reduce_max(mesh, torch.maximum(nu_local, nu_global))
+
+    return step

@@ -307,3 +307,37 @@ def gossip_round(col: ColumnarRSeq, peers: torch.Tensor,
         return merged
     ok = alive & alive[peers]
     return tree_map(lambda m, x: torch.where(ok, m, x), merged, col)
+
+
+def sharded_converge(mesh, depth: int = rseq.DEPTH, seq_bits: int = 20):
+    """Multi-card columnar RSeq convergence: the lane (replica) axis split
+    over the ranks of ``mesh`` (``parallel.mesh``), kernel 1 doing every
+    merge; the sequence sibling of ``oplog_columnar.sharded_converge``,
+    with the same three phases:
+
+      1. each rank tree-reduces its lane shard to a one-lane LUB;
+      2. one ``all_gather`` of the P one-lane LUBs along the lane axis in
+         rank order: the ONLY collective, (3·D + 2) planes x C rows x P
+         lanes;
+      3. each rank reduces the gathered lanes to the global LUB and
+         broadcasts it over its alive lanes.
+
+    Every rank calls ``step(col_shard, alive_shard)``, which returns
+    ``(col_shard, max_n_unique)`` with ``max_n_unique`` made equal on
+    every rank by ``all_reduce(MAX)``."""
+    from crdt_tpu_torch.parallel import mesh as mesh_lib
+
+    def step(col: ColumnarRSeq, alive: torch.Tensor):
+        if col.seq_bits != seq_bits or col.depth != depth:
+            raise ValueError(
+                f"state (depth={col.depth}, seq_bits={col.seq_bits}) does "
+                f"not match this step (depth={depth}, seq_bits={seq_bits})")
+        local_lub, nu_local = lub_lane(col, alive)
+        keys, elem, removed = mesh_lib.gather_lanes(
+            mesh, (local_lub.keys, local_lub.elem, local_lub.removed))
+        top, nu_global = lub_lane(ColumnarRSeq(keys=keys, elem=elem, removed=removed,
+                                               seq_bits=seq_bits))
+        out = _broadcast_top(col, top, alive)
+        return out, mesh_lib.all_reduce_max(mesh, torch.maximum(nu_local, nu_global))
+
+    return step

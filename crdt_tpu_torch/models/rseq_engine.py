@@ -177,6 +177,47 @@ def gc_converge_checked(cg: ColumnarGc, alive: torch.Tensor):
         return _finish_broadcast(cg, work, alive), max_nu
 
 
+
+def sharded_gc_converge(mesh, depth: int = rseq.DEPTH, seq_bits: int = 20):
+    """Multi-card GC-AWARE columnar RSeq convergence: the lane (replica)
+    axis split over the ranks of ``mesh`` (``parallel.mesh``) with the
+    per-lane (W, R) floor planes riding the same split, every merge the
+    GC-aware join (:func:`gc_merge_checked`, kernel 1 on a CUDA shard), so
+    floor suppression crosses the all-gather exactly as it crosses a
+    single-device barrier.  The three phases of
+    ``rseq_columnar.sharded_converge``:
+
+      1. each rank masks its dead lanes to the join identity (empty
+         table + floor -1) and tree-reduces its shard to a one-lane GC LUB;
+      2. one ``all_gather`` of the P one-lane LUBs, table planes AND floor
+         plane, along the lane axis in rank order (the ONLY collective);
+      3. each rank reduces the gathered lanes to the global GC LUB and
+         broadcasts table + floor over its alive lanes.
+
+    Every rank calls ``step(cg_shard, alive_shard)``, which returns
+    ``(ColumnarGc, max_n_unique)`` with ``max_n_unique`` made equal on
+    every rank by ``all_reduce(MAX)``: the checked-overflow contract of
+    :func:`gc_converge_checked`."""
+    from crdt_tpu_torch.parallel import mesh as mesh_lib
+
+    def step(cg: ColumnarGc, alive: torch.Tensor):
+        if cg.col.seq_bits != seq_bits or cg.col.depth != depth:
+            raise ValueError(
+                f"state (depth={cg.col.depth}, seq_bits={cg.col.seq_bits}) "
+                f"does not match this step (depth={depth}, seq_bits={seq_bits})")
+        local_lub, nu_local = _gc_lub_lane(mask_dead(cg, alive))
+        keys, elem, removed, floor = mesh_lib.gather_lanes(
+            mesh, (local_lub.col.keys, local_lub.col.elem, local_lub.col.removed,
+                   local_lub.floor))
+        top, nu_global = _gc_lub_lane(ColumnarGc(
+            col=rc.ColumnarRSeq(keys=keys, elem=elem, removed=removed,
+                                seq_bits=seq_bits),
+            floor=floor))
+        out = _finish_broadcast(cg, top, alive)
+        return out, mesh_lib.all_reduce_max(mesh, torch.maximum(nu_local, nu_global))
+
+    return step
+
 # ---- host-level selectors (the consumers' entry points) ----
 
 

@@ -54,6 +54,23 @@ def observe_fused_pull(registry, node_label: str, n_peers: int) -> None:
     registry.set_gauge("pull_fused_fanout", n_peers, node=node_label)
 
 
+def observe_pipeline(registry, pipeline: str, occupancy: float,
+                     stripes: int, stage_s: float, wait_s: float) -> None:
+    """Record one double-buffered stripe-pipeline run
+    (``crdt_tpu_torch.parallel.pipeline.run_striped``):
+    ``pipeline_occupancy`` is the share of the dispatch-to-block window the
+    host spent staging the next stripe instead of waiting on the device
+    (0.0 = serial), plus the raw stage/wait second counters it comes
+    from."""
+    registry.set_gauge("pipeline_occupancy", round(occupancy, 4),
+                       pipeline=pipeline)
+    registry.inc("pipeline_stripes", stripes, pipeline=pipeline)
+    registry.inc("pipeline_stage_seconds", round(stage_s, 6),
+                 pipeline=pipeline)
+    registry.inc("pipeline_wait_seconds", round(wait_s, 6),
+                 pipeline=pipeline)
+
+
 def sample_kv_node(registry, node) -> None:
     """KV replica population and frontier gauges."""
     lab = str(node.rid)

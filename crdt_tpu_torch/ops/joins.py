@@ -9,8 +9,10 @@
   element, a reachable-state generator (``crdt_tpu_torch.ops.randstate``),
   the parts and combinator of a composite (``crdt_tpu_torch.ops.algebra``)
   and, where ``batched`` cannot serve (a kernel call does not run under
-  vmap), the join over stacked states.  ``JoinSpec.verified`` stays None: the proof ledger that stamps it
-  is not ported.
+  vmap), the join over stacked states.  ``JoinSpec.verified`` is None
+  until the port's crdtprove ledger
+  (``crdt_tpu_torch/analysis/verdicts.json``) is consulted, then True iff
+  every lattice law is ``proved`` for the join (:func:`verified_joins`).
 
 Every ``neutral``, ``rand``, ``small`` and ``example`` of a spec takes
 ``device=None`` (the CUDA card), like every constructor of the port.
@@ -185,6 +187,29 @@ def register_join(name: str, join_fn: Callable,
                     combinator=combinator, batched=batched)
     _JOIN_REGISTRY[name] = spec
     return spec
+
+
+def mark_verified(name: str, verified: bool) -> None:
+    """Stamp a registered join's ``verified`` field from the crdtprove
+    ledger (``crdt_tpu_torch.analysis.verify.ledger.annotate_registry`` is
+    the only intended caller: ops stays free of analysis imports, and the
+    analysis layer pushes its verdicts in)."""
+    spec = _JOIN_REGISTRY.get(name)
+    if spec is not None:
+        object.__setattr__(spec, "verified", bool(verified))
+
+
+def verified_joins() -> Dict[str, JoinSpec]:
+    """Name → JoinSpec for every registered join whose lattice laws are
+    ``proved`` in the port's committed crdtprove ledger
+    (``crdt_tpu_torch/analysis/verdicts.json``) with a fingerprint that
+    still matches the live join.  The stability-frontier GC and
+    strong-read layers should draw joins from here."""
+    from crdt_tpu_torch.analysis.verify import ledger
+
+    registry = registered_joins()
+    ledger.annotate_registry()
+    return {n: s for n, s in registry.items() if s.verified}
 
 
 def registered_joins() -> Dict[str, JoinSpec]:

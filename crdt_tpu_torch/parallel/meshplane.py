@@ -12,14 +12,24 @@ run the checked sorted union over all lanes at once (every
 dimension is written out where the JAX package vmaps), unstack.
 ``merge_dispatches`` ticks once per step whatever S is.
 
-Engines.  Every shard plane of a port keyspace lives on one device, so
-the port's one engine is ``vmap``: one batched step for all S lanes on
-that device.  :func:`select_engine` keeps the JAX package's rules for
-``off``, ``on`` and ``auto`` (``auto`` fuses only with at least 2 devices
-of the keyspace's type and at least 2 lanes); where the JAX package
-would spread the lanes over several devices (``pjit``, ``shard_map``),
-the port takes ``vmap``.  The multi-device engines are ROADMAP Queue 1
-item 6b, and asking for one raises.
+Engines.  :func:`select_engine` keeps the JAX package's rules: ``off``
+never fuses, ``on`` always does, ``auto`` fuses only with at least 2
+lanes and at least 2 local devices of the keyspace's type, and where at
+least 2 of those devices divide the lane count it picks the partitioned
+engine ``pjit``, else ``vmap``.
+
+* ``vmap``: one batched step for all S lanes on the keyspace's device.
+* ``pjit`` (also answering to ``shard_map``): the S lanes split into d
+  contiguous groups, d the largest device count that divides S; group
+  k's stacked logs, batch columns and digest rows go to device k, the
+  same batched fold and lane sum run there, and the results come back to
+  the keyspace's device.  JAX's ``shard_map`` engine is only the
+  version-drift fallback of its ``pjit`` engine (a ``jax.shard_map``
+  spelling where jit-level sharding is missing), and torch has no second
+  way to spell a partition, so both names build this one engine.  The
+  devices are every local card of the keyspace's device type; tests pass
+  ``devices=`` (four ``"cpu"`` entries, say) to rehearse the partition
+  as the JAX tests do on their virtual CPU devices.
 
 Bit-parity.  A lane's fold is a stable 4-key sort of its SENTINEL-padded
 batch, then ``oplog.merge_checked``: exactly the host path's
@@ -33,14 +43,16 @@ The plane works on ``PendingMerge`` handles (:mod:`crdt_tpu_torch.api.node`):
 each lane's host bookkeeping already happened under that node's lock,
 which stays HELD across the step so commit rebinds the merged log
 race-free.  Lock order: drain slots, then node locks by shard index, then
-the device's ``device_lock``, taken once for the whole step.  If the step
-fails, ``meshplane_fallbacks`` ticks and every lane lands with its own
-inline merge (``commit_inline``): a lane is never left with host indexes
-ahead of its log.
+the ``device_lock`` of every device the step touches, in ascending device
+order, taken once for the whole step.  If the step fails (any group's,
+on the partitioned engine), ``meshplane_fallbacks`` ticks and every lane
+lands with its own inline merge (``commit_inline``): a lane is never left
+with host indexes ahead of its log, and no lock is left held.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Optional, Tuple
+import contextlib
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -51,12 +63,14 @@ from crdt_tpu_torch.ops import digest as digkernel
 from crdt_tpu_torch.ops import union_engine
 from crdt_tpu_torch.utils.constants import SENTINEL_PY
 from crdt_tpu_torch.utils.metrics import Metrics
+from crdt_tpu_torch.utils.tree import tree_map
 
 MESH_MODES = ("auto", "on", "off")
 
 _BATCH_COLS = oplog._FIELDS
 
-MULTI_DEVICE_ENGINES = ("pjit", "shard_map")
+ENGINES = ("pjit", "shard_map", "vmap")
+PARTITIONED = ("pjit", "shard_map")
 
 
 def _mesh_divisor(n_lanes: int, n_devices: int) -> int:
@@ -75,18 +89,34 @@ def _device_count(device) -> int:
     return torch.cuda.device_count() if kind == "cuda" else 1
 
 
+def _local_devices(device: torch.device) -> List[torch.device]:
+    """Every local device of ``device``'s type: the cards in index order,
+    or ``device`` itself for the CPU."""
+    if device.type == "cuda":
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [device]
+
+
+def _device_order(device: torch.device):
+    return (device.type, device.index if device.index is not None else 0)
+
+
 def select_engine(n_lanes: int, mode: str = "auto", device=None) -> Optional[str]:
     """The fused engine for ``n_lanes`` shard lanes, or None for the
     per-lane host path.  ``auto`` fuses only when fusion can win (at least
     2 devices of ``device``'s type and at least 2 lanes); ``on`` always
-    fuses; ``off`` never does.  The fused engine is ``vmap``."""
+    fuses; ``off`` never does.  The fused engine is ``pjit`` where at least
+    2 of those devices divide the lane count, else ``vmap``."""
     if mode not in MESH_MODES:
         raise ValueError(
             f"keyspace_mesh={mode!r}: must be one of {'|'.join(MESH_MODES)}")
     if mode == "off" or n_lanes < 1:
         return None
-    if mode == "auto" and (n_lanes < 2 or _device_count(device) < 2):
+    n_dev = _device_count(device)
+    if mode == "auto" and (n_lanes < 2 or n_dev < 2):
         return None
+    if _mesh_divisor(n_lanes, n_dev) >= 2:
+        return "pjit"
     return "vmap"
 
 
@@ -101,29 +131,55 @@ class MeshPlane:
 
     def __init__(self, n_lanes: int, *, mode: str = "auto",
                  metrics: Optional[Metrics] = None, engine: Optional[str] = None,
-                 device=None):
-        if engine in MULTI_DEVICE_ENGINES:
-            raise NotImplementedError(
-                f"MeshPlane(engine={engine!r}): the multi-device engines are not "
-                "ported (ROADMAP Queue 1 item 6b); every shard plane of a port "
-                "keyspace lives on one device, so the engine is 'vmap'")
-        if engine not in (None, "vmap"):
+                 device=None, devices: Optional[Sequence[Any]] = None):
+        if engine not in (None,) + ENGINES:
             raise ValueError(f"unknown mesh engine {engine!r}")
         self.n_lanes = n_lanes
         self.device = default_device(device)
         self.metrics = metrics if metrics is not None else Metrics()
         self.engine = engine if engine is not None \
             else select_engine(n_lanes, mode, self.device)
+        self.devices = [self.device]
+        if self.engine in PARTITIONED:
+            local = [torch.device(d) for d in devices] if devices is not None \
+                else _local_devices(self.device)
+            self.devices = local[:_mesh_divisor(n_lanes, len(local))]
+        self.n_devices = len(self.devices)
+        # the step's device locks, each once, in ascending device order
+        self._lock_devices = sorted({str(d): d for d in self.devices + [self.device]}
+                                    .values(), key=_device_order)
 
     # ---- the step ----
 
+    def _fold(self, logs: oplog.OpLog, cols: Tuple[torch.Tensor, ...],
+              digs: torch.Tensor):
+        """Every lane of ``logs`` at once on their device: the merged logs,
+        the lane counts and the audit digest's lane sums (each lane's sum
+        of its batch's digest rows mod 2**32; zero padding rows are the
+        additive identity, and commit() compares it with the host's)."""
+        merged, n_unique = _lane_fold(logs, cols)
+        return merged, n_unique, digkernel.lane_sum(digs)
+
+    def _fold_group(self, k: int, logs: oplog.OpLog,
+                    cols: Tuple[torch.Tensor, ...], digs: torch.Tensor):
+        """Group k of the partitioned engine: its contiguous lanes moved to
+        device k and folded there."""
+        per = self.n_lanes // self.n_devices
+        lanes, dev = slice(k * per, (k + 1) * per), self.devices[k]
+        return self._fold(tree_map(lambda x: x[lanes].to(dev), logs),
+                          tuple(c[lanes].to(dev) for c in cols), digs[lanes].to(dev))
+
     def _step(self, logs: oplog.OpLog, cols: Tuple[torch.Tensor, ...],
               digs: torch.Tensor):
-        merged, n_unique = _lane_fold(logs, cols)
-        # the audit digest's fold in the same step: each lane's sum of its
-        # batch's digest rows mod 2**32 (zero padding rows are the additive
-        # identity); commit() compares it with the host's sum
-        dig_sum = digkernel.lane_sum(digs)
+        if self.engine in PARTITIONED:
+            groups = [self._fold_group(k, logs, cols, digs)
+                      for k in range(self.n_devices)]
+            merged, n_unique, dig_sum = (
+                tree_map(lambda *xs: torch.cat([x.to(self.device) for x in xs]),
+                         *(g[i] for g in groups))
+                for i in range(3))
+        else:
+            merged, n_unique, dig_sum = self._fold(logs, cols, digs)
         lanes = [oplog.OpLog(*(getattr(merged, f)[i] for f in _BATCH_COLS))
                  for i in range(self.n_lanes)]
         return lanes, n_unique, dig_sum
@@ -172,7 +228,9 @@ class MeshPlane:
                                    for p in pendings]) for name in _BATCH_COLS]
             digs_host = np.stack([_pad_dig(p.dig, batch_cap) for p in pendings])
             step = self._step_for(cap, batch_cap)
-            with device_lock(self.device), self.metrics.timer("merge"):
+            with contextlib.ExitStack() as locks, self.metrics.timer("merge"):
+                for d in self._lock_devices:
+                    locks.enter_context(device_lock(d))
                 for p in pendings:
                     if p.node.log.capacity < cap:
                         p.node.log = oplog.grow(p.node.log, cap)

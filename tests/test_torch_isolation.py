@@ -30,7 +30,8 @@ from crdt_tpu_torch.models import oplog_columnar, orset, pncounter, rseq
 from crdt_tpu_torch.models import ormap, ormap_gc, rseq_columnar, tomb_gc
 from crdt_tpu_torch.ops import hopper_union, joins, orset_floor
 from crdt_tpu_torch.ops import randstate as rs
-from crdt_tpu_torch.parallel import meshplane, swarm
+from crdt_tpu_torch.analysis.verify import domains, prove
+from crdt_tpu_torch.parallel import mesh, meshplane, multihost, swarm
 from crdt_tpu_torch.utils import config as tconfig
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -77,7 +78,9 @@ def test_scan_sees_the_whole_package():
             "compositenode.py", "checkpoint.py", "digest.py", "audit.py", "routing.py",
             "shards.py", "frontdoor.py", "reshard.py", "leases.py", "plane.py",
             "fleet.py", "schedule.py", "transport.py", "disk.py", "assemble.py",
-            "crashsoak.py", "nemesis_soak.py", "meshplane.py", "tracing.py"} <= names
+            "crashsoak.py", "nemesis_soak.py", "meshplane.py", "tracing.py",
+            "mesh.py", "multihost.py", "pipeline.py", "sarif.py", "baseline.py",
+            "domains.py", "prove.py", "ledger.py", "race.py"} <= names
     assert ROOT / "crdt_tpu_torch" / "native" / "__init__.py" in PORT_FILES
     assert ROOT / "crdt_tpu_torch" / "obs" / "__main__.py" in PORT_FILES
 
@@ -138,6 +141,11 @@ def test_scan_sees_the_whole_package():
     lambda: CrashSoakRunner(n=2),
     lambda: meshplane.MeshPlane(4, mode="on"),
     lambda: ShardedKeyspace(0, 2, mesh="on"),
+    lambda: meshplane.MeshPlane(4, mode="on", engine="pjit"),
+    lambda: mesh.make_mesh(),
+    lambda: multihost.global_mesh(),
+    lambda: prove.prove_spec(joins.registered_joins()["gcounter"]),
+    lambda: domains.build_domain(joins.registered_joins()["lww"]),
 ], ids=["oplog.empty", "from_ops", "columnar.empty", "random_peers",
         "convert", "default_device", "orset.empty", "bitmap_empty",
         "bucketed_empty", "g_empty", "tp_empty", "convert.orset", "set_swarm",
@@ -149,7 +157,8 @@ def test_scan_sees_the_whole_package():
         "rand_orset", "small_gset", "registry_neutral", "convert.vvclock", "SetSoakRunner",
         "MapSoakRunner", "SeqSoakRunner", "CompositeNode", "NodeHost", "ShardedKeyspace",
         "keyspace_from_config", "NodeHost_keyspace", "NemesisSoak", "run_soak",
-        "CrashSoakRunner", "MeshPlane", "ShardedKeyspace_mesh"])
+        "CrashSoakRunner", "MeshPlane", "ShardedKeyspace_mesh", "MeshPlane_pjit",
+        "make_mesh", "global_mesh", "prove_spec", "build_domain"])
 def test_constructor_without_device_raises_when_no_card(make, monkeypatch):
     """device=None means the CUDA card; without one it raises rather than
     returning CPU tensors."""
@@ -198,10 +207,43 @@ def test_failed_native_build_raises_without_fallback(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("engine", ["pjit", "shard_map"])
 def test_multi_device_mesh_engines_raise_naming_item_6b(engine):
-    """The mesh plane's one engine is the single-device batched step; the
-    multi-device engines refuse, naming their ROADMAP item."""
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6b"):
-        meshplane.MeshPlane(4, mode="on", engine=engine, device="cpu")
+    """(Named for the refusal it replaced.)  The multi-device engines are
+    ported: on four CPU slots the port's partitioned engine folds the
+    same page as JAX's engine of that name on its virtual devices, shard
+    for shard, in one merge each."""
+    from crdt_tpu import keyspace as jks
+    from crdt_tpu.parallel import meshplane as jmp
+    from crdt_tpu.utils.clock import ManualClock as JClock
+    from crdt_tpu.utils.metrics import Metrics as JMetrics
+    from crdt_tpu_torch import keyspace as tks
+    from crdt_tpu_torch.utils.clock import ManualClock as TClock
+    from crdt_tpu_torch.utils.metrics import Metrics as TMetrics
+
+    j = jks.ShardedKeyspace(rid=0, n_shards=4, capacity=64, metrics=JMetrics(),
+                            clock=JClock(), mesh="on")
+    j._meshplane = jmp.MeshPlane(4, mode="on", engine=engine, metrics=j.shards[0].metrics)
+    t = tks.ShardedKeyspace(rid=0, n_shards=4, capacity=64, metrics=TMetrics(),
+                            clock=TClock(), mesh="on", device="cpu")
+    t._meshplane = meshplane.MeshPlane(4, mode="on", engine=engine, device="cpu",
+                                       devices=["cpu"] * 4, metrics=t.shards[0].metrics)
+    assert t.mesh_engine == j.mesh_engine == engine
+    assert t._meshplane.n_devices == j._meshplane.n_devices == 4
+    clock = t.shards[0].clock
+    writers = [ReplicaNode(rid=100 + s, capacity=64, clock=clock, device="cpu")
+               for s in range(4)]
+    for i in range(24):
+        shard = t.shard_of("t-acme", f"k{i}")
+        assert shard == j.shard_of("t-acme", f"k{i}")
+        writers[shard].add_commands([{tks.qualify("t-acme", f"k{i}"): f"v{i}"}])
+        clock.advance(1)
+    payloads = [w.gossip_payload() or None for w in writers]
+    assert t.receive_all(payloads) == j.receive_all(payloads)
+    for x, y in zip(t.shards, j.shards):
+        assert x.get_state() == y.get_state() and x.get_state()
+        assert x.version_vector() == y.version_vector()
+    counts = [ks.shards[0].metrics.registry.counter_value("merge_dispatches")
+              for ks in (t, j)]
+    assert counts == [1, 1]
 
 
 def test_enable_audit_attaches_the_digest():

@@ -6,11 +6,13 @@ The plane's claim is "same bits, fewer merges": ONE batched step folds
 every keyspace shard lane, and each lane's merged log, vv, state, digest
 and gossip payload equal what S separate merges give.  The JAX package
 runs 8 virtual CPU devices under pytest, where its ``select_engine``
-picks ``pjit``; the port's one engine is the single-device ``vmap``, so
-the twins hold the port's ``mesh="on"`` against JAX's plane pinned to
-``engine="vmap"`` and against JAX's host path.  Dispatch counters are
-compared only where both sides fuse.  The ``pjit``/``shard_map`` cases of
-tests/test_meshplane.py wait for ROADMAP Queue 1 item 6b.
+picks ``pjit``; the port's keyspace on the CPU sees one device and picks
+``vmap``, so the twins hold the port's ``mesh="on"`` against JAX's plane
+pinned to ``engine="vmap"`` and against JAX's host path.  The
+``engine=`` cases hold the port's partitioned engine (``pjit`` and
+``shard_map``, one engine under two names) on four CPU slots against
+JAX's engines on its virtual devices.  Dispatch counters are compared
+only where both sides fuse.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import urllib.request
 
 import numpy as np
 import pytest
+import torch
 
 from crdt_tpu import keyspace as jks
 from crdt_tpu.api import node as jnode
@@ -138,9 +141,9 @@ def test_mesh_divisor():
 
 @pytest.mark.parametrize("n_devices", [1, 8])
 def test_select_engine_modes(n_devices, monkeypatch):
-    """JAX's rules for off/on/auto: the port fuses exactly where JAX's
-    select_engine (8 virtual devices) or its one-device rule would, and
-    its engine is vmap wherever JAX's is pjit, shard_map or vmap."""
+    """JAX's rules for off/on/auto: the port picks exactly the engine JAX's
+    select_engine picks on 8 virtual devices, and JAX's one-device rule
+    (auto never fuses, on is vmap) on one."""
     monkeypatch.setattr(tmp, "_device_count", lambda device: n_devices)
     with pytest.raises(ValueError):
         tmp.select_engine(4, "bogus", "cpu")
@@ -151,9 +154,8 @@ def test_select_engine_modes(n_devices, monkeypatch):
                 want = jmp.select_engine(n, mode)
             else:  # JAX's rule on one device: auto never fuses
                 want = None if mode == "off" or n < 1 or mode == "auto" else "vmap"
-            assert (got is None) == (want is None), (n, mode)
-            assert got in (None, "vmap")
-    assert tmp.select_engine(4, "auto", "cpu") == (None if n_devices == 1 else "vmap")
+            assert got == want, (n, mode)
+    assert tmp.select_engine(4, "auto", "cpu") == (None if n_devices == 1 else "pjit")
 
 
 def test_select_engine_counts_devices_of_the_keyspace_type():
@@ -207,6 +209,97 @@ def test_mesh_parity_randomized_multitenant(engine):
     assert mesh.state() == kss[("j", "off")].state() and mesh.state()
     # both sides fuse: one dispatch a round, as JAX's vmap plane
     assert _dispatches(mesh) == _dispatches(kss[("j", "on")]) == 6
+
+
+# ---- the partitioned engine: pjit / shard_map on four CPU slots ----
+
+SLOTS = ["cpu"] * 4
+
+
+@pytest.mark.parametrize("engine", ["pjit", "shard_map"])
+def test_partitioned_engine_matches_jax_engines(engine):
+    """The port's partitioned engine, its 4 lanes split over four CPU
+    slots, against JAX's engine of the same name on its virtual devices
+    (4 of 8 divide the lanes) and both host paths: every shard's state,
+    vv, payload, digest and raw columns after each fused converge; one
+    merge a round on both sides."""
+    jclock, tclock = JClock(), TClock()
+    kss = {(p, m): _keyspace(p, m, jclock if p == "j" else tclock)
+           for p in ("j", "t") for m in ("on", "off")}
+    jks_on, mesh = kss[("j", "on")], kss[("t", "on")]
+    jks_on._meshplane = jmp.MeshPlane(N_SHARDS, mode="on", engine=engine,
+                                      metrics=jks_on.shards[0].metrics)
+    mesh._meshplane = tmp.MeshPlane(N_SHARDS, mode="on", engine=engine, device="cpu",
+                                    devices=SLOTS, metrics=mesh.shards[0].metrics)
+    assert mesh.mesh_engine == jks_on.mesh_engine == engine
+    assert mesh._meshplane.n_devices == jks_on._meshplane.n_devices == 4
+    for ks in kss.values():
+        ks.enable_audit()
+    writers = _writers(mesh, tclock)
+    rng = random.Random(4321)
+    for _ in range(5):
+        payloads = _random_round(rng, mesh, writers, tclock)
+        for (p, m), ks in kss.items():
+            if m == "on":
+                assert all(isinstance(r, int) for r in ks.receive_all(payloads))
+            else:
+                for i, pl in enumerate(payloads):
+                    if pl is not None:
+                        ks.receive(i, pl)
+        for ks in kss.values():
+            _assert_shards_equal(mesh, ks)
+    assert _dispatches(mesh) == _dispatches(jks_on) == 5
+    _assert_no_lock_leak(mesh)
+
+
+def test_partitioned_engine_groups_and_lock_order():
+    """d = the largest slot count dividing the lanes; each group's lanes
+    fold on their own device; every device lock is taken once, in
+    ascending device order."""
+    plane = tmp.MeshPlane(6, mode="on", engine="pjit", device="cpu", devices=SLOTS)
+    assert plane.n_devices == 3 and plane.devices == [torch.device("cpu")] * 3
+    assert [str(d) for d in plane._lock_devices] == ["cpu"]
+    plane = tmp.MeshPlane(4, mode="on", engine="shard_map", device="cpu",
+                          devices=["cpu", "meta", "cpu", "meta"])
+    assert [str(d) for d in plane._lock_devices] == ["cpu", "meta"]
+    assert tmp.MeshPlane(5, mode="on", engine="pjit", device="cpu",
+                         devices=SLOTS).n_devices == 1
+    with pytest.raises(ValueError, match="unknown mesh engine"):
+        tmp.MeshPlane(4, engine="gspmd", device="cpu")
+
+
+@pytest.mark.parametrize("bad_group", [0, 2])
+def test_partitioned_group_failure_lands_every_lane_inline(bad_group):
+    """A failure in ANY group's step lands every lane with its own inline
+    merge: bits equal to the host path, no lock held, one fallback."""
+    host, mesh, clock = _twin_keyspaces()
+    mesh._meshplane = tmp.MeshPlane(N_SHARDS, mode="on", engine="pjit", device="cpu",
+                                    devices=SLOTS, metrics=mesh.shards[0].metrics)
+    plane, fold = mesh._meshplane, mesh._meshplane._fold_group
+
+    def flaky(k, *args):
+        if k == bad_group:
+            raise RuntimeError("injected group failure")
+        return fold(k, *args)
+
+    plane._fold_group = flaky
+    writers = _writers(mesh, clock)
+    payloads = _random_round(random.Random(8), mesh, writers, clock, n_ops=16)
+    for i, p in enumerate(payloads):
+        if p is not None:
+            host.receive(i, p)
+    assert all(isinstance(r, int) for r in mesh.receive_all(payloads))
+    _assert_shards_equal(host, mesh)
+    _assert_no_lock_leak(mesh)
+    assert not tnode.device_lock("cpu").locked()
+    assert _count(mesh.shards[0].metrics, "meshplane_fallbacks") == 1
+    plane._fold_group = fold
+    payloads = _random_round(random.Random(9), mesh, writers, clock)
+    for i, p in enumerate(payloads):
+        if p is not None:
+            host.receive(i, p)
+    mesh.receive_all(payloads)
+    _assert_shards_equal(host, mesh)
 
 
 # ---- one dispatch per step + per-shard attribution ----

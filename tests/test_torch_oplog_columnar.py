@@ -316,3 +316,70 @@ def test_subset_swarm_keeps_first_capacity_held_rows():
         for f in FIELDS:
             np.testing.assert_array_equal(np.asarray(getattr(want, f)), got[f][lane],
                                           err_msg=f"lane {lane} {f}")
+
+
+# ---- the sharded converge over a gloo world (tests/torch_world.py) ----
+
+
+@pytest.fixture(scope="module")
+def sharded_world(tmp_path_factory):
+    """The JAX package's sharded converge on make_mesh(4) and make_mesh(3)
+    (its kernel in interpret mode) beside the port's over a gloo world of
+    4 ranks, on the same planes: C = 32, R = 16 and 12, one lane dead."""
+    from crdt_tpu.parallel import mesh as jmesh
+    from tests import torch_world
+
+    rng = np.random.default_rng(11)
+    pool = _op_pool(rng, 24)
+    inputs, want = {}, {}
+    for n, r in ((4, 16), (3, 12)):
+        j, _ = _batch(rng, r, 32, pool)
+        jcol = joc.stack(j, bits=BITS)
+        alive = np.ones(r, bool)
+        alive[r - 2] = False
+        m = jmesh.make_mesh(n)
+        sharded = jax.device_put(jcol, jax.sharding.NamedSharding(
+            m, jax.sharding.PartitionSpec(None, "replica")))
+        got, nu = joc.sharded_converge(m, bits=BITS)(sharded, jnp.asarray(alive))
+        single, snu = joc.converge_checked(jcol, jnp.asarray(alive), interpret=True)
+        want[n] = (got, int(nu), single, int(snu))
+        inputs[n] = {**{p: np.asarray(getattr(jcol, p)) for p in ("hi", "lo", "val", "pay")},
+                     "bits": BITS, "alive": alive}
+    ranks = torch_world.run_world(tmp_path_factory.mktemp("oplog_columnar_world"),
+                                  [("oplog_columnar", inputs)])
+    return ranks, want, inputs
+
+
+@pytest.mark.parametrize("n", [4, 3])
+def test_sharded_converge_matches_jax_mesh(sharded_world, n):
+    """Every rank's lanes, concatenated in rank order, equal JAX's sharded
+    converge on a mesh of the same size and the single-device converge;
+    max_n_unique equals JAX's on every rank."""
+    ranks, want, inputs = sharded_world
+    got_j, nu_j, single, _ = want[n]
+    assert not any(r["_jax_imported"] for r in ranks)
+    parts = [ranks[r]["oplog_columnar"][n] for r in range(n)]
+    for p in ("hi", "lo", "val", "pay"):
+        got = np.concatenate([x[0][p] for x in parts], axis=1)
+        np.testing.assert_array_equal(got, np.asarray(getattr(got_j, p)), err_msg=p)
+        np.testing.assert_array_equal(got, np.asarray(getattr(single, p)), err_msg=p)
+    assert [x[1] for x in parts] == [nu_j] * n
+    assert nu_j <= 32
+
+
+def test_sharded_converge_one_rank_mesh_is_the_single_converge():
+    """No process group: the one-rank mesh's step equals converge_checked
+    (its all_gather and all_reduce are identities)."""
+    from crdt_tpu_torch.parallel import mesh as tmesh
+
+    rng = np.random.default_rng(12)
+    _, t = _batch(rng, 6, 16, _op_pool(rng, 20))
+    col = toc.stack(t, bits=BITS)
+    alive = torch.tensor([True, True, False, True, True, True])
+    got, nu = toc.sharded_converge(tmesh.make_mesh(device="cpu"), bits=BITS)(col, alive)
+    want, wnu = toc.converge_checked(col, alive)
+    for p in ("hi", "lo", "val", "pay"):
+        assert torch.equal(getattr(got, p), getattr(want, p)), p
+    assert int(nu) == int(wnu)
+    with pytest.raises(ValueError, match="bits"):
+        toc.sharded_converge(tmesh.make_mesh(device="cpu"))(col, alive)

@@ -191,3 +191,91 @@ def test_plan_selects_columnar_and_falls_back_loudly():
                        for f in ("keys", "elem", "removed")))
     with pytest.warns(EngineFallback, match="power of two"):
         assert trc.plan(odd) == (None, "capacity 96 is not a power of two (bitonic network)")
+
+
+# ---- the sharded converge over a gloo world (tests/torch_world.py) ----
+
+
+def _ref_tree(j, alive):
+    """The lane-halving tree of the JAX reference join
+    (``jax.vmap(rseq.join_checked)``) over the alive lanes of a batched
+    JAX RSeq: (one-state LUB, max n_unique)."""
+    neutral = jrseq.empty(CAP)
+    a = jnp.asarray(alive)
+    work = jax.tree.map(lambda x, n: jnp.where(a.reshape((-1,) + (1,) * (x.ndim - 1)),
+                                               x, n[None]), j, neutral)
+    r = len(alive)
+    p = 1
+    while p < r:
+        p *= 2
+    work = jax.tree.map(lambda x, n: jnp.concatenate([x, jnp.stack([n] * (p - r))])
+                        if p > r else x, work, neutral)
+    max_nu = 0
+    while p > 1:
+        p //= 2
+        work, nu = jax.vmap(jrseq.join_checked)(lane(work, slice(0, p)),
+                                                lane(work, slice(p, 2 * p)))
+        max_nu = max(max_nu, int(nu.max()))
+    return lane(work, 0), max_nu
+
+
+@pytest.fixture(scope="module")
+def sharded_world(tmp_path_factory):
+    """The port's sharded converge over a gloo world of 4 ranks at depth 6
+    (8 lanes on 4 ranks, 6 on 3, one lane dead) beside the JAX reference
+    join run over the same tree: each rank's shard, then the P one-lane
+    LUBs in rank order."""
+    from tests import torch_world
+
+    inputs, want = {}, {}
+    for n, r in ((4, 8), (3, 6)):
+        st = swarm(40 + n, r, 10)
+        alive = np.ones(r, bool)
+        alive[1] = False
+        col = trc.stack(st)
+        j = to_jax(st)
+        k = r // n
+        tops, nus = [], []
+        for rank in range(n):
+            top, nu = _ref_tree(lane(j, slice(rank * k, (rank + 1) * k)),
+                                alive[rank * k:(rank + 1) * k])
+            tops.append(top)
+            nus.append(nu)
+        top, nu_g = _ref_tree(jax.tree.map(lambda *xs: jnp.stack(xs), *tops), np.ones(n, bool))
+        want[n] = (j, top, max(nus + [nu_g]), col)
+        inputs[n] = {**convert.columnar_rseq_to_numpy(col), "alive": alive}
+    ranks = torch_world.run_world(tmp_path_factory.mktemp("rseq_columnar_world"),
+                                  [("rseq_columnar", inputs), ("mismatched_steps", None)])
+    return ranks, want, inputs
+
+
+@pytest.mark.parametrize("n", [4, 3])
+def test_sharded_converge_matches_the_reference_tree(sharded_world, n):
+    """Alive lanes end at the reference LUB, the dead lane keeps its
+    table, max_n_unique is the reference tree's on every rank, and the
+    tables equal the port's single-device converge."""
+    ranks, want, inputs = sharded_world
+    j, top, want_nu, col = want[n]
+    assert not any(r["_jax_imported"] for r in ranks)
+    parts = [ranks[r]["rseq_columnar"][n] for r in range(n)]
+    got = {f: np.concatenate([x[0][f] for x in parts], axis=-1)
+           for f in ("keys", "elem", "removed")}
+    out = trc.unstack(convert.columnar_rseq_from_numpy(got, parts[0][0]["seq_bits"],
+                                                       device="cpu"))
+    alive = inputs[n]["alive"]
+    for i in range(len(alive)):
+        assert_same(top if alive[i] else lane(j, i),
+                    trseq.RSeq(out.keys[i], out.elem[i], out.removed[i]))
+    assert [x[1] for x in parts] == [want_nu] * n
+    single = trc.converge(col, torch.from_numpy(alive))
+    for f in ("keys", "elem", "removed"):
+        np.testing.assert_array_equal(got[f], getattr(single, f).numpy(), err_msg=f)
+
+
+def test_sharded_steps_refuse_other_layouts(sharded_world):
+    """Each sharded step raises JAX's layout ValueError on every rank."""
+    ranks, _, _ = sharded_world
+    for r in ranks:
+        errs = r["mismatched_steps"]
+        assert len(errs) == 4
+        assert "bits" in errs[0] and all("does not match this step" in e for e in errs[1:])

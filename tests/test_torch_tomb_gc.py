@@ -354,3 +354,91 @@ def test_whole_slice_matches_jax():
     assert idents(lane(gc, 0)) == {k for k, dead in tombs.items() if not dead}
     assert idents(lane(gc, 0)) <= idents(revived)
     assert not idents(revived) & {k for k, dead in tombs.items() if dead}
+
+
+# ---- the sharded GC converge over a gloo world (tests/torch_world.py) ----
+
+
+def _gc_ref_tree(j: jgc.Gc, alive):
+    """The lane-halving tree of JAX's generic GC join over the alive lanes
+    (dead lanes are the neutral: empty table, floor -1): (LUB, max nu)."""
+    neutral = jgc.Gc(inner=jrseq.empty(CAP), floor=jnp.full((W,), -1, jnp.int32))
+    a = jnp.asarray(alive)
+    work = jax.tree.map(lambda x, n: jnp.where(a.reshape((-1,) + (1,) * (x.ndim - 1)),
+                                               x, n[None]), j, neutral)
+    r = len(alive)
+    p = 1
+    while p < r:
+        p *= 2
+    if p > r:
+        work = jax.tree.map(lambda x, n: jnp.concatenate([x, jnp.stack([n] * (p - r))]),
+                            work, neutral)
+    join = jax.vmap(lambda x, y: jgc.join_checked(x, y, JAD))
+    max_nu = 0
+    while p > 1:
+        p //= 2
+        work, nu = join(jax.tree.map(lambda x: x[:p], work),
+                        jax.tree.map(lambda x: x[p:2 * p], work))
+        max_nu = max(max_nu, int(nu.max()))
+    return jax.tree.map(lambda x: x[0], work), max_nu
+
+
+def _lanes(g: tgc.Gc, idx) -> tgc.Gc:
+    return tgc.Gc(inner=trseq.RSeq(g.inner.keys[idx], g.inner.elem[idx],
+                                   g.inner.removed[idx]), floor=g.floor[idx])
+
+
+@pytest.fixture(scope="module")
+def sharded_world(gswarm, tmp_path_factory):
+    """The port's sharded GC converge over a gloo world of 4 ranks (8 lanes
+    on 4 ranks, 6 on 3; lane 2 dead, floors advanced on some lanes)
+    beside JAX's generic GC join over the same tree."""
+    from tests import torch_world
+
+    inputs, want = {}, {}
+    for n, idx in ((4, [0, 1, 2, 3, 1, 2, 3, 0]), (3, [0, 1, 2, 3, 0, 1])):
+        g = _lanes(gswarm, torch.tensor(idx))
+        alive = np.ones(len(idx), bool)
+        alive[2] = False
+        j = gc_j(g)
+        k = len(idx) // n
+        tops, nus = [], []
+        for rank in range(n):
+            top, nu = _gc_ref_tree(jax.tree.map(lambda x: x[rank * k:(rank + 1) * k], j),
+                                   alive[rank * k:(rank + 1) * k])
+            tops.append(top)
+            nus.append(nu)
+        top, nu_g = _gc_ref_tree(jax.tree.map(lambda *xs: jnp.stack(xs), *tops),
+                                 np.ones(n, bool))
+        cg = tre.stack(g)
+        want[n] = (j, top, max(nus + [nu_g]), cg)
+        inputs[n] = {**convert.columnar_gc_to_numpy(cg), "alive": alive}
+    ranks = torch_world.run_world(tmp_path_factory.mktemp("gc_world"),
+                                  [("gc_columnar", inputs)])
+    return ranks, want, inputs
+
+
+@pytest.mark.parametrize("n", [4, 3])
+def test_sharded_gc_converge_matches_the_generic_tree(sharded_world, n):
+    """Tables AND floors cross the all-gather: alive lanes end at JAX's
+    generic GC LUB, the dead lane keeps its state and floor, max_n_unique
+    is the generic tree's on every rank, and everything equals the port's
+    single-device GC converge."""
+    ranks, want, inputs = sharded_world
+    j, top, want_nu, cg = want[n]
+    assert not any(r["_jax_imported"] for r in ranks)
+    parts = [ranks[r]["gc_columnar"][n] for r in range(n)]
+    got = {"col": {f: np.concatenate([x[0]["col"][f] for x in parts], axis=-1)
+                   for f in ("keys", "elem", "removed")},
+           "floor": np.concatenate([x[0]["floor"] for x in parts], axis=-1)}
+    got["col"]["seq_bits"] = parts[0][0]["col"]["seq_bits"]
+    out = tre.unstack(convert.columnar_gc_from_numpy(got, device="cpu"))
+    alive = inputs[n]["alive"]
+    for i in range(len(alive)):
+        assert_gc(top if alive[i] else jax.tree.map(lambda x: x[i], j), lane(out, i))
+    assert [x[1] for x in parts] == [want_nu] * n
+    single, _ = tre.gc_converge_checked(cg, torch.from_numpy(alive))
+    want_np = convert.columnar_gc_to_numpy(single)
+    np.testing.assert_array_equal(got["floor"], want_np["floor"])
+    for f in ("keys", "elem", "removed"):
+        np.testing.assert_array_equal(got["col"][f], want_np["col"][f], err_msg=f)
