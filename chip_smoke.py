@@ -2,8 +2,8 @@
 union floors, the counter and register family, the replica-node cluster,
 the join registry, the typed sibling nodes, the reference's HTTP surface,
 the network daemon, the keyspace tier, the fault plane's soaks, the
-native host runtime, the mesh plane, the multi-device layer, the prover
-and the race detector on a CUDA card and check them.
+native host runtime, the mesh plane, the multi-device layer, the prover,
+the race detector and the lint tiers on a CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -253,8 +253,18 @@ Phases (any failure exits non-zero and prints no result):
     kernels 1-3 in the sweeps; (b) ``python -m crdt_tpu_torch.analysis
     verify --check-ledger`` exits 0; (c) the nemesis default arm under
     ``--race-check --device cuda`` (3 nodes, 120 steps, seed 0): 0
-    witnesses over a non-zero count of watched accesses; one
-    ``{"verify": ...}`` JSON line.
+    witnesses over a non-zero count of watched accesses, and its crdtflow
+    cross-check 0 witnesses mapped, 0 uncovered; one ``{"verify": ...}``
+    JSON line.
+25. the lint tiers (budget 45 s): (a) ``python -m crdt_tpu_torch.analysis
+    --check-baseline --sarif build/lint/lint.sarif`` in a process of its own
+    exits 0, its findings by rule (the SARIF's) == the committed
+    ``analysis/baseline.json``'s, 0 errors, wall time; (b) ``--rules
+    CRDT210,CRDT211,CRDT212,CRDT213 --check-baseline`` within the 60 s
+    crdtflow budget; (c) ``fx_checks.check_registered_joins`` == [] in
+    process on this machine's torch; (d) ``race.watch_from_static()``
+    resolves the port's classes; (a) and (b) run in their processes while
+    (c) and (d) run; one ``{"lint": ...}`` JSON line.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -5356,15 +5366,134 @@ def verify_phase(card: str) -> dict:
     reads, writes = (int(v) for v in re.findall(r"(\d+) (?:reads|writes)", ok[0]))
     if reads + writes == 0 or "0 witnesses" not in ok[0]:
         raise AssertionError(f"(c) {ok[0]}")
+    # the crdtflow cross-check of the witnesses (every one mapped to a
+    # covering CRDT210-213 finding, or named uncovered)
+    mapped = re.search(r"flow cross-check: (\d+) witnesses mapped, (\d+) uncovered", ok[0])
+    if mapped is None or mapped.groups() != ("0", "0"):
+        raise AssertionError(f"(c) the flow section: {ok[0]}")
     log(f"(c) the nemesis default arm under --race-check on the card ({NEM_NODES} nodes, "
         f"{NEM_STEPS} steps, seed {NEM_SEED}): 0 witnesses over {reads} reads / {writes} "
-        f"writes ({soak_s:.2f} s)")
+        f"writes, flow cross-check 0 mapped / 0 uncovered ({soak_s:.2f} s)")
     line = {"card": card, "joins": len(registry), "prove_s": prove_s,
             "prove_s_by_join": per_join, "launches": launches, "check_ledger_s": gate_s,
-            "race": {"witnesses": 0, "reads": reads, "writes": writes, "s": soak_s},
+            "race": {"witnesses": 0, "reads": reads, "writes": writes, "s": soak_s,
+                     "flow": {"witnesses_mapped": 0, "uncovered": 0}},
             "phase_s": time.perf_counter() - t_phase}
     log(f"phase 24: {line['phase_s']:.1f} s (budget {VERIFY_BUDGET_S} s) [{card}]")
     log(json.dumps({"verify": line}))
+    return line
+
+
+# ---- phase 25: the lint tiers ----
+
+LINT_BUDGET_S = 45
+FLOW_BUDGET_S = 60            # the JAX package's crdtflow budget
+LINT_RUN_DIR = "build/lint"   # git-ignored: the gate's SARIF
+FLOW_RULES = "CRDT210,CRDT211,CRDT212,CRDT213"
+
+
+def lint_gate(pool, root: Path, *args: str) -> tuple:
+    """Start ``python -m crdt_tpu_torch.analysis --check-baseline *args``
+    in a process of its own, read to its end on a thread of ``pool``:
+    (the process, a future of (exit code, stdout, stderr, wall s, the
+    linter's own "analyzed in" s))."""
+    import re
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "crdt_tpu_torch.analysis",
+                             "--check-baseline", *args], cwd=root,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def read() -> tuple:
+        out, err = proc.communicate(timeout=180)
+        wall = time.perf_counter() - t0
+        analyzed = re.search(r"analyzed in ([0-9.]+)s", out)
+        return (proc.returncode, out, err, wall,
+                float(analyzed.group(1)) if analyzed else math.nan)
+
+    return proc, pool.submit(read)
+
+
+def lint_phase(card: str) -> dict:
+    """Phase 25: (a) the linter's baseline gate in a process of its own,
+    its findings by rule == the committed baseline's, 0 errors; (b) the
+    crdtflow rules alone against their 60 s budget; (c) every registered
+    join's graph clean in process; (d) the race detector's static bridge
+    resolves the port's classes; (a) and (b) run beside (c) and (d); one
+    {"lint": ...} JSON line."""
+    from collections import Counter
+    from concurrent.futures import ThreadPoolExecutor
+
+    from crdt_tpu_torch import analysis
+    from crdt_tpu_torch.analysis import baseline, fx_checks
+    from crdt_tpu_torch.analysis.verify import race
+    from crdt_tpu_torch.ops.joins import registered_joins
+
+    t_phase = time.perf_counter()
+    log(f"phase 25 (the lint tiers): budget {LINT_BUDGET_S} s")
+    root = Path(__file__).resolve().parent
+    run_dir = root / LINT_RUN_DIR
+    run_dir.mkdir(parents=True, exist_ok=True)
+    sarif = run_dir / "lint.sarif"
+
+    # the two gates run in processes of their own while (c) and (d) run
+    # here: the card's host has 8 cores, and each wall includes the others'
+    # contention
+    pool = ThreadPoolExecutor(2)
+    gates = [lint_gate(pool, root, "--sarif", str(sarif)),
+             lint_gate(pool, root, "--rules", FLOW_RULES)]
+    try:
+        t0 = time.perf_counter()
+        graph = fx_checks.check_registered_joins(analysis.repo_root())
+        fx_s = time.perf_counter() - t0
+        if graph != []:
+            raise AssertionError("(c) " + "; ".join(f.render() for f in graph))
+        n_joins = len(registered_joins())
+        t0 = time.perf_counter()
+        static = race.watch_from_static()
+        static_s = time.perf_counter() - t0
+        points = sorted(f"{c.__module__}.{c.__name__}.{a}" for c, a in static)
+        if not points or not all(p.startswith("crdt_tpu_torch.") for p in points):
+            raise AssertionError(f"(d) race.watch_from_static() resolved {points}")
+        (rc, out, err, gate_s, gate_analyzed), (frc, fout, ferr, flow_s, flow_analyzed) = \
+            [done.result() for _, done in gates]
+    finally:
+        for proc, _ in gates:
+            if proc.poll() is None:
+                proc.kill()
+        pool.shutdown()
+
+    if rc != 0:
+        raise AssertionError(f"(a) --check-baseline exited {rc}: {out[-3000:]}{err[-2000:]}")
+    results = json.loads(sarif.read_text())["runs"][0]["results"]
+    by_rule = dict(sorted(Counter(r["ruleId"] for r in results).items()))
+    errors = sum(1 for r in results if r["level"] == "error")
+    committed = dict(sorted(Counter(e["rule"] for e in baseline.load().values()).items()))
+    if errors or by_rule != committed:
+        raise AssertionError(f"(a) findings by rule {by_rule} ({errors} errors) != the "
+                             f"committed baseline's {committed}")
+    log(f"(a) python -m crdt_tpu_torch.analysis --check-baseline: exit 0, "
+        f"{out.strip().splitlines()[-1]}; by rule {by_rule} == the committed baseline's, "
+        f"0 errors; wall {gate_s:.2f} s (analyzed in {gate_analyzed:.2f} s) [{card}]")
+    if frc != 0 or flow_s > FLOW_BUDGET_S:
+        raise AssertionError(f"(b) --rules {FLOW_RULES} --check-baseline exited {frc} in "
+                             f"{flow_s:.2f} s (budget {FLOW_BUDGET_S} s): "
+                             f"{fout[-3000:]}{ferr[-2000:]}")
+    log(f"(b) --rules {FLOW_RULES} --check-baseline: exit 0, "
+        f"{fout.strip().splitlines()[-1]}; wall {flow_s:.2f} s (analyzed in "
+        f"{flow_analyzed:.2f} s) of the {FLOW_BUDGET_S} s budget")
+    log(f"(c) fx_checks.check_registered_joins: [] over {n_joins} joins' make_fx graphs "
+        f"(torch {torch.__version__}), {fx_s:.2f} s")
+    log(f"(d) race.watch_from_static(): {len(points)} watch points {points} "
+        f"({static_s:.2f} s)")
+
+    line = {"card": card, "check_baseline_s": gate_s, "analyzed_s": gate_analyzed,
+            "findings_by_rule": by_rule, "errors": errors, "flow_rules_s": flow_s,
+            "flow_rules_analyzed_s": flow_analyzed, "flow_budget_s": FLOW_BUDGET_S,
+            "graph_s": fx_s, "joins": n_joins, "static_watch": points, "static_s": static_s,
+            "phase_s": time.perf_counter() - t_phase}
+    log(f"phase 25: {line['phase_s']:.1f} s (budget {LINT_BUDGET_S} s) [{card}]")
+    log(json.dumps({"lint": line}))
     return line
 
 
@@ -5410,6 +5539,7 @@ def main() -> int:
     hr_phase(card)
     md_phase(card)
     verify_phase(card)
+    lint_phase(card)
 
     print(card, flush=True)
     log(json.dumps({"kernels": rows}))

@@ -1,5 +1,19 @@
-"""The analysis CLI: ``python -m crdt_tpu_torch.analysis`` (counterpart of
-``crdt_tpu.analysis.__main__``).
+"""crdtlint CLI: ``python -m crdt_tpu_torch.analysis`` (counterpart of
+``crdt_tpu.analysis.__main__``, the same argv).
+
+Modes
+    (default)            run all layers, print findings, exit 1 if any
+    --check-baseline     exit 0 iff nothing NEW vs analysis/baseline.json
+                         (the gate; stale entries are reported but pass)
+    --write-baseline     regenerate the baseline from the current tree
+    --json               machine-readable output (findings + fingerprints)
+    --sarif PATH         also write findings as SARIF 2.1.0
+    --no-jaxpr           AST/concurrency/flow layers only (skips the
+                         join-graph layer, fx_checks; the name is JAX's)
+    --rules CRDT001,...  restrict to a rule subset
+    --list-rules         the rule table
+    PATHS                files or directories (default: the crdt_tpu_torch
+                         package)
 
 Subcommand ``verify`` (crdtprove, lattice-law verification):
     verify                    recompute verdicts (ledger-cached), exit 1 on
@@ -10,9 +24,6 @@ Subcommand ``verify`` (crdtprove, lattice-law verification):
                               ledger entry (no bit-blasting)
     verify --json / --sarif   machine-readable verdicts / findings
     verify --device DEV       where the sweeps run (default: the CUDA card)
-
-Every other invocation is the linter, whose tiers are not ported (ROADMAP
-Queue 1 item 8): it exits 2 naming them.
 """
 from __future__ import annotations
 
@@ -20,39 +31,22 @@ import argparse
 import json
 import pathlib
 import sys
+import time
 
 from crdt_tpu_torch import analysis
-from crdt_tpu_torch.analysis import Finding
-
-LINT_NOT_PORTED = (
-    "python -m crdt_tpu_torch.analysis: the lint tiers (ast_checks, "
-    "concurrency, flow, the join-graph checks, the suppression baseline) are "
-    "not ported (ROADMAP Queue 1 item 8); only the `verify` subcommand is")
-
-
-def _join_location(spec):
-    """(relpath, line) of a join's def, repo-relative, so SARIF
-    annotations land on the source."""
-    import inspect
-
-    try:
-        fn = inspect.unwrap(spec.join)
-        src_file = pathlib.Path(inspect.getsourcefile(fn) or "?")
-        line = inspect.getsourcelines(fn)[1]
-        return src_file.resolve().relative_to(analysis.repo_root()).as_posix(), line
-    except (TypeError, OSError, ValueError):
-        return "crdt_tpu_torch/ops/joins.py", 1
+from crdt_tpu_torch.analysis import RULES, Finding, baseline
 
 
 def _ledger_findings(led, registry) -> list:
     """Ledger state as CRDT301/CRDT302 findings (the Finding/SARIF
     language of the analysis layer)."""
+    from crdt_tpu_torch.analysis.fx_checks import join_location
     from crdt_tpu_torch.analysis.verify import prove
 
     findings = []
     entries = (led or {}).get("joins", {})
     for name, spec in sorted(registry.items()):
-        relpath, line = _join_location(spec)
+        relpath, line = join_location(spec, analysis.repo_root())
         entry = entries.get(name)
         if entry is None:
             findings.append(Finding(
@@ -171,8 +165,94 @@ def main(argv=None) -> int:
         argv = sys.argv[1:]
     if argv and argv[0] == "verify":
         return verify_main(argv[1:])
-    print(LINT_NOT_PORTED, file=sys.stderr)
-    return 2
+
+    ap = argparse.ArgumentParser(
+        prog="python -m crdt_tpu_torch.analysis",
+        description="crdtlint: device-hazard, concurrency and lock-flow "
+                    "static analysis with a ratcheting baseline gate.",
+    )
+    ap.add_argument("paths", nargs="*",
+                    help="files/dirs to analyze (default: crdt_tpu_torch/)")
+    ap.add_argument("--json", action="store_true", dest="as_json",
+                    help="emit findings as JSON")
+    ap.add_argument("--check-baseline", action="store_true",
+                    help="exit 0 iff no findings outside the baseline")
+    ap.add_argument("--write-baseline", action="store_true",
+                    help="regenerate the suppressions file from this tree")
+    ap.add_argument("--baseline", type=pathlib.Path,
+                    default=baseline.DEFAULT_BASELINE)
+    ap.add_argument("--sarif", type=pathlib.Path, default=None,
+                    help="also write findings as SARIF 2.1.0")
+    ap.add_argument("--no-jaxpr", action="store_true",
+                    help="skip the join-graph layer (no make_fx traces)")
+    ap.add_argument("--rules", type=str, default=None,
+                    help="comma-separated rule subset (e.g. CRDT001,CRDT201)")
+    ap.add_argument("--list-rules", action="store_true")
+    args = ap.parse_args(argv)
+
+    if args.list_rules:
+        for rule, desc in sorted(RULES.items()):
+            print(f"{rule}  [{analysis.SEVERITY.get(rule, 'warn'):5s}]  {desc}")
+        return 0
+
+    roots = [pathlib.Path(p) for p in args.paths] or None
+    rules = args.rules.split(",") if args.rules else None
+    t0 = time.perf_counter()
+    findings = analysis.run_all(roots, jaxpr=not args.no_jaxpr, rules=rules)
+    elapsed = time.perf_counter() - t0
+    if not args.as_json:
+        # the chip smoke records this wall against the 60 s crdtflow budget
+        print(f"crdtlint: analyzed in {elapsed:.2f}s"
+              f"{' (rules: ' + args.rules + ')' if args.rules else ''}")
+
+    if args.sarif:
+        from crdt_tpu_torch.analysis import sarif as sarif_mod
+
+        sarif_mod.write_sarif(findings, args.sarif)
+
+    if args.write_baseline:
+        n = baseline.save(findings, args.baseline)
+        print(f"crdtlint: wrote {n} baseline entr{'y' if n == 1 else 'ies'} "
+              f"to {args.baseline}")
+        return 0
+
+    if args.check_baseline:
+        new, stale = baseline.diff(findings, args.baseline)
+        if rules:
+            # a rules-filtered run can't see the other layers' findings,
+            # so their baseline entries are absent by construction, not
+            # stale — only report staleness for the active subset
+            keep = set(rules)
+            stale = [e for e in stale if e.get("rule") in keep]
+        if args.as_json:
+            print(json.dumps({
+                "new": [dict(f.to_dict(), fingerprint=fp)
+                        for f, fp in baseline.fingerprints(new)],
+                "stale": stale,
+                "total": len(findings),
+            }, indent=1))
+        else:
+            for f in new:
+                print(f.render())
+            for e in stale:
+                print(f"crdtlint: stale baseline entry {e['fingerprint']} "
+                      f"({e['rule']} {e['path']} {e.get('scope', '')}) — "
+                      f"fixed? ratchet it out with --write-baseline")
+            print(f"crdtlint: {len(findings)} finding(s), {len(new)} new, "
+                  f"{len(stale)} stale baseline entr"
+                  f"{'y' if len(stale) == 1 else 'ies'}")
+        return 1 if new else 0
+
+    if args.as_json:
+        print(json.dumps(
+            [dict(f.to_dict(), fingerprint=fp)
+             for f, fp in baseline.fingerprints(findings)], indent=1))
+    else:
+        for f in findings:
+            print(f.render())
+        errors = sum(1 for f in findings if f.severity == "error")
+        print(f"crdtlint: {len(findings)} finding(s) ({errors} error)")
+    return 1 if findings else 0
 
 
 if __name__ == "__main__":

@@ -122,22 +122,32 @@ def _leaf_avals(state) -> list:
     return [(tuple(x.shape), str(x.dtype)) for x in leaves(state)]
 
 
-def join_fingerprint(spec) -> str:
-    """Line-drift-stable identity of a join's traced body: sha1 over the
-    alpha-renamed, commutativity-canonicalized ``make_fx`` graph of
-    ``spec.join`` on ``spec.example(device="cpu")`` plus the operand
-    layouts.  Changes iff the join's computation (or its registered state
-    layout) changes: the ledger's cache key."""
+def trace_join(spec, swapped: bool = False):
+    """``(gm, a, b)``: the ``make_fx`` aten graph of ``spec.join(a, b)``
+    (``spec.join(b, a)`` when ``swapped``) on ``spec.example(device="cpu")``,
+    over the operands' flattened leaves in the order a's then b's, and the
+    operands.  The one trace the fingerprint and the graph lint tier
+    (``analysis.fx_checks``) read."""
     from torch.fx.experimental.proxy_tensor import make_fx
 
     a, b = spec.example(device="cpu")
     la, lb = leaves(a), leaves(b)
 
     def flat(*xs):
-        out = spec.join(joins._unflatten(a, xs[:len(la)]), joins._unflatten(b, xs[len(la):]))
+        x, y = joins._unflatten(a, xs[:len(la)]), joins._unflatten(b, xs[len(la):])
+        out = spec.join(y, x) if swapped else spec.join(x, y)
         return tuple(leaves(out))
 
-    gm = make_fx(flat)(*la, *lb)
+    return make_fx(flat)(*la, *lb), a, b
+
+
+def join_fingerprint(spec) -> str:
+    """Line-drift-stable identity of a join's traced body: sha1 over the
+    alpha-renamed, commutativity-canonicalized ``make_fx`` graph of
+    ``spec.join`` on ``spec.example(device="cpu")`` plus the operand
+    layouts.  Changes iff the join's computation (or its registered state
+    layout) changes: the ledger's cache key."""
+    gm, a, b = trace_join(spec)
     payload = ("\n".join(_canonical_lines(gm))
                + repr(_leaf_avals(a)) + repr(_leaf_avals(b)))
     return hashlib.sha1(payload.encode()).hexdigest()[:16]

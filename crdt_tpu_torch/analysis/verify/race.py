@@ -37,9 +37,9 @@ accessor's own clock component at access time.  A prior access
 among them is a race witness.
 
 The bridge from the static lint (``watch_from_static``, and
-``install(include_static=True)``) needs the CRDT201 concurrency lint,
-which comes with the lint tiers (ROADMAP Queue 1 item 8): until then it
-raises.
+``install(include_static=True)``) turns the port's CRDT201 findings
+("self.X written in Class.method without a lock") into watch points on
+the ``crdt_tpu_torch`` classes they name.
 """
 from __future__ import annotations
 
@@ -500,17 +500,36 @@ DEFAULT_WATCH: Sequence[Tuple[str, str, Tuple[str, ...]]] = (
     ("crdt_tpu_torch.obs.provenance", "BirthLedger", ("_steps",)),
 )
 
-STATIC_NOT_PORTED = (
-    "race.watch_from_static needs the CRDT201 concurrency lint, which is not "
-    "ported (ROADMAP Queue 1 item 8: the lint tiers)")
-
-
 def watch_from_static() -> List[Tuple[type, str]]:
     """Bridge from CRDT201: map the static lint's findings ("self.X
     written in Class.method without a lock") to concrete (class, attr)
-    watch points.  The lint comes with the lint tiers: until then this
-    raises."""
-    raise NotImplementedError(STATIC_NOT_PORTED)
+    watch points on the port's classes, best-effort (unresolvable scopes
+    are skipped)."""
+    import importlib
+
+    from crdt_tpu_torch.analysis import concurrency, iter_py_files, package_root, repo_root
+
+    findings = concurrency.check_files(iter_py_files([package_root()]), repo_root())
+    points: List[Tuple[type, str]] = []
+    seen = set()
+    for f in findings:
+        if f.rule != "CRDT201" or "." not in f.scope:
+            continue
+        cls_name = f.scope.split(".")[0]
+        if not f.detail.startswith("self."):
+            continue
+        attr = f.detail[len("self."):].split(".")[0].split("(")[0]
+        # f.path is repo-relative, e.g. "crdt_tpu_torch/api/net.py"
+        mod_name = f.path.removesuffix(".py").replace("/", ".")
+        try:
+            cls = getattr(importlib.import_module(mod_name), cls_name)
+        except (ImportError, AttributeError):
+            continue
+        if not isinstance(cls, type) or (cls, attr) in seen:
+            continue
+        seen.add((cls, attr))
+        points.append((cls, attr))
+    return points
 
 
 def _resolve_default_watch() -> List[Tuple[type, str]]:

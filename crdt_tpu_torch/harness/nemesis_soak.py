@@ -105,9 +105,10 @@ state, vv, wire-call census and report counters in both packages.
 ``--race-check`` runs the fleet under the witnessed-race detector
 (:mod:`crdt_tpu_torch.analysis.verify.race`), installed before the fleet
 is built, and fails on any witness or on a run that touched no watched
-attribute.  The JAX package also maps each witness to its static
-lock-discipline findings (crdtflow); that cross-check comes with the lint
-tiers (ROADMAP Queue 1 item 8).  ``--ks-mesh on`` folds the keyspace's
+attribute; each witness is mapped to the static lock-discipline findings
+covering its frames (crdtflow, ``analysis.flow.bridge_report``), and an
+uncovered one is named as a blind spot of the static pass.  ``--ks-mesh
+on`` folds the keyspace's
 shards through the mesh plane (:mod:`crdt_tpu_torch.parallel.meshplane`).
 
     python -m crdt_tpu_torch.harness.nemesis_soak --nodes 3 --steps 120 --device cuda
@@ -2899,21 +2900,37 @@ def main(argv=None) -> int:
 
 def _race_check(seed: int, race) -> None:
     """Fail the seed on any witness, or on a run that touched no watched
-    attribute (a check that observed nothing proves nothing)."""
+    attribute (a check that observed nothing proves nothing); map every
+    witness to the static CRDT210-213 finding covering its frames
+    (crdtflow) and say which are uncovered."""
+    from crdt_tpu_torch.analysis import flow as flow_mod
+
     rpt = race.report()
     reads = sum(c["reads"] for c in rpt["access_counts"].values())
     writes = sum(c["writes"] for c in rpt["access_counts"].values())
     assert reads + writes > 0, (
         "race detector observed zero watched accesses: "
         "instrumentation dead or watch list empty")
+    # a witness the static pass has no finding for is a GAP in the
+    # lock-discipline analysis: say so loudly either way
+    rpt["flow"] = flow_mod.bridge_report(rpt["witnesses"])
     if rpt["witness_count"]:
-        for w in rpt["witnesses"]:
+        for w, m in zip(rpt["witnesses"], rpt["flow"]["mapped"]):
             print(w)
+            if m["covered"]:
+                print("[nemesis] flow: witness covered by " + "; ".join(m["covered_by"]))
+            else:
+                print("[nemesis] flow: witness UNCOVERED by crdtflow (CRDT210-213) — "
+                      "static lock-discipline analysis has a blind spot here; file it "
+                      "against analysis/flow.py")
         raise AssertionError(
             f"seed {seed}: {rpt['witness_count']} witnessed race(s) on shared "
-            f"runtime state (above)")
+            f"runtime state (above); {rpt['flow']['uncovered_count']} uncovered by "
+            f"static flow analysis")
     print(f"[nemesis] race-check OK: 0 witnesses over {reads} reads / "
-          f"{writes} writes across {len(rpt['access_counts'])} watchpoints")
+          f"{writes} writes across {len(rpt['access_counts'])} watchpoints "
+          f"(flow cross-check: {rpt['flow']['witness_count']} witnesses mapped, "
+          f"{rpt['flow']['uncovered_count']} uncovered)")
     race.reset()
 
 

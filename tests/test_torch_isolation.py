@@ -80,7 +80,9 @@ def test_scan_sees_the_whole_package():
             "fleet.py", "schedule.py", "transport.py", "disk.py", "assemble.py",
             "crashsoak.py", "nemesis_soak.py", "meshplane.py", "tracing.py",
             "mesh.py", "multihost.py", "pipeline.py", "sarif.py", "baseline.py",
-            "domains.py", "prove.py", "ledger.py", "race.py"} <= names
+            "domains.py", "prove.py", "ledger.py", "race.py", "astcache.py",
+            "ast_checks.py", "concurrency.py", "flow.py", "fx_checks.py",
+            "hazards.py"} <= names
     assert ROOT / "crdt_tpu_torch" / "native" / "__init__.py" in PORT_FILES
     assert ROOT / "crdt_tpu_torch" / "obs" / "__main__.py" in PORT_FILES
 

@@ -100,8 +100,9 @@ def test_replay_check_cli_and_summary(tmp_path, capsys):
 def test_race_check_refused_naming_item_8(capsys):
     """(Named for the refusal it replaced.)  ``--race-check`` runs the
     default arm under the witnessed-race detector: 0 witnesses over a
-    non-zero count of watched accesses, and the detector uninstalled
-    after the run."""
+    non-zero count of watched accesses, the crdtflow cross-check's
+    section (0 witnesses mapped, 0 uncovered), and the detector
+    uninstalled after the run."""
     import threading
 
     from crdt_tpu_torch.analysis.verify import race
@@ -112,6 +113,7 @@ def test_race_check_refused_naming_item_8(capsys):
     [line] = [ln for ln in out.splitlines() if "race-check OK" in ln]
     reads, writes = (int(x) for x in re.findall(r"(\d+) (?:reads|writes)", line))
     assert "0 witnesses" in line and reads + writes > 0
+    assert "(flow cross-check: 0 witnesses mapped, 0 uncovered)" in line
     assert threading.Lock is not race._TracedLock and not race._ENABLED
 
 

@@ -243,13 +243,18 @@ def test_verify_cli_exit_codes(tmp_path, monkeypatch, capsys):
 
 def test_verify_cli_needs_a_card_or_a_device_and_refuses_the_linter(monkeypatch, capsys):
     """Without a card and without --device a recompute raises (no quiet
-    fallback to the CPU); the lint subcommands exit 2 naming item 8."""
+    fallback to the CPU); the linter needs no card: it runs every layer
+    (the join-graph one over the registry at hand), exits 1 on the tree's
+    baselined warns and 0 against the committed baseline."""
     monkeypatch.setattr(joins_mod, "registered_joins", _tiny_registry)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["verify", "--no-cache", "--ledger", "/nonexistent/verdicts.json"])
-    assert cli.main([]) == 2 and cli.main(["--check-baseline"]) == 2
-    assert "ROADMAP Queue 1 item 8" in capsys.readouterr().err
+    capsys.readouterr()
+    assert cli.main([]) == 1
+    assert "finding(s) (0 error)" in capsys.readouterr().out
+    assert cli.main(["--check-baseline"]) == 0
+    assert ", 0 new, 0 stale baseline entries" in capsys.readouterr().out
 
 
 def test_committed_ledger_gate_passes_through_the_cli(capsys):
@@ -362,7 +367,9 @@ def test_race_detector_accepts_event_handoff():
 def test_race_detector_runtime_watchpoints_resolve():
     """DEFAULT_WATCH resolves against the port's live runtime modules,
     class for class and attribute for attribute as JAX's; the static
-    bridge waits for the lint tiers."""
+    bridge resolves the port's CRDT201 findings to the port's classes,
+    JAX's points plus the port-only router memo (baselined CRDT201), and
+    ``install(include_static=True)`` watches them all."""
     import inspect
 
     from crdt_tpu.analysis.verify import race as jrace
@@ -376,10 +383,18 @@ def test_race_detector_runtime_watchpoints_resolve():
         src = inspect.getsource(cls.__init__)
         slots = getattr(cls, "__slots__", ())
         assert attr in slots or hasattr(cls, attr) or f"self.{attr}" in src, (cls, attr)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
-        race.watch_from_static()
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
-        race.install(include_static=True)
+    static = race.watch_from_static()
+    assert all(c.__module__.startswith("crdt_tpu_torch.") for c, _ in static)
+    mine = {(c.__name__, a) for c, a in static}
+    theirs = {(c.__name__, a) for c, a in jrace.watch_from_static()}
+    assert theirs and mine - theirs == {("RendezvousRouter", "_owners")}
+    assert theirs <= mine
+    try:
+        n = race.install(include_static=True)
+        assert n == len(set(points) | set(static)) > len(points)
+        assert race._ENABLED
+    finally:
+        race.uninstall()
     assert not race._ENABLED
 
 
