@@ -3,7 +3,8 @@ union floors, the counter and register family, the replica-node cluster,
 the join registry, the typed sibling nodes, the reference's HTTP surface,
 the network daemon, the keyspace tier, the fault plane's soaks, the
 native host runtime, the mesh plane, the multi-device layer, the prover,
-the race detector and the lint tiers on a CUDA card and check them.
+the race detector, the lint tiers and the telemetry opt-out on a CUDA card
+and check them.
 
     python3 chip_smoke.py
 
@@ -264,7 +265,24 @@ Phases (any failure exits non-zero and prints no result):
     crdtflow budget; (c) ``fx_checks.check_registered_joins`` == [] in
     process on this machine's torch; (d) ``race.watch_from_static()``
     resolves the port's classes; (a) and (b) run in their processes while
-    (c) and (d) run; one ``{"lint": ...}`` JSON line.
+    (c) and (d) run; one ``{"lint": ...}`` JSON line;
+26. the telemetry opt-out (budget 45 s): benches/bench_obs_overhead.py's
+    A/Bs on the card, 5 interleaved blocks an arm with the collector
+    paused inside each, the best block's µs a round an arm and the
+    overhead beside the JAX package's 5% bar (a measurement, not a gate):
+    (a) ``_run_block`` (a writer and a puller, one command and one delta
+    ``pull_round`` a round, a BirthLedger installed; 150 rounds) with a
+    live registry against ``NULL_REGISTRY``, (b) ``_run_ks_block`` (two
+    keyspaces of 2 shards, a tenant door draining each admit inline, a
+    held lease; 75 rounds) the same way, (c) ``_run_audit_block`` (the
+    audit plane on against off, a live registry in both, a frontier fold
+    every 16 rounds; 150 rounds); after every block each view == the
+    oracle's fold of its writes and == the first block's, node by node
+    (vv and frontier too), the null arm recorded nothing (no series, rate
+    mark or birth, the recorders off), a live arm's
+    ``crdt_merge_dispatches_total`` == its merges (a write or admit each,
+    and each pull that merged), the audited arm's watchdog in agreement;
+    one ``{"optout": ...}`` JSON line.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -3319,6 +3337,18 @@ class Daemons:
                 codes.append(p.wait())
         return codes
 
+    def failures(self, codes: list, lines: int = 30) -> str:
+        """The end of the last boot's stderr of each daemon whose exit code
+        is not 0 (``codes`` as :meth:`stop` returns them)."""
+        live = [i for i, p in enumerate(self.procs) if p is not None]
+        out = []
+        for i, code in zip(live, codes):
+            if code:
+                err = self.root / f"stderr{i}-{self.boots[i] - 1}.txt"
+                tail = err.read_text(errors="replace").splitlines()[-lines:]
+                out.append(f"daemon {i} exited {code}; {err.name} ends:\n" + "\n".join(tail))
+        return "\n".join(out)
+
 
 def card_memory_by_pid() -> dict:
     """{pid: MiB} of the card's compute processes, as ``nvidia-smi
@@ -3618,7 +3648,7 @@ def net_phase_daemons(card: str, root) -> dict:
         codes = fleet.stop()
     if any(c != 0 for c in codes):
         raise AssertionError(f"daemon exit codes {codes} (a nonzero code: a failure raised by "
-                             f"stop(); stderr in {root})")
+                             f"stop(); stderr in {root})\n{fleet.failures(codes)}")
     return out
 
 
@@ -4268,7 +4298,8 @@ def ks_phase(card: str) -> dict:
     finally:
         codes = fleet.stop()
     if any(c != 0 for c in codes):
-        raise AssertionError(f"daemon exit codes {codes} (stderr in {root})")
+        raise AssertionError(f"daemon exit codes {codes} (stderr in {root})\n"
+                             f"{fleet.failures(codes)}")
     line["statuses"] = {str(k): v for k, v in tally.statuses.items()}
     line["phase_s"] = time.perf_counter() - t_phase
     log(f"phase 19: {line['phase_s']:.1f} s (budget {KS_BUDGET_S} s)")
@@ -5497,6 +5528,259 @@ def lint_phase(card: str) -> dict:
     return line
 
 
+OPTOUT_BUDGET_S = 45
+OPTOUT_BLOCKS = 5             # interleaved blocks an arm
+OPTOUT_ROUNDS = 150           # pull rounds a block, (a) and (c)
+OPTOUT_KS_ROUNDS = 75         # keyspace rounds a block, (b)
+OPTOUT_KS_TENANTS = ("t-acme", "t-bolt")
+OPTOUT_BAR_PCT = 5.0          # the JAX package's acceptance bar (benches/bench_obs_overhead.py)
+
+
+def optout_fold(writes) -> dict:
+    """The oracle's view of ``writes`` (command dicts) landed on one replica."""
+    from crdt_tpu_torch.oracle import OracleReplica, Quirks
+
+    oracle = OracleReplica(0, Quirks())
+    for ts, cmd in enumerate(writes):
+        oracle.add_command(cmd, ts)
+    return OracleReplica.converged_state([oracle])
+
+
+def optout_timed(loop) -> float:
+    """Seconds of ``loop()`` with the collector paused (its pauses only add
+    time, at random places)."""
+    import gc
+
+    gc.collect()
+    gc.disable()
+    try:
+        t0 = time.perf_counter()
+        loop()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+    finally:
+        gc.enable()
+
+
+def optout_pull_block(rounds: int, registry, audit: bool = False) -> dict:
+    """benches/bench_obs_overhead.py's ``_run_block`` (``audit=False``: a
+    writer and a puller on one host clock sharing a Metrics over
+    ``registry``, a BirthLedger and step clock installed, one command and
+    one delta ``pull_round`` a round) or its ``_run_audit_block``
+    (``audit=True``, or the same loop with the audit off: a live registry,
+    both nodes' digests, a watchdog noting the writer's (vv, frontier,
+    digest) every round and evaluating every 8th, and in both a frontier
+    fold every 16th round) on the card; one warm round untimed."""
+    from crdt_tpu_torch.api.node import ReplicaNode, pull_round
+    from crdt_tpu_torch.obs.audit import AuditWatchdog
+    from crdt_tpu_torch.obs.provenance import BirthLedger
+    from crdt_tpu_torch.obs.trace import mint_trace_id
+    from crdt_tpu_torch.utils.clock import HostClock
+    from crdt_tpu_torch.utils.metrics import Metrics
+
+    clock = HostClock()
+    metrics = Metrics(registry=registry)
+    writer = ReplicaNode(rid=0, clock=clock, metrics=metrics, device="cuda")
+    puller = ReplicaNode(rid=1, clock=clock, metrics=metrics, device="cuda")
+    ledger = BirthLedger()
+    fold_every = 0 if audit is None else 16
+    watchdog = None
+    if audit is None:  # (a): the recorder in the hottest configuration a soak runs
+        for node in (writer, puller):
+            node.recorder.install(ledger=ledger, step_clock=lambda: 0)
+    elif audit:
+        writer.enable_audit()
+        puller.enable_audit()
+        watchdog = AuditWatchdog(puller)
+    writes = [{"warm": "1"}] + [{f"k{i % 8}": str(i)} for i in range(rounds)]
+    writer.add_command(writes[0])
+    fresh = [pull_round(puller, writer.gossip_payload, metrics, delta=True, peer="0",
+                        trace=mint_trace_id(1))]
+    if fold_every:
+        f0 = writer.version_vector()
+        writer.compact(f0)
+        puller.compact(f0)
+    if watchdog is not None:
+        watchdog.note_host("http://writer", *writer.audit_snapshot()[1:])
+
+    def loop():
+        for i in range(rounds):
+            writer.add_command(writes[1 + i])
+            fresh.append(pull_round(puller, writer.gossip_payload, metrics, delta=True,
+                                    peer="0", trace=mint_trace_id(1)))
+            if fold_every and i % fold_every == fold_every - 1:
+                f = writer.version_vector()
+                writer.compact(f)
+                puller.compact(f)
+            if watchdog is not None:
+                watchdog.note_host("http://writer", *writer.audit_snapshot()[1:])
+                if i % 8 == 7:
+                    watchdog.evaluate()
+
+    seconds = optout_timed(loop)
+    return {"seconds": seconds, "nodes": (writer, puller), "metrics": metrics,
+            "ledgers": [ledger], "writes": writes, "merges": len(writes) + sum(fresh),
+            "watchdog": watchdog}
+
+
+def optout_ks_block(rounds: int, registry) -> dict:
+    """benches/bench_obs_overhead.py's ``_run_ks_block`` on the card: two
+    ``ShardedKeyspace``s of 2 shards (capacity 4096, the host path) sharing
+    a Metrics over ``registry``, a per-shard BirthLedger, a tenant front
+    door draining each admit inline (max_batch 1), a lease held on slot 0;
+    a round admits a write for each of two tenants, re-checks the lease
+    and its push fence, and pulls both shards."""
+    from crdt_tpu_torch.api.node import pull_round
+    from crdt_tpu_torch.consistency.leases import LeaseManager
+    from crdt_tpu_torch.keyspace import KeyspaceFrontDoor, ShardedKeyspace, qualify
+    from crdt_tpu_torch.obs.provenance import BirthLedger
+    from crdt_tpu_torch.obs.trace import mint_trace_id
+    from crdt_tpu_torch.utils.clock import HostClock
+    from crdt_tpu_torch.utils.metrics import Metrics
+
+    clock = HostClock()
+    metrics = Metrics(registry=registry)
+    n_shards = 2
+    kss = [ShardedKeyspace(rid, n_shards, capacity=4096, metrics=metrics, clock=clock,
+                           mesh="off", device="cuda") for rid in (0, 1)]
+    writer, puller = kss
+    step = {"n": 0}
+    ledgers = [BirthLedger() for _ in range(n_shards)]
+    for ks in kss:
+        for i, shard in enumerate(ks.shards):
+            shard.recorder.install(ledger=ledgers[i], step_clock=lambda: step["n"])
+    door = KeyspaceFrontDoor(writer, max_batch=1, flush_deadline_s=60.0, metrics=metrics,
+                             node="0")
+    leases = LeaseManager(writer.shards[0], n_slots=1, duration=3600.0, metrics=metrics)
+    leases.attach("http://self", lambda: [])
+    fence = leases.ensure(0)
+    if fence is None:
+        raise AssertionError("(b) a one-member lease was not granted")
+    writes = [(t, "warm", "1") for t in OPTOUT_KS_TENANTS]
+    for t, k, v in writes:
+        door.admit_kv(t, k, v)
+    fresh = [pull_round(puller.shards[s], writer.shards[s].gossip_payload, metrics,
+                        delta=True, peer="0", trace=mint_trace_id(1))
+             for s in range(n_shards)]
+
+    def loop():
+        for i in range(rounds):
+            step["n"] = i
+            for t in OPTOUT_KS_TENANTS:
+                door.admit_kv(t, f"k{i % 8}", str(i))
+                writes.append((t, f"k{i % 8}", str(i)))
+            if leases.ensure(0) != fence:
+                raise AssertionError("(b) the held lease's fence moved")
+            leases.check_push_fences({0: fence})
+            for s in range(n_shards):
+                fresh.append(pull_round(puller.shards[s], writer.shards[s].gossip_payload,
+                                        metrics, delta=True, peer="0",
+                                        trace=mint_trace_id(1)))
+
+    seconds = optout_timed(loop)
+    return {"seconds": seconds, "nodes": tuple(s for ks in kss for s in ks.shards),
+            "metrics": metrics, "ledgers": ledgers,
+            "writes": [{qualify(t, k): v} for t, k, v in writes],
+            "merges": len(writes) + sum(fresh), "watchdog": None}
+
+
+def optout_check(label: str, arm: str, out: dict, want: dict, first: dict | None) -> None:
+    """A block's ``==`` checks: every node's view == the oracle's fold
+    (a keyspace's shards together) and == ``first``'s, node by node (vv
+    and frontier too); the null arm recorded nothing (no series, no rate
+    mark, no birth, the recorders off); a live arm counted every merge (a
+    write or admit each, and each pull that merged fresh ops), and an
+    audited arm's watchdog saw only agreement."""
+    from crdt_tpu_torch.obs.audit import AUDIT_OK
+
+    nodes = out["nodes"]
+    if len(nodes) == 2:
+        views = [n.get_state() for n in nodes]
+    else:  # a keyspace pair: each member's shards together
+        half = len(nodes) // 2
+        views = [{k: v for n in part for k, v in n.get_state().items()}
+                 for part in (nodes[:half], nodes[half:])]
+    if any(v != want for v in views):
+        raise AssertionError(f"{label} {arm}: a view != the oracle's fold of "
+                             f"{len(out['writes'])} writes")
+    if first is not None:  # the first block of the A/B, either arm
+        for a, b in zip(nodes, first["nodes"]):
+            if (a.get_state() != b.get_state() or a.version_vector() != b.version_vector()
+                    or a.frontier != b.frontier):
+                raise AssertionError(f"{label} {arm}: node {a.rid} != the first block's")
+    reg = out["metrics"].registry
+    births = sum(len(lg) for lg in out["ledgers"])
+    if arm == "null":
+        if (reg.snapshot() != {} or out["metrics"].snapshot() != {} or out["metrics"]._samples
+                or births or any(n.recorder.enabled for n in nodes)):
+            raise AssertionError(f"{label} null: the null registry recorded something "
+                                 f"({births} births)")
+        return
+    if reg.counter_value("merge_dispatches") != out["merges"]:
+        raise AssertionError(f"{label} {arm}: crdt_merge_dispatches_total "
+                             f"{reg.counter_value('merge_dispatches')} != {out['merges']} merges")
+    if out["watchdog"] is not None and out["watchdog"].state != AUDIT_OK:
+        raise AssertionError(f"{label} {arm}: audit state {out['watchdog'].state}")
+
+
+def optout_ab(label: str, block, rounds: int, arms: tuple, card: str) -> dict:
+    """``OPTOUT_BLOCKS`` interleaved blocks of each arm ``(name, registry
+    factory, keywords)``, each checked against the oracle and the first
+    block; the best block's µs a round an arm and the overhead of the first
+    arm over the second."""
+    ref, best, merges = None, {}, {}
+    for _ in range(OPTOUT_BLOCKS):
+        for arm, registry, kw in arms:
+            out = block(rounds, registry(), **kw)
+            optout_check(label, arm, out, optout_fold(out["writes"]), ref)
+            ref = ref or out
+            merges[arm] = out["merges"]
+            best[arm] = min(best.get(arm, math.inf), out["seconds"])
+    us = {arm: best[arm] / rounds * 1e6 for arm, _, _ in arms}
+    (on, _, _), (off, _, _) = arms
+    pct = 100.0 * (us[on] - us[off]) / us[off]
+    merges = merges[on]
+    log(f"{label} {OPTOUT_BLOCKS} x {rounds} rounds an arm, interleaved, GC paused: "
+        f"{on} {us[on]:.1f} us/round, {off} {us[off]:.1f} us/round (best block); overhead "
+        f"{pct:+.2f}% (the JAX package's bar: <= {OPTOUT_BAR_PCT:.0f}%); every view == the "
+        f"oracle's fold and == across blocks and arms; {merges} merges counted [{card}]")
+    return {"rounds": rounds, "blocks": OPTOUT_BLOCKS, f"us_per_round_{on}": us[on],
+            f"us_per_round_{off}": us[off], "overhead_pct": pct, "merges": merges}
+
+
+def optout_phase(card: str) -> dict:
+    """Phase 26: (a) the pull-round block with a live registry against
+    NULL_REGISTRY, (b) the keyspace round the same way, (c) the audit plane
+    on against off with a live registry in both; one {"optout": ...} JSON
+    line."""
+    import gc
+
+    from crdt_tpu_torch.obs import NULL_REGISTRY, MetricsRegistry
+
+    t_phase = time.perf_counter()
+    log(f"phase 26 (the telemetry opt-out): budget {OPTOUT_BUDGET_S} s")
+    line = {"card": card, "bar_pct": OPTOUT_BAR_PCT}
+    null = (lambda: NULL_REGISTRY)
+    # the earlier phases' objects go to the permanent generation, so each
+    # block's collection before its timed loop scans only the block's own
+    gc.collect()
+    gc.freeze()
+    try:
+        line["pull"] = optout_ab("(a) pull round", optout_pull_block, OPTOUT_ROUNDS, (
+            ("live", MetricsRegistry, {"audit": None}), ("null", null, {"audit": None})), card)
+        line["keyspace"] = optout_ab("(b) keyspace round", optout_ks_block, OPTOUT_KS_ROUNDS, (
+            ("live", MetricsRegistry, {}), ("null", null, {})), card)
+        line["audit"] = optout_ab("(c) audit plane", optout_pull_block, OPTOUT_ROUNDS, (
+            ("on", MetricsRegistry, {"audit": True}), ("off", MetricsRegistry, {"audit": False})),
+            card)
+    finally:
+        gc.unfreeze()
+    line["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 26: {line['phase_s']:.1f} s (budget {OPTOUT_BUDGET_S} s) [{card}]")
+    log(json.dumps({"optout": line}))
+    return line
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -5540,6 +5824,7 @@ def main() -> int:
     md_phase(card)
     verify_phase(card)
     lint_phase(card)
+    optout_phase(card)
 
     print(card, flush=True)
     log(json.dumps({"kernels": rows}))

@@ -39,7 +39,7 @@ Layout (mirrors ``crdt_tpu``):
 - ``ingest``   — the front door: the op-page wire format, the admission
   lanes and the shed policy;
 - ``obs``      — the node's metrics registry and its Prometheus
-  exposition, trace spans, event log (with its JSONL sink), flight
+  exposition (and ``NULL_REGISTRY``, the telemetry opt-out), trace spans, event log (with its JSONL sink), flight
   recorder, health gauges and samplers, merge attribution, and ``audit``
   (the live divergence audit: the frontier-clamped digest of
   ``ops/digest`` and the watchdog);
@@ -84,3 +84,6 @@ def default_device(device=None) -> torch.device:
             "explicitly to build state on the CPU"
         )
     return torch.device("cuda")
+
+
+from crdt_tpu_torch.utils import constants  # noqa: E402,F401

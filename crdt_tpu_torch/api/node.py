@@ -1340,14 +1340,16 @@ class ReplicaNode:
         union_engine.record_union_path("sort")
         self._count_lane_fold()
         batch = oplog.from_ops(max(fresh, 1), ops, device=self.device)
-        t0 = time.perf_counter()
-        with devtime.dispatch_annotation("merge"):
+        timing = self.recorder.enabled
+        t0 = time.perf_counter() if timing else 0.0
+        with devtime.dispatch_annotation("merge", enabled=timing):
             merged, n_unique = oplog.merge_checked(self.log, batch)
         # int(n_unique) is a host sync, so t1 - t0 is the device + dispatch
         # wall time; the assert is the node's overflow check
         assert int(n_unique) <= self.log.capacity
-        devtime.observe_join(self.metrics.registry, str(self.rid),
-                             (self.log, batch), merged, time.perf_counter() - t0)
+        if timing:
+            devtime.observe_join(self.metrics.registry, str(self.rid),
+                                 (self.log, batch), merged, time.perf_counter() - t0)
         self.log = merged
         self._log_rows = int(n_unique)  # already synced by the assert
         self.metrics.inc("ops_ingested", fresh)

@@ -30,6 +30,9 @@ BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "native"
 CXX = "g++"
 CXX_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-shared")
 
+# True once this process has loaded the runtime (``lib()``); a node is
+# native by default all the same, and builds the library at first use
+AVAILABLE = False
 _lib: Optional[ctypes.CDLL] = None
 _LOCK = threading.Lock()
 
@@ -62,13 +65,14 @@ def _compile(target: Path) -> None:
 
 def lib() -> ctypes.CDLL:
     """The loaded runtime, built at first use."""
-    global _lib
+    global _lib, AVAILABLE
     with _LOCK:
         if _lib is None:
             target = library_path()
             if not target.exists():
                 _compile(target)
             _lib = _bind(ctypes.CDLL(str(target)))
+            AVAILABLE = True
         return _lib
 
 

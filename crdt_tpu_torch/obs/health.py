@@ -240,6 +240,20 @@ def sample_audit(registry, watchdog) -> None:
             registry.set_gauge("audit_plane_keys", float(len(dig.winner)), plane=plane)
 
 
+def sample_race_watch(registry) -> None:
+    """The witnessed-race detector's gauges (``analysis.verify.race``): the
+    witness count and each watched attribute's reads and writes, so a soak
+    can show the instrumentation was live (no witnesses over no watched
+    accesses proves nothing).  Only ``race_witnesses 0`` while the detector
+    is not installed."""
+    from crdt_tpu_torch.analysis.verify import race
+
+    registry.set_gauge("race_witnesses", float(len(race.witnesses())))
+    for attr, counts in sorted(race.access_counts().items()):
+        registry.set_gauge("race_watch_reads", float(counts["reads"]), attr=attr)
+        registry.set_gauge("race_watch_writes", float(counts["writes"]), attr=attr)
+
+
 def sample_union_paths(registry) -> None:
     """Delta-converge the process-global union-engine tallies
     (``ops.union_engine``: which engine served each join, and refused

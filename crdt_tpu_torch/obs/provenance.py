@@ -209,3 +209,26 @@ def propagation_summary(*registries) -> Dict[str, float]:
         out[f"propagation_{unit}_p50"] = round(merged.quantile(0.5), 6)
         out[f"propagation_{unit}_p99"] = round(merged.quantile(0.99), 6)
     return out
+
+
+def propagation_by_tenant(*registries) -> Dict[str, Dict[str, float]]:
+    """Per-tenant fold of the propagation histograms: only the series a
+    shard's recorder labeled with a tenant take part (the host plane's
+    unlabeled series are another tier, not tenant traffic).  Returns
+    ``{tenant: {steps_count, steps_p50, steps_p99, s_count, ...}}``."""
+    out: Dict[str, Dict[str, float]] = {}
+    for name, unit in (("op_propagation_steps", "steps"), ("op_propagation", "s")):
+        folds: Dict[str, object] = {}
+        for registry in registries:
+            for labels, h in registry.histograms(name):
+                tenant = labels.get("tenant")
+                if not tenant:
+                    continue
+                cur = folds.get(tenant)
+                folds[tenant] = h if cur is None else cur.merge(h)
+        for tenant, h in folds.items():
+            d = out.setdefault(tenant, {})
+            d[f"{unit}_count"] = h.count
+            d[f"{unit}_p50"] = round(h.quantile(0.5), 6)
+            d[f"{unit}_p99"] = round(h.quantile(0.99), 6)
+    return out

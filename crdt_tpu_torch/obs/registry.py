@@ -8,6 +8,12 @@ min, so a histogram is 33 ints; quantiles are bucket-upper-bound
 estimates, exact to one octave.  Callbacks registered with
 ``add_callback`` run at collection time (``snapshot`` and
 ``render_prometheus``).
+
+``NULL_REGISTRY`` is the telemetry opt-out: every recording method exists
+and does nothing, and every gate that reads ``registry.enabled`` (the
+flight recorder, the audit digest, the merge's device attribution, the
+rate marks of ``utils.metrics.Metrics``) stays off.  It is the control arm
+of the instrumentation-overhead measurement.
 """
 from __future__ import annotations
 
@@ -114,9 +120,8 @@ class MetricsRegistry:
     are always scrape-fresh without a background thread.
     """
 
-    # the flight recorder records while its registry is enabled (the JAX
-    # package's no-op registry, the instrumentation-overhead arm, is not
-    # ported)
+    # tells a real registry from NULL_REGISTRY without an isinstance check
+    # on every hot-path call
     enabled = True
 
     def __init__(self, namespace: str = "crdt"):
@@ -248,3 +253,27 @@ class MetricsRegistry:
 
 def _num(v: float) -> str:
     return str(int(v)) if float(v).is_integer() else repr(float(v))
+
+
+class NullRegistry(MetricsRegistry):
+    """Every recording method is a no-op: the control arm of the
+    instrumentation-overhead measurement, and an opt-out for embedding
+    where telemetry costs too much.  Reads behave like an always-empty
+    registry."""
+
+    enabled = False
+
+    def inc(self, name, value=1.0, **labels):
+        pass
+
+    def set_gauge(self, name, value, **labels):
+        pass
+
+    def observe(self, name, value, **labels):
+        pass
+
+    def add_callback(self, fn):
+        pass
+
+
+NULL_REGISTRY = NullRegistry()

@@ -115,3 +115,12 @@ def _sort_by_keys(keys, vals, n_keys):
     vals = tree_map(lambda v: v.gather(-1, perm), vals)
     return keys, vals
 
+
+def get_engine(name: str):
+    """The shared engine seam: a columnar set-union engine by name
+    ("sort" | "bucket" | "bitmap"); see :mod:`crdt_tpu_torch.ops.union_engine`
+    for the layouts and the auto-dispatch rule.  Imported when called, so
+    this module stays free of the engines' imports."""
+    from crdt_tpu_torch.ops import union_engine
+
+    return union_engine.get_engine(name)

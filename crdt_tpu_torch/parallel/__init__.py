@@ -8,3 +8,4 @@ the version drift of ``jax.shard_map`` and ``jax.distributed``, and the
 port uses neither.  Its ``distributed_is_initialized`` is
 ``torch.distributed.is_initialized()``.
 """
+from crdt_tpu_torch.parallel import mesh, swarm  # noqa: F401
