@@ -244,8 +244,9 @@ def lub_lane(col: ColumnarOpLog, alive: torch.Tensor | None = None):
     max_nu = torch.zeros((), dtype=torch.int32, device=col.hi.device)
     while p > 1:
         p //= 2
-        work, nu = merge_checked(_slice_lanes(work, 0, p), _slice_lanes(work, p, 2 * p))
-        max_nu = torch.maximum(max_nu, nu.max())
+        with trace_region("oplog_columnar.converge.halving"):
+            work, nu = merge_checked(_slice_lanes(work, 0, p), _slice_lanes(work, p, 2 * p))
+            max_nu = torch.maximum(max_nu, nu.max())
     return work, max_nu
 
 
@@ -258,14 +259,15 @@ def converge_checked(col: ColumnarOpLog, alive: torch.Tensor | None = None):
     lanes = col.lanes
     with trace_region("oplog_columnar.converge"):
         work, max_nu = lub_lane(col, alive)
-        # the broadcast is a stride-0 view: materialise it (the kernel
-        # wrapper rejects non-contiguous planes)
-        top = tree_map(lambda x: x[:, :1].expand(col.capacity, lanes), work)
-        if alive is None:
-            top = tree_map(lambda t: t.contiguous(), top)
-        else:
-            a = alive[None, :]
-            top = tree_map(lambda t, x: torch.where(a, t, x), top, col)
+        with trace_region("oplog_columnar.converge.broadcast"):
+            # the broadcast is a stride-0 view: materialise it (the kernel
+            # wrapper rejects non-contiguous planes)
+            top = tree_map(lambda x: x[:, :1].expand(col.capacity, lanes), work)
+            if alive is None:
+                top = tree_map(lambda t: t.contiguous(), top)
+            else:
+                a = alive[None, :]
+                top = tree_map(lambda t, x: torch.where(a, t, x), top, col)
         return top, max_nu
 
 
@@ -279,19 +281,27 @@ def gossip_round(
 ) -> ColumnarOpLog:
     """One pull round in the columnar layout: lane j fetches lane peers[j]
     and joins it (the join is gated on both endpoints being alive)."""
-    peers = peers.to(device=col.hi.device, dtype=torch.long)
-    peer = tree_map(lambda x: x[:, peers], col)
-    merged = merge(col, peer)
-    if alive is None:
-        return merged
-    ok = (alive & alive[peers])[None, :]
-    return tree_map(lambda m, x: torch.where(ok, m, x), merged, col)
+    with trace_region("oplog_columnar.gossip_round"):
+        with trace_region("oplog_columnar.gossip_round.gather"):
+            peers = peers.to(device=col.hi.device, dtype=torch.long)
+            peer = tree_map(lambda x: x[:, peers], col)
+        with trace_region("oplog_columnar.gossip_round.union"):
+            merged = merge(col, peer)
+        if alive is None:
+            return merged
+        with trace_region("oplog_columnar.gossip_round.gate"):
+            ok = (alive & alive[peers])[None, :]
+            return tree_map(lambda m, x: torch.where(ok, m, x), merged, col)
 
 
 def rebuild(col: ColumnarOpLog, n_keys: int) -> oplog.KVState:
     """Per-lane materialized view (batched KVState over the lane axis):
     unpack + the two-scatter rebuild, one batched scatter over all lanes."""
-    return oplog.rebuild(unstack(col), n_keys)
+    with trace_region("oplog_columnar.rebuild"):
+        with trace_region("oplog_columnar.rebuild.unstack"):
+            rows = unstack(col)
+        with trace_region("oplog_columnar.rebuild.scatter"):
+            return oplog.rebuild(rows, n_keys)
 
 
 def sharded_converge(mesh, bits=DEFAULT_BITS):

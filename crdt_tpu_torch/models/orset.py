@@ -31,6 +31,7 @@ from crdt_tpu_torch.ops import hopper_union, pack, union_engine
 from crdt_tpu_torch.ops import sorted_union as su
 from crdt_tpu_torch.utils.constants import SENTINEL_PY
 from crdt_tpu_torch.utils.tables import grow_into
+from crdt_tpu_torch.utils.tracing import trace_region
 
 
 @dataclasses.dataclass
@@ -223,25 +224,29 @@ def columnar_join(packed_a, removed_a, packed_b, removed_b, out_size=None,
     the ``union_path`` tally (and on ``registry`` when given).  All engines
     are bit-identical here."""
     out = out_size if out_size is not None else packed_a.shape[0]
-    keys, vals, n, _path = union_engine.dispatch_union(
-        packed_a, removed_a, packed_b, removed_b, out,
-        engine=engine, universe=universe, registry=registry,
-    )
+    with trace_region("orset.columnar_join"):
+        keys, vals, n, _path = union_engine.dispatch_union(
+            packed_a, removed_a, packed_b, removed_b, out,
+            engine=engine, universe=universe, registry=registry,
+        )
     return keys, vals, n
 
 
 def columnar_member_mask(packed, removed, n_universe: int):
     """bool[n_universe, R]: per-lane element membership (≥1 live tag)."""
-    valid = packed != SENTINEL_PY
-    # the elem field alone (padding rows are masked next): at a swarm's
-    # size each int32 plane is GBs, so the rid and seq planes are not made
-    elem = (packed >> (pack.RID_BITS + pack.SEQ_BITS)) & ((1 << pack.ELEM_BITS) - 1)
-    rows = _mask_rows(torch.where(valid, elem, n_universe), n_universe)
-    live = (valid & (removed == 0)).to(torch.int32)
-    mask = torch.zeros((n_universe + 1, packed.shape[1]), dtype=torch.int32,
-                       device=packed.device)
-    mask.scatter_reduce_(0, rows, live, reduce="amax")
-    return mask[:n_universe] > 0
+    with trace_region("orset.columnar_member_mask"):
+        with trace_region("orset.columnar_member_mask.decode"):
+            valid = packed != SENTINEL_PY
+            # the elem field alone (padding rows are masked next): at a swarm's
+            # size each int32 plane is GBs, so the rid and seq planes are not made
+            elem = (packed >> (pack.RID_BITS + pack.SEQ_BITS)) & ((1 << pack.ELEM_BITS) - 1)
+            rows = _mask_rows(torch.where(valid, elem, n_universe), n_universe)
+            live = (valid & (removed == 0)).to(torch.int32)
+            mask = torch.zeros((n_universe + 1, packed.shape[1]), dtype=torch.int32,
+                               device=packed.device)
+        with trace_region("orset.columnar_member_mask.scatter"):
+            mask.scatter_reduce_(0, rows, live, reduce="amax")
+            return mask[:n_universe] > 0
 
 
 # ---- resident restructured layouts ----

@@ -32,6 +32,7 @@ import torch
 from crdt_tpu_torch.models import rseq, rseq_columnar as rc, tomb_gc
 from crdt_tpu_torch.models.oplog_engine import EngineFallback
 from crdt_tpu_torch.utils.constants import SENTINEL_PY
+from crdt_tpu_torch.utils.tracing import trace_region
 from crdt_tpu_torch.utils.tree import tree_map
 
 
@@ -172,7 +173,7 @@ def gc_converge_checked(cg: ColumnarGc, alive: torch.Tensor):
     over the alive lanes (dead lanes keep their stale state AND floor) —
     the convergence phase of tomb_gc.gc_round on the lexN kernels.
     Returns (ColumnarGc, max n_unique)."""
-    with torch.profiler.record_function("rseq_engine.gc_converge"):
+    with trace_region("rseq_engine.gc_converge"):
         work, max_nu = _gc_lub_lane(mask_dead(cg, alive))
         return _finish_broadcast(cg, work, alive), max_nu
 

@@ -1,7 +1,7 @@
 """Per-dispatch device attribution for the node's merge (counterpart of
 ``crdt_tpu.obs.devtime``).
 
-* :func:`dispatch_annotation`: a ``torch.profiler.record_function`` range
+* :func:`dispatch_annotation`: a ``utils.tracing.trace_region`` range
   keyed to the current trace ID (``crdt.join.merge#trace=<id>``), so one
   gossip round's merge is findable in a captured profile by the ID that
   names its events;
@@ -24,9 +24,8 @@ import contextlib
 import time
 from typing import Dict, Tuple
 
-import torch
-
 from crdt_tpu_torch.obs.trace import current_trace
+from crdt_tpu_torch.utils.tracing import trace_region
 from crdt_tpu_torch.utils.tree import leaves
 
 # NVIDIA H100 SXM (HBM3) memory rate, bytes/s, from NVIDIA's data sheet:
@@ -48,7 +47,7 @@ def dispatch_annotation(name: str, enabled: bool = True):
         return
     tid = current_trace()
     label = f"crdt.join.{name}" + (f"#trace={tid}" if tid else "")
-    with torch.profiler.record_function(label):
+    with trace_region(label):
         yield label
 
 

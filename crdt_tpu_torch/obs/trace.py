@@ -2,8 +2,9 @@
 IDs minted per gossip round, carried over the wire in the ``X-CRDT-Trace``
 header and recorded in both sides' event logs, and
 ``span``, which binds the current ID and opens a same-named
-``torch.profiler.record_function`` range, so the host-side round and its
-device work line up by name in a captured profile.
+``utils.tracing.trace_region`` (a profiler range while one records), so
+the host-side round and its device work line up by name in a captured
+profile.
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ import itertools
 import os
 import threading
 
-import torch
+from crdt_tpu_torch.utils.tracing import trace_region
 
 TRACE_HEADER = "X-CRDT-Trace"
 
@@ -40,12 +41,13 @@ def current_trace():
 
 @contextlib.contextmanager
 def span(name: str, trace_id=None):
-    """Bind ``trace_id`` (or the enclosing one) as current and open a
-    same-named profiler range.  Yields the trace ID."""
+    """Bind ``trace_id`` (or the enclosing one) as current, whether or not
+    a profiler records, and open a same-named ``trace_region``.  Yields the
+    trace ID."""
     tid = trace_id or current_trace() or mint_trace_id()
     token = _CURRENT.set(tid)
     try:
-        with torch.profiler.record_function(name):
+        with trace_region(name):
             yield tid
     finally:
         _CURRENT.reset(token)

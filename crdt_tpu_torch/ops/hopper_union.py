@@ -50,6 +50,7 @@ import torch
 from crdt_tpu_torch import _build
 from crdt_tpu_torch.ops.sorted_union import _sort_by_keys
 from crdt_tpu_torch.utils.constants import SENTINEL_PY
+from crdt_tpu_torch.utils.tracing import trace_region
 
 LAUNCHES = {"lexn_union": 0, "set_union": 0, "merge": 0, "bucketed_union": 0,
             "lexn_merge": 0, "lexn_compact": 0, "floor_union": 0,
@@ -439,7 +440,7 @@ def sorted_union_columnar_lexn_auto(
     A CPU tensor always takes the fused union's twin, as the JAX package's
     interpret mode always takes the monolith; the results are the same.
     The operands are validated once, here."""
-    with torch.profiler.record_function("crdt.union_lexn"):
+    with trace_region("crdt.union_lexn"):
         keys_a, vals_a, keys_b, vals_b = map(tuple, (keys_a, vals_a, keys_b, vals_b))
         n_keys, n_vals, c, _, device = _lexn_shape(keys_a, vals_a, keys_b, vals_b)
         out = _lexn_out(c, out_size)

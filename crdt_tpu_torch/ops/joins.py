@@ -24,6 +24,7 @@ from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
 
+from crdt_tpu_torch.utils.tracing import trace_region
 from crdt_tpu_torch.utils.tree import leaves, tree_map
 
 
@@ -113,7 +114,7 @@ def tree_reduce_join(join_fn: Union[Callable, "JoinSpec", str], state: Any,
     :class:`JoinSpec` / registered join name."""
     join_fn, neutral = _as_batched_join_and_neutral(join_fn, neutral,
                                                     leaves(state)[0].device)
-    with torch.profiler.record_function("crdt.tree_reduce_join"):
+    with trace_region("crdt.tree_reduce_join"):
         state = pad_to_pow2(state, neutral)
         p = _leading_dim(state)
         while p > 1:
