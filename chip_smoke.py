@@ -41,10 +41,12 @@ Phases (any failure exits non-zero and prints no result):
    bit-exact on every output;
 7. OR-Set end to end at BASELINE's R=1,048,576 replicas x C=1024 tag rows:
    ``stack_to_columnar`` of two seeded swarms → ``columnar_join`` (the
-   sort engine: one set_union launch) → ``columnar_member_mask``, checked
-   against the plain twin on the first and last 65,536 lanes and against a
-   plain fold of the tag pool on 66 sampled lanes; then times at that size
-   and one profiled ``columnar_join``;
+   sort engine: one set_union launch) → ``columnar_member_mask`` (one
+   member_mask launch), both checked against their plain twins on the first
+   and last 65,536 lanes and against a plain fold of the tag pool on 66
+   sampled lanes; the member mask's kernel, twin and ``scatter_reduce_``
+   timed beside its bound; then times at that size and one profiled
+   ``columnar_join``;
 8. OR-Set engines at L=131,072: the ``auto`` plan's bucket fallback, the
    three engines bit-identical on the strided draw, the bucket-resident
    chain and the unfused union (merge kernel + epilogue) against the sort
@@ -908,10 +910,11 @@ def check_segment_and_merge_edges(pool, bucketed, merge, to_bucketed) -> None:
         f"B a CTA")
 
 
-def run_set_slice(pool) -> tuple:
+def run_set_slice(pool, card: str) -> tuple:
     """Phase 7: the OR-Set main path at full size through the entry points a
-    user calls, then its checks.  Returns (operand planes, launches, max
-    |kernel - twin| on the slices)."""
+    user calls, then its checks and the member mask's times.  Returns
+    (operand planes, launches, max |kernel - twin| on the slices, the
+    member mask's table row)."""
     import numpy as np
 
     from crdt_tpu_torch import workload
@@ -962,12 +965,19 @@ def run_set_slice(pool) -> tuple:
     if paths != {"sort": 1} or launches["set_union"] < 1:
         raise AssertionError(f"the join did not run the sort engine's kernel: {paths}, "
                              f"{launches}")
-    err = 0
+    if launches["member_mask"] != 1:
+        raise AssertionError(f"columnar_member_mask launched member_mask "
+                             f"{launches['member_mask']} times, expected 1")
+    err = mask_err = 0
     for sl in (slice(0, SLICE), slice(SET_R - SLICE, SET_R)):
         planes = [x[:, sl].contiguous() for x in (pa, ra, pb, rb)]
         err = max(err, same(f"set_union lanes {sl.start}-{sl.stop}",
                             (keys[:, sl], vals[:, sl], nu[sl]),
                             hu._set_union_plain(*planes, SET_C)))
+        mask_err = max(mask_err, same(
+            f"member_mask lanes {sl.start}-{sl.stop}", (mask[:, sl],),
+            (orset._columnar_member_mask_plain(keys[:, sl].contiguous(),
+                                               vals[:, sl].contiguous(), SET_UNIVERSE),)))
     k_cpu, v_cpu, m_cpu = keys[:, lanes].cpu(), vals[:, lanes].cpu(), mask[:, lanes].cpu()
     for i, lane in enumerate(lanes):
         want_tags, want_members = workload.set_view(pool, held[i], seen[i])
@@ -979,10 +989,45 @@ def run_set_slice(pool) -> tuple:
             raise AssertionError(f"lane {lane}: joined tags != plain fold of the pool")
         if set(m_cpu[:, i].nonzero().flatten().tolist()) != want_members:
             raise AssertionError(f"lane {lane}: member mask != plain fold of the pool")
-    log(f"OR-Set slice checks: max n_unique {max_nu} <= C, == twin on lanes 0-{SLICE} "
-        f"and the last {SLICE}, {len(lanes)} sampled lanes == plain fold (tags, "
-        f"tombstones, members; lane 0 holds {len(workload.set_view(pool, held[0], seen[0])[0])} tags)")
-    return (pa, ra, pb, rb), launches, err
+    log(f"OR-Set slice checks: max n_unique {max_nu} <= C, join and member mask == twins "
+        f"on lanes 0-{SLICE} and the last {SLICE}, {len(lanes)} sampled lanes == plain "
+        f"fold (tags, tombstones, members; lane 0 holds "
+        f"{len(workload.set_view(pool, held[0], seen[0])[0])} tags)")
+    del k_cpu, v_cpu, m_cpu, mask, nu
+    mask_row = member_mask_times(keys, vals, launches["member_mask"], mask_err, card)
+    return (pa, ra, pb, rb), launches, err, mask_row
+
+
+def member_mask_times(keys, vals, launches: int, err: int, card: str) -> dict:
+    """Phase 7's member mask at R=2^20 on the joined planes: the kernel, its
+    plain twin and, as the library yardstick, the twin's one
+    ``scatter_reduce_`` over rows it has decoded.  Returns the table row."""
+    from crdt_tpu_torch.models import orset
+    from crdt_tpu_torch.ops import pack
+
+    ms = time_ms(lambda: orset.columnar_member_mask(keys, vals, SET_UNIVERSE), reps=20)
+    plain_ms = time_ms(lambda: orset._columnar_member_mask_plain(keys, vals, SET_UNIVERSE),
+                       reps=3, warmup=1)
+    valid = keys != SENTINEL
+    elem = (keys >> (pack.RID_BITS + pack.SEQ_BITS)) & ((1 << pack.ELEM_BITS) - 1)
+    rows = orset._mask_rows(torch.where(valid, elem, SET_UNIVERSE), SET_UNIVERSE)
+    del elem
+    live = (valid & (vals == 0)).to(torch.int32)
+    del valid
+    table = torch.zeros((SET_UNIVERSE + 1, SET_R), dtype=torch.int32, device="cuda")
+    library_ms = time_ms(lambda: table.scatter_reduce_(0, rows, live, reduce="amax"),
+                         reps=3, warmup=1)
+    del rows, live, table
+    torch.cuda.empty_cache()
+    log("member_mask plain twin: the decode planes, an int64 row plane and "
+        "scatter_reduce_; library yardstick: that one scatter_reduce_ on rows decoded "
+        "beforehand")
+    # bytes: the key and removed planes read once, the bool mask written
+    # once; operations: one decode and bit set for each row
+    return kernel_row("member_mask", "crdt_tpu_torch/csrc/set_member.cu",
+                      "none (crdt_tpu/models/orset.py:428, .at[].max)", launches, err, ms,
+                      plain_ms, 2 * SET_C * SET_R * 4 + SET_UNIVERSE * SET_R,
+                      SET_C * SET_R, library_ms, card)
 
 
 def set_times_full(planes, card: str) -> tuple:
@@ -1153,14 +1198,14 @@ def set_times_engines(draw, strided, card: str) -> tuple:
 
 def set_phases(card: str) -> tuple:
     """Phases 6-8: the OR-Set swarm path.  Returns the table rows of
-    set_union, merge and bucketed_union, and the full-width floor's time and
-    error (phase 13)."""
+    set_union, member_mask, merge and bucketed_union, and the full-width
+    floor's time and error (phase 13)."""
     from crdt_tpu_torch import workload
 
     pool = workload.set_pool(SEED)
     err, draw, strided = check_set_kernels(pool)
 
-    planes, launches, slice_err = run_set_slice(pool)
+    planes, launches, slice_err, member_mask = run_set_slice(pool, card)
     set_union, floor_full = set_times_full(planes, card)
     set_union.update(launches=launches["set_union"],
                      max_abs_err=max(err["set_union"], slice_err))
@@ -1168,7 +1213,7 @@ def set_phases(card: str) -> tuple:
     torch.cuda.empty_cache()
 
     engine_launches = run_set_engines(draw, strided)
-    rows = [set_union]
+    rows = [set_union, member_mask]
     for name, source, replaces, ms, plain_ms, n_bytes, n_ops, library_ms in \
             set_times_engines(draw, strided, card):
         rows.append(kernel_row(name, source, replaces, engine_launches[name], err[name],

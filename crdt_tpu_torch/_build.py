@@ -27,7 +27,7 @@ NVCC_FLAGS = (
 )
 
 # every kernel source of the package, by library name (csrc/<name>.cu)
-SOURCES = ("lexn_union", "set_union", "set_floor")
+SOURCES = ("lexn_union", "set_union", "set_floor", "set_member")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

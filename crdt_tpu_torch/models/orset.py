@@ -233,20 +233,35 @@ def columnar_join(packed_a, removed_a, packed_b, removed_b, out_size=None,
 
 
 def columnar_member_mask(packed, removed, n_universe: int):
-    """bool[n_universe, R]: per-lane element membership (≥1 live tag)."""
+    """bool[n_universe, R]: per-lane element membership (≥1 live tag).
+
+    A CUDA tensor runs the hand-written kernel (``csrc/set_member.cu``, one
+    pass over the planes), a CPU tensor the plain twin; there is no
+    fallback from one to the other."""
     with trace_region("orset.columnar_member_mask"):
+        if hopper_union._route("member_mask", packed.device):
+            return _columnar_member_mask_plain(packed, removed, n_universe)
         with trace_region("orset.columnar_member_mask.decode"):
-            valid = packed != SENTINEL_PY
-            # the elem field alone (padding rows are masked next): at a swarm's
-            # size each int32 plane is GBs, so the rid and seq planes are not made
-            elem = (packed >> (pack.RID_BITS + pack.SEQ_BITS)) & ((1 << pack.ELEM_BITS) - 1)
-            rows = _mask_rows(torch.where(valid, elem, n_universe), n_universe)
-            live = (valid & (removed == 0)).to(torch.int32)
-            mask = torch.zeros((n_universe + 1, packed.shape[1]), dtype=torch.int32,
-                               device=packed.device)
+            mask = hopper_union.member_mask_empty(packed, removed, n_universe)
         with trace_region("orset.columnar_member_mask.scatter"):
-            mask.scatter_reduce_(0, rows, live, reduce="amax")
-            return mask[:n_universe] > 0
+            return hopper_union.member_mask_launch(packed, removed, mask)
+
+
+def _columnar_member_mask_plain(packed, removed, n_universe: int):
+    """The member mask's plain twin: JAX's ``.at[].max`` as a
+    ``scatter_reduce_`` over every row."""
+    with trace_region("orset.columnar_member_mask.decode"):
+        valid = packed != SENTINEL_PY
+        # the elem field alone (padding rows are masked next): at a swarm's
+        # size each int32 plane is GBs, so the rid and seq planes are not made
+        elem = (packed >> (pack.RID_BITS + pack.SEQ_BITS)) & ((1 << pack.ELEM_BITS) - 1)
+        rows = _mask_rows(torch.where(valid, elem, n_universe), n_universe)
+        live = (valid & (removed == 0)).to(torch.int32)
+        mask = torch.zeros((n_universe + 1, packed.shape[1]), dtype=torch.int32,
+                           device=packed.device)
+    with trace_region("orset.columnar_member_mask.scatter"):
+        mask.scatter_reduce_(0, rows, live, reduce="amax")
+        return mask[:n_universe] > 0
 
 
 # ---- resident restructured layouts ----

@@ -16,6 +16,11 @@ Counterpart of ``crdt_tpu.ops.pallas_union``.  Two CUDA sources:
   (``bitonic_merge_columnar``) and the bucket-local union
   (``bucketed_union_columnar``).
 
+Beside them ``csrc/set_member.cu`` holds the OR-Set member mask, a kernel
+of the port's own with no Pallas counterpart (``member_mask_plan``,
+``member_mask_empty``, ``member_mask_launch``; its entry point and plain
+twin are ``models.orset.columnar_member_mask``).
+
 The single-key union, its merge (in the body's keep-all mode) and the
 fused lexN union at narrow keys (the OpLog's (hi, lo)) share one body, the
 lane tile of ``csrc/tile_union.cuh``; the fused lexN union at wide keys
@@ -48,13 +53,14 @@ from typing import Sequence
 import torch
 
 from crdt_tpu_torch import _build
+from crdt_tpu_torch.ops import pack
 from crdt_tpu_torch.ops.sorted_union import _sort_by_keys
 from crdt_tpu_torch.utils.constants import SENTINEL_PY
 from crdt_tpu_torch.utils.tracing import trace_region
 
 LAUNCHES = {"lexn_union": 0, "set_union": 0, "merge": 0, "bucketed_union": 0,
             "lexn_merge": 0, "lexn_compact": 0, "floor_union": 0,
-            "bucketed_floor_union": 0}
+            "bucketed_floor_union": 0, "member_mask": 0}
 
 # key + value planes a side that one lexN launch takes (csrc/lexn_union.cu
 # kMaxPlanes): RSeq at depth 9 with its GC join's three value planes
@@ -478,6 +484,10 @@ _SIGNATURES = {
         "floor_union": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P], _I),
         "bucketed_floor_walk": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
         "set_floor_error_string": ([_I], ctypes.c_char_p),
+    },
+    "set_member": {
+        "member_mask": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I),
+        "set_member_error_string": ([_I], ctypes.c_char_p),
     },
 }
 
@@ -909,3 +919,69 @@ def _dedupe_and_compact(keys, vals, out_size):
     vals = vals.gather(0, order).masked_fill(pad, 0)
     n_unique = (~pad).sum(dim=0, dtype=torch.int32)
     return keys[:out_size].contiguous(), vals[:out_size].contiguous(), n_unique
+
+
+# ---- csrc/set_member.cu: the OR-Set member mask ----
+#
+# One thread a lane, a bitmap of min(n_universe, 2^ELEM_BITS) bits a lane in
+# shared memory: the plan is the lanes a block, a multiple of 32 up to
+# MEMBER_MASK_LANES, whose bitmaps fit the shared-memory limit.
+
+MEMBER_MASK_LANES = 1024
+
+
+def member_mask_id_rows(n_universe: int) -> int:
+    """Mask rows that an element id can reach: ids have ELEM_BITS bits, so
+    rows from 2^ELEM_BITS on are all false."""
+    return min(n_universe, 1 << pack.ELEM_BITS)
+
+
+def member_mask_plan(n_universe: int, limit: int) -> tuple[int, int]:
+    """(lanes a block, shared bytes a block) of the member-mask kernel for
+    ``n_universe`` element ids on a card with ``limit`` bytes a block."""
+    words = (member_mask_id_rows(n_universe) + 31) // 32
+    lanes = min(MEMBER_MASK_LANES, limit // (4 * 32 * max(words, 1)) * 32)
+    if lanes < 32:
+        raise ValueError(f"the member mask's bitmaps of {n_universe} ids for 32 lanes "
+                         f"exceed {limit} B of shared memory")
+    return lanes, 4 * words * lanes
+
+
+def member_mask_empty(packed: torch.Tensor, removed: torch.Tensor,
+                      n_universe: int) -> torch.Tensor:
+    """The member-mask kernel's output for ``packed`` and ``removed``,
+    checked: an uninitialised bool (n_universe, L) plane on their card."""
+    if packed.dim() != 2:
+        raise ValueError(f"planes must be (C, L), got shape {tuple(packed.shape)}")
+    if n_universe < 0:
+        raise ValueError(f"n_universe {n_universe} is negative")
+    _check_planes((packed, removed), packed.shape, packed.device)
+    return torch.empty((n_universe, packed.shape[1]), dtype=torch.bool, device=packed.device)
+
+
+def member_mask_launch(packed: torch.Tensor, removed: torch.Tensor,
+                       mask: torch.Tensor) -> torch.Tensor:
+    """Launch csrc/set_member.cu into ``mask`` (from
+    :func:`member_mask_empty`), which every launch writes whole."""
+    c, lanes = packed.shape
+    n_universe = mask.shape[0]
+    if n_universe == 0 or lanes == 0:
+        return mask
+    device = packed.device
+    limit = smem_limit(device)
+    lanes_per_block, smem = member_mask_plan(n_universe, limit)
+    lib = _lib("set_member")
+    with torch.cuda.device(device):
+        err = lib.member_mask(packed.data_ptr(), removed.data_ptr(), mask.data_ptr(), c,
+                              lanes, n_universe, member_mask_id_rows(n_universe),
+                              pack.RID_BITS + pack.SEQ_BITS, (1 << pack.ELEM_BITS) - 1,
+                              lanes_per_block, smem,
+                              torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"member_mask launch failed: {lib.set_member_error_string(err).decode()} "
+            f"(C={c}, L={lanes}, n_universe={n_universe}; {lanes_per_block} lanes a "
+            f"block: {smem} B of shared memory per block, {limit} B allowed)"
+        )
+    LAUNCHES["member_mask"] += 1
+    return mask
