@@ -270,14 +270,24 @@ class GC_ADAPTER:
 
     @staticmethod
     def columnar_converge(sw):
-        """gc_round's engine hook: the barrier's convergence phase on the
-        lexN kernels (crdt_tpu_torch.models.rseq_engine), the DEFAULT for
-        RSeq swarms.  Returns (converged swarm, max_n_unique) or None
-        after a loud EngineFallback warning when the layout is ineligible
-        (tomb_gc.gc_round then runs the generic reduction)."""
+        """The barrier's convergence phase alone on the lexN kernels
+        (crdt_tpu_torch.models.rseq_engine).  Returns (converged swarm,
+        max_n_unique) or None after a loud EngineFallback warning when the
+        layout is ineligible."""
         from crdt_tpu_torch.models import rseq_engine
 
         return rseq_engine.gc_converge_swarm(sw)
+
+    @staticmethod
+    def columnar_barrier(sw):
+        """gc_round's engine hook: the whole barrier on the columnar GC
+        engine (crdt_tpu_torch.models.rseq_engine), the DEFAULT for RSeq
+        swarms.  Returns (swarm after the barrier, max_n_unique) or None
+        after a loud EngineFallback warning when the layout is ineligible
+        (tomb_gc.gc_round then runs the generic path)."""
+        from crdt_tpu_torch.models import rseq_engine
+
+        return rseq_engine.gc_barrier_swarm(sw)
 
 
 # ---- host-side identity allocation ------------------------------------------

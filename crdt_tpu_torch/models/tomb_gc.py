@@ -190,53 +190,68 @@ def gc_round(sw, adapter, neutral_inner, engine: str = "auto"):
     keep their state and floor; one GC-aware join catches them up on
     revival.
 
-    The convergence rides the adapter's columnar engine by DEFAULT when it
-    declares one (``adapter.columnar_converge``: rseq.GC_ADAPTER does; the
-    hook warns EngineFallback and returns None when the layout is
-    ineligible, and the generic reduction serves).  ``engine="generic"``
-    pins the generic path.  Raises GcOverflow if any pairwise union of the
+    The whole barrier rides the adapter's columnar engine by DEFAULT when
+    it declares one (``adapter.columnar_barrier``: rseq.GC_ADAPTER does;
+    the hook warns EngineFallback and returns None when the layout is
+    ineligible, and the generic path serves).  ``engine="generic"`` pins
+    the generic path.  Raises GcOverflow if any pairwise union of the
     convergence truncated."""
-    from crdt_tpu_torch.ops import joins as joins_mod
-    from crdt_tpu_torch.parallel import swarm as swarm_mod
-
     if engine not in ("auto", "generic"):
         raise ValueError(f"unknown GC engine {engine!r}")
-    neutral = wrap(neutral_inner, sw.state.floor.shape[-1],
-                   device=sw.state.floor.device)
     cap = adapter.capacity_of(neutral_inner)
 
     with trace_region("tomb_gc.barrier"):
-        converged = None
-        hook = getattr(adapter, "columnar_converge", None)
+        hook = getattr(adapter, "columnar_barrier", None)
         if engine != "generic" and hook is not None:
             res = hook(sw)
             if res is not None:
-                converged, max_nu = res
-                if max_nu > cap:
-                    raise GcOverflow(
-                        f"GC barrier union needs {max_nu} rows but capacity is {cap}")
-        if converged is None:
-            # the log-depth tree reduction of joins.tree_reduce_join,
-            # unrolled so each level's n_unique is observable
-            state = joins_mod.pad_to_pow2(
-                swarm_mod.mask_dead_with_neutral(sw.state, sw.alive, neutral), neutral)
-            max_nu = 0
-            p = leaves(state)[0].shape[0]
-            while p > 1:
-                p //= 2
-                lo = tree_map(lambda x: x[:p], state)
-                hi = tree_map(lambda x: x[p: 2 * p], state)
-                state, nu = join_checked(lo, hi, adapter)
-                max_nu = max(max_nu, int(nu.max()))
-            if max_nu > cap:
-                raise GcOverflow(
-                    f"GC barrier union needs {max_nu} rows but capacity is {cap}")
-            top = tree_map(lambda x: x[0], state)
-            converged = dataclasses.replace(
-                sw, state=swarm_mod.broadcast_where_alive(sw.state, sw.alive, top))
-        return swarm_mod.compaction_round(
-            converged,
-            received_vv=lambda st: received_vv(st, adapter),
-            compact=lambda st, f: collect(st, f, adapter),
-            frontier_of=lambda st: st.floor,
-        )
+                out, max_nu = res
+                _refuse_overflow(max_nu, cap)
+                return out
+        converged, max_nu = generic_converge(sw, adapter, neutral_inner)
+        _refuse_overflow(max_nu, cap)
+        return collect_swarm(converged, adapter)
+
+
+def _refuse_overflow(max_nu: int, cap: int) -> None:
+    if max_nu > cap:
+        raise GcOverflow(f"GC barrier union needs {max_nu} rows but capacity is {cap}")
+
+
+def generic_converge(sw, adapter, neutral_inner):
+    """The convergence phase of :func:`gc_round` on the generic joins: the
+    log-depth tree reduction of joins.tree_reduce_join over the alive
+    replicas, unrolled so each level's n_unique is observable, broadcast
+    over the alive replicas.  Returns (Swarm, max n_unique as an int);
+    raises nothing on overflow (the caller decides)."""
+    from crdt_tpu_torch.ops import joins as joins_mod
+    from crdt_tpu_torch.parallel import swarm as swarm_mod
+
+    neutral = wrap(neutral_inner, sw.state.floor.shape[-1], device=sw.state.floor.device)
+    state = joins_mod.pad_to_pow2(
+        swarm_mod.mask_dead_with_neutral(sw.state, sw.alive, neutral), neutral)
+    max_nu = 0
+    p = leaves(state)[0].shape[0]
+    while p > 1:
+        p //= 2
+        lo = tree_map(lambda x: x[:p], state)
+        hi = tree_map(lambda x: x[p: 2 * p], state)
+        state, nu = join_checked(lo, hi, adapter)
+        max_nu = max(max_nu, int(nu.max()))
+    top = tree_map(lambda x: x[0], state)
+    return dataclasses.replace(
+        sw, state=swarm_mod.broadcast_where_alive(sw.state, sw.alive, top)), max_nu
+
+
+def collect_swarm(converged, adapter):
+    """The collection phase of :func:`gc_round` over a converged Swarm: the
+    stable floor (``swarm.stable_frontier``) and :func:`collect` on every
+    alive replica."""
+    from crdt_tpu_torch.parallel import swarm as swarm_mod
+
+    return swarm_mod.compaction_round(
+        converged,
+        received_vv=lambda st: received_vv(st, adapter),
+        compact=lambda st, f: collect(st, f, adapter),
+        frontier_of=lambda st: st.floor,
+    )

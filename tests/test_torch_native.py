@@ -10,6 +10,7 @@ from crdt_tpu.utils import intern as jintern
 from crdt_tpu_torch import native
 from crdt_tpu_torch.models import oplog
 from crdt_tpu_torch.utils import intern as py_intern
+from tests.native_build import require_jax_native
 
 COLS = ("ts", "rid", "seq", "key", "val", "payload", "is_num")
 WORDS = (["a", "bb", "a", "", "ccc", "bb", "é", "a" * 1000, 'q"uote', "back\\slash",
@@ -20,6 +21,7 @@ def test_interner_matches_python_and_jax():
     """Ids, sizes and lookups equal the Python interner's and the JAX
     native interner's, through the table's growth and on adversarial
     strings (control characters, quotes, backslashes, non-ASCII, empty)."""
+    require_jax_native()
     ni, pi, ji = native.NativeInterner(), py_intern.Interner(), jnative.NativeInterner()
     for w in WORDS:
         assert ni.intern(w) == pi.intern(w) == ji.intern(w), w
@@ -31,6 +33,7 @@ def test_interner_matches_python_and_jax():
 
 
 def test_parse_go_int_matches_python_and_jax():
+    require_jax_native()
     cases = ["42", "-13", "+7", "007", "", " 1", "1 ", "1_0", "0x10", "1.5",
              "abc", "--1", "+", "2147483647", "2147483648", "-2147483648",
              "-2147483649", "0", "-0", "99999999999999999999", "٣"]
@@ -42,6 +45,7 @@ def test_parse_go_int_matches_python_and_jax():
 def test_batch_packer_matches_encode_value_and_jax():
     """take() gives the columns encode_value gives and the JAX packer's,
     and clears; the interned tables agree."""
+    require_jax_native()
     sides = {"t": (native.NativeInterner(), native.NativeInterner()),
              "j": (jnative.NativeInterner(), jnative.NativeInterner())}
     packers = {"t": native.OpBatchPacker(*sides["t"]),

@@ -15,12 +15,14 @@ from crdt_tpu.utils import clock as jclock
 from crdt_tpu_torch.api import node as tnode
 from crdt_tpu_torch.utils import checkpoint as tckpt
 from crdt_tpu_torch.utils import clock as tclock
+from tests.native_build import require_jax_native
 
 
 class Twin:
     """A JAX node and a port node, both native, given every call."""
 
     def __init__(self, rid=0):
+        require_jax_native()
         self.j = jnode.ReplicaNode(rid=rid, clock=jclock.ManualClock(start=1000), use_native=True)
         self.t = tnode.ReplicaNode(rid=rid, clock=tclock.ManualClock(start=1000), device="cpu")
         assert self.t._wire is not None
@@ -134,6 +136,8 @@ def test_restore_rebuilds_wire(tmp_path):
 def test_go_compat_full_dump_serves_json_dumps(native):
     """A go-compat node's full dump is json.dumps of bare integer-ms keys
     on both paths, as the JAX node's; its delta is the wire store's."""
+    if native:
+        require_jax_native()
     jn = jnode.ReplicaNode(rid=0, clock=jclock.ManualClock(start=5), use_native=native,
                            go_compat_gossip=True)
     tn = tnode.ReplicaNode(rid=0, clock=tclock.ManualClock(start=5), use_native=native,
