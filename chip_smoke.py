@@ -74,10 +74,15 @@ Phases (any failure exits non-zero and prints no result):
 11. the RSeq GC barrier: ``tomb_gc.gc_round`` on the columnar engine ==
     ``engine="generic"``, exactly the removed rows under the frontier
     collected, live lists unchanged; then the dead replica revived by one
-    GC-aware pull (``rseq_engine.gc_merge_checked``);
+    GC-aware pull (``rseq_engine.gc_merge_checked``); and the GC join at
+    the ``seq-swarm-10k.gc`` cell's shape with real floors on both sides (a
+    seeded 1% of the collected replicas stale), fused (one lexn_gc_union
+    launch) == the composition on every plane, n_unique, dropped and the
+    floor, each stale/fresh pair dropping the collected rows from its side;
 12. RSeq times (gossip, converge, GC converge, each kernel with its twin
-    and bound, the wide body at C=512 and 1024 with its device time) and
-    one profiled gossip round and converge;
+    and bound, the wide body at C=512 and 1024 with its device time, its GC
+    instance on phase 11's pair) and one profiled gossip round and
+    converge;
 13. the OR-Set floors (kernels 7 and 8) at benches/orset_floor.py's shape,
     C=1024, L=131,072, B=64 on its draw: one launch of each through its
     entry point, both against their twins (also out=C/2, B=2 and 128,
@@ -1661,20 +1666,95 @@ def run_rseq_slice(pool) -> dict:
     if idents != {k for k, dead in lub_tombs.items() if not dead}:
         raise AssertionError("the revived replica's identities != the live identities "
                              "of the plain fold")
-    if (pull_launches["lexn_union"], pull_launches["lexn_merge"],
-            pull_launches["lexn_compact"]) != (1, 0, 0):
+    if (pull_launches["lexn_gc_union"], pull_launches["lexn_union"],
+            pull_launches["lexn_merge"], pull_launches["lexn_compact"]) != (1, 0, 0, 0):
         raise AssertionError(f"the GC pull launched {pull_launches}")
     log(f"revival: replica {DEAD} after one gc_merge_checked from replica {peer} == the "
         f"collected LUB ({int(nu[0])} rows, no collected row brought back), launches "
         f"{pull_launches}")
+    gc_pair, gc_err = check_gc_join(gstate, gcd, int(dropped[0]))
     return {"start": start, "alive": alive, "rounds": rounds, "launches": launches,
-            "gstate": gstate, "gc_launches": gc_launches}
+            "gstate": gstate, "gc_launches": gc_launches, "gc_pair": gc_pair,
+            "gc_err": gc_err}
+
+
+STALE_SHARE = 0.01  # the seq-swarm-10k.gc cell's share of stale replicas
+
+
+def gc_join_composition(a, b):
+    """The GC join's composition on the card: the lossless union at 2C
+    (kernel 1 with the side marker), then the floor rule and compaction in
+    plain torch: (ColumnarGc, n_unique, dropped)."""
+    from crdt_tpu_torch.models import rseq_engine as reng
+
+    merged, n_unique, drop = reng._gc_suppress(a, b, *reng._gc_union(a, b))
+    return merged, n_unique, drop.sum(dim=0, dtype=torch.int32)
+
+
+def gc_join_planes(join) -> list:
+    merged, n_unique, dropped = join
+    return [*merged.col.keys, merged.col.elem, merged.col.removed, merged.floor, n_unique,
+            dropped]
+
+
+def check_gc_join(gstate, gcd, collected: int) -> tuple:
+    """Phase 11's GC join at the seq-swarm-10k.gc cell's shape (R=10,240,
+    C=1,024, depth 6, W=16) with real floors on both sides: the barrier's
+    collected swarm, a seeded 1% of its replicas stale (the converged
+    table from before the barrier and floor -1, so they still hold the
+    removed rows the others collected), each replica joined with a seeded
+    peer.  A stale replica pulling from a fresh one drops its own collected
+    rows (B's floor covers A's rows); a fresh one pulling from a stale one
+    drops the peer's (A's floor covers B's).  The fused join (one
+    lexn_gc_union launch) == the composition on every plane, n_unique,
+    dropped and the floor, and each of those pairs drops exactly the rows
+    the barrier collected.  Returns ((puller, peer) staged, max |err|)."""
+    from crdt_tpu_torch.models import rseq_engine as reng
+    from crdt_tpu_torch.ops import hopper_union as hu
+    from crdt_tpu_torch.utils.tree import tree_map
+
+    gen = torch.Generator().manual_seed(SEED + 34)
+    stale = (torch.rand(R, generator=gen) < STALE_SHARE).cuda()
+    stale[DEAD] = False  # the dead lane is gstate's in both
+    peers = torch.randperm(R, generator=gen).cuda()
+    mixed = tree_map(lambda x, y: torch.where(stale.view(-1, *[1] * (x.dim() - 1)), x, y),
+                     gstate, gcd)
+    cg = reng.stack(mixed, reng.fit_joint_seq_bits(mixed.inner))
+    peer = tree_map(lambda x: x[..., peers], cg)
+    if not reng._fused(cg):
+        raise AssertionError("the GC join at the cell's shape does not take the fused route")
+    torch.cuda.synchronize()
+    for name in hu.LAUNCHES:
+        hu.LAUNCHES[name] = 0
+    got = reng._gc_join(cg, peer)
+    launched = {k: v for k, v in hu.LAUNCHES.items() if v}
+    if launched != {"lexn_gc_union": 1}:
+        raise AssertionError(f"the fused GC join launched {launched}, expected one "
+                             "lexn_gc_union")
+    err = same("GC join at the cell's shape: fused vs the composition",
+               gc_join_planes(got), gc_join_planes(gc_join_composition(cg, peer)))
+    dropped = got[2]
+    fresh = ~stale
+    fresh[DEAD] = False
+    for side, lanes in (("A's (B's floor)", stale & fresh[peers]),
+                        ("B's (A's floor)", fresh & stale[peers])):
+        if not lanes.any() or not bool((dropped[lanes] == collected).all()):
+            raise AssertionError(f"the floor rule on {side} rows: dropped "
+                                 f"{dropped[lanes].unique().tolist()} on {int(lanes.sum())} "
+                                 f"lanes, expected the {collected} rows the barrier collected")
+    log(f"GC join at the cell's shape (R={R}, C={SEQ_C}, W={SEQ_W}, {int(stale.sum())} stale "
+        f"replicas): fused == composition on every plane, n_unique, dropped and the floor; "
+        f"{int((stale & fresh[peers]).sum())} stale pullers drop their own and "
+        f"{int((fresh & stale[peers]).sum())} fresh pullers drop the peer's {collected} "
+        f"collected rows ({int(dropped.sum())} in all), launches {launched}")
+    return (cg, peer), err
 
 
 def rseq_times(pool, ctx, err, card) -> list:
     """Phase 12: the RSeq calls' times, each kernel's with its twin and
     bound, and one profiled gossip round and converge.  Returns the table
-    rows of lexn_merge, lexn_compact and lexn_union at (18, 2)."""
+    rows of lexn_merge, lexn_compact and lexn_union at (18, 2), and of
+    lexn_gc_union."""
     from crdt_tpu_torch.models import rseq_columnar as rc, rseq_engine as reng
     from crdt_tpu_torch.ops import hopper_union as hu
 
@@ -1691,36 +1771,27 @@ def rseq_times(pool, ctx, err, card) -> list:
     a, b = seq_columnar(pool, R, SEQ_C, SEED + 41), seq_columnar(pool, R, SEQ_C, SEED + 42)
     log_c = math.ceil(math.log2(SEQ_C))
     rows = []
-    for gc in (False, True):
-        sides = lexn_sides(a, b, gc)
-        n_planes, out = N_KEYS_SEQ + len(sides[1]), 2 * SEQ_C if gc else SEQ_C
-        label = "GC join, 21 planes, out=2C" if gc else "20 planes, out=C"
-        merge_ms = time_ms(lambda: hu.lexn_merge_columnar(*sides), reps=10)
-        merge_plain = time_ms(lambda: hu._lexn_merge_plain(*sides), reps=3, warmup=1)
-        mk, mv = hu.lexn_merge_columnar(*sides)
-        compact_ms = time_ms(lambda: hu.lexn_compact_columnar(mk, mv, out), reps=10)
-        compact_plain = time_ms(lambda: hu._lexn_compact_plain(mk, mv, out), reps=3, warmup=1)
-        # bytes: every input plane read once, every output plane written
-        # once; operations: one key-word compare for each binary-search step
-        # of the 2C merged rows (further words are compared only on ties),
-        # one for each row's duplicate test
-        merge = ("lexn_merge", "crdt_tpu/ops/pallas_union.py:492", ctx["launches"]["lexn_merge"],
-                 merge_ms, merge_plain, 4 * (2 * n_planes * SEQ_C * R + n_planes * 2 * SEQ_C * R),
-                 2 * SEQ_C * R * log_c)
-        compact = ("lexn_compact", "crdt_tpu/ops/pallas_union.py:557",
-                   ctx["launches"]["lexn_compact"], compact_ms, compact_plain,
-                   4 * (n_planes * 2 * SEQ_C * R + n_planes * out * R + R), 2 * SEQ_C * R)
-        for name, replaces, launches, ms, plain_ms, n_bytes, n_ops in (merge, compact):
-            if gc:
-                bound_ms, by = bound(n_bytes, n_ops)
-                log(f"{name} [{label}]: {ms:.4f} ms/launch, plain twin {plain_ms:.4f} ms, "
-                    f"bound {bound_ms:.4f} ms by {by} ({n_bytes / 1e9:.3f} GB), "
-                    f"{ctx['gc_launches'][name]} launches in the GC barrier [{card}]")
-            else:
-                rows.append(kernel_row(name, "crdt_tpu_torch/csrc/lexn_union.cu", replaces,
-                                       launches, err[name], ms, plain_ms, n_bytes, n_ops,
-                                       None, card))
-        del mk, mv
+    sides = lexn_sides(a, b, False)
+    n_planes, out = N_KEYS_SEQ + len(sides[1]), SEQ_C
+    merge_ms = time_ms(lambda: hu.lexn_merge_columnar(*sides), reps=10)
+    merge_plain = time_ms(lambda: hu._lexn_merge_plain(*sides), reps=3, warmup=1)
+    mk, mv = hu.lexn_merge_columnar(*sides)
+    compact_ms = time_ms(lambda: hu.lexn_compact_columnar(mk, mv, out), reps=10)
+    compact_plain = time_ms(lambda: hu._lexn_compact_plain(mk, mv, out), reps=3, warmup=1)
+    del mk, mv
+    # bytes: every input plane read once, every output plane written once;
+    # operations: one key-word compare for each binary-search step of the
+    # 2C merged rows (further words are compared only on ties), one for
+    # each row's duplicate test
+    rows.append(kernel_row(
+        "lexn_merge", "crdt_tpu_torch/csrc/lexn_union.cu", "crdt_tpu/ops/pallas_union.py:492",
+        ctx["launches"]["lexn_merge"], err["lexn_merge"], merge_ms, merge_plain,
+        4 * (2 * n_planes * SEQ_C * R + n_planes * 2 * SEQ_C * R), 2 * SEQ_C * R * log_c,
+        None, card))
+    rows.append(kernel_row(
+        "lexn_compact", "crdt_tpu_torch/csrc/lexn_union.cu", "crdt_tpu/ops/pallas_union.py:557",
+        ctx["launches"]["lexn_compact"], err["lexn_compact"], compact_ms, compact_plain,
+        4 * (n_planes * 2 * SEQ_C * R + n_planes * out * R + R), 2 * SEQ_C * R, None, card))
     log("lexn_merge / lexn_compact / lexn_union at 18 key words, library yardstick: none "
         "— torch.sort takes one key tensor, and 18 int32 words do not pack into one int64 "
         "(kernel 1's (2, 2) yardstick packs its 2); the plain twin's "
@@ -1730,47 +1801,89 @@ def rseq_times(pool, ctx, err, card) -> list:
     # gossip and converge call it) and at C=512 on phase 9's draws;
     # bytes: inputs read once, outputs and n_unique written once;
     # operations: a key-word compare a binary-search step of the 2C rows
-    draws = {SEQ_C: (a, b)}
-    for c in (SEQ_C, SEQ_C // 2):
-        if c not in draws:
-            draws[c] = (seq_columnar(pool, R, c, SEED + 43), seq_columnar(pool, R, c, SEED + 44))
-        for gc in (False, True):
-            sides = lexn_sides(*draws[c], gc)
-            n_planes, out = N_KEYS_SEQ + len(sides[1]), 2 * c if gc and c == SEQ_C else c
-            ms = time_ms(lambda: hu.sorted_union_columnar_fused_lexn(*sides, out_size=out),
-                         reps=10)
-            dev_ms = device_time_ms(
-                lambda: hu.sorted_union_columnar_fused_lexn(*sides, out_size=out))
-            plain_ms = time_ms(lambda: hu._lexn_union_plain(*sides, out), reps=3, warmup=1)
-            n_bytes = 4 * (2 * n_planes * c * R + n_planes * out * R + R)
-            n_ops = 2 * c * R * math.ceil(math.log2(c))
-            bound_ms, by = bound(n_bytes, n_ops)
-            body = hu.lexn_union_body(N_KEYS_SEQ, len(sides[1]), c, out,
-                                      hu.smem_limit(torch.device("cuda")))
-            share = (f"share {bound_ms / dev_ms:.3f} of the device time" if dev_ms
-                     else "device time not measured")
-            log(f"lexn_union [(18, {len(sides[1])}), C={c}, out={out}, wide body "
-                f"{hu.wide_threads(body)} threads a CTA]: {ms:.4f} ms/launch (device "
-                f"{dev_ms:.4f}), plain twin {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {by} "
-                f"({share}) [{card}]")
-            if c == SEQ_C and not gc:
-                rows.append(kernel_row(
-                    "lexn_union_rseq", "crdt_tpu_torch/csrc/lexn_union.cu",
-                    "crdt_tpu/ops/pallas_union.py:353", ctx["launches"]["lexn_union"],
-                    err["lexn_union_rseq"], ms, plain_ms, n_bytes, n_ops, None, card))
+    draws = {SEQ_C: (a, b), SEQ_C // 2: (seq_columnar(pool, R, SEQ_C // 2, SEED + 43),
+                                         seq_columnar(pool, R, SEQ_C // 2, SEED + 44))}
+    for c, (da, db) in draws.items():
+        sides = lexn_sides(da, db, False)
+        n_planes = N_KEYS_SEQ + len(sides[1])
+        ms = time_ms(lambda: hu.sorted_union_columnar_fused_lexn(*sides, out_size=c), reps=10)
+        dev_ms = device_time_ms(lambda: hu.sorted_union_columnar_fused_lexn(*sides, out_size=c))
+        plain_ms = time_ms(lambda: hu._lexn_union_plain(*sides, c), reps=3, warmup=1)
+        n_bytes = 4 * (2 * n_planes * c * R + n_planes * c * R + R)
+        n_ops = 2 * c * R * math.ceil(math.log2(c))
+        bound_ms, by = bound(n_bytes, n_ops)
+        body = hu.lexn_union_body(N_KEYS_SEQ, len(sides[1]), c, c,
+                                  hu.smem_limit(torch.device("cuda")))
+        share = (f"share {bound_ms / dev_ms:.3f} of the device time" if dev_ms
+                 else "device time not measured")
+        log(f"lexn_union [(18, {len(sides[1])}), C={c}, out=C, wide body "
+            f"{hu.wide_threads(body)} threads a CTA]: {ms:.4f} ms/launch (device "
+            f"{dev_ms:.4f}), plain twin {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {by} "
+            f"({share}) [{card}]")
+        if c == SEQ_C:
+            rows.append(kernel_row(
+                "lexn_union_rseq", "crdt_tpu_torch/csrc/lexn_union.cu",
+                "crdt_tpu/ops/pallas_union.py:353", ctx["launches"]["lexn_union"],
+                err["lexn_union_rseq"], ms, plain_ms, n_bytes, n_ops, None, card))
     log(f"lexn_union_rseq: the wide body's fused union at (18, 2), C={SEQ_C}, out=C, on "
-        f"the RSeq main path ({ctx['launches']['lexn_union']} launches; the GC barrier "
-        f"{ctx['gc_launches']['lexn_union']}); library: none (as above)")
-    del a, b, draws
-
+        f"the RSeq main path ({ctx['launches']['lexn_union']} launches); library: none "
+        "(as above)")
+    del a, b, draws, sides
+    rows.append(gc_union_row(ctx, card))
     profile("RSeq gossip_round", lambda: rc.gossip_round(col, rounds[0], alive))
     profile("RSeq converge_checked", lambda: rc.converge_checked(col, alive))
     return rows
 
 
+def gc_union_row(ctx, card) -> dict:
+    """Kernel 1's GC instance (lexn_gc_union) at the seq-swarm-10k.gc
+    cell's shape on phase 11's pair with real floors: its time (CUDA
+    events and profiler device time), its plain twin's (the lossless union
+    twin at 2C with the side marker, then the floor rule and compaction)
+    and its bound.  Bytes: both sides' 20 planes read once, C rows of the
+    20 written once, n_unique, dropped and both floor planes; operations: a
+    key-word compare a binary-search step of the 2C rows."""
+    from crdt_tpu_torch.models import rseq_engine as reng
+    from crdt_tpu_torch.ops import hopper_union as hu
+
+    a, b = ctx["gc_pair"]
+
+    def call():
+        return hu.gc_union_columnar_lexn(
+            a.col.keys, (a.col.elem, a.col.removed), a.floor,
+            b.col.keys, (b.col.elem, b.col.removed), b.floor, a.col.seq_bits)
+
+    def plain():
+        sides = [(tuple(x.col.keys), (x.col.elem, x.col.removed,
+                                      (x.col.keys[0] != SENTINEL).to(torch.int32) * k))
+                 for x, k in ((a, 1), (b, 2))]
+        keys, vals, _ = hu._lexn_union_plain(*sides[0], *sides[1], 2 * SEQ_C)
+        return reng._gc_suppress(a, b, keys, vals)
+
+    ms = time_ms(call, reps=10)
+    dev_ms = device_time_ms(call)
+    plain_ms = time_ms(plain, reps=3, warmup=1)
+    n_planes = N_KEYS_SEQ + 2
+    n_bytes = 4 * (2 * n_planes * SEQ_C * R + n_planes * SEQ_C * R + 2 * R + 2 * SEQ_W * R)
+    n_ops = 2 * SEQ_C * R * math.ceil(math.log2(SEQ_C))
+    bound_ms, by = bound(n_bytes, n_ops)
+    share = (f"share {bound_ms / dev_ms:.3f} of the device time" if dev_ms
+             else "device time not measured")
+    log(f"lexn_gc_union [(18, 2), C={SEQ_C}, out=C, W={SEQ_W}, the floor rule in the wide "
+        f"body's flag pass]: {ms:.4f} ms/launch (device {dev_ms:.4f}), plain twin "
+        f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {by} ({share}); "
+        f"{ctx['gc_launches']['lexn_gc_union']} launches in the GC barrier; library: none "
+        f"(as above) [{card}]")
+    return kernel_row("lexn_gc_union", "crdt_tpu_torch/csrc/lexn_union.cu",
+                      "crdt_tpu/models/tomb_gc.py (join_checked's union and floor rule)",
+                      ctx["gc_launches"]["lexn_gc_union"], ctx["gc_err"], ms, plain_ms,
+                      n_bytes, n_ops, None, card)
+
+
 def rseq_phases(card: str) -> list:
     """Phases 9-12: the RSeq swarm path.  Returns the table rows of
-    lexn_merge, lexn_compact and lexn_union at (18, 2)."""
+    lexn_merge, lexn_compact and lexn_union at (18, 2), and of lexn_union's
+    GC instance lexn_gc_union."""
     from crdt_tpu_torch import workload
 
     torch.cuda.empty_cache()
@@ -2885,9 +2998,9 @@ def soak_pair(capacity: int, card: str) -> dict:
     out["union_queued_ms"] = queued_ms(lambda: hu.sorted_union_columnar_lexn_auto(*sides))
     out["union_plain_ms"] = time_ms(lambda: hu._lexn_union_plain(*sides, 2 * capacity), reps=10)
     # the auto join by layer (CUDA events around each host call): staging the
-    # pair, the union, the floor suppression (src markers, drop and hole
-    # flags, the stable sort, the gathers, the floor max: gc_merge_checked
-    # less its union), unstack, and the whole join
+    # pair, the lossless union, the rest of gc_merge_checked (where the
+    # fused route takes the shape, its GC union and the floor max, less the
+    # lossless union), unstack, and the whole join
     merged = reng.gc_merge_checked(ca, cb)[0]
     layers = {
         "stack_pair": time_ms(lambda: reng._stack_pair(*pair), reps=50),
@@ -2944,11 +3057,13 @@ def typed_phase(card: str, rows: list, kv: dict) -> None:
     soaks = {c: soak_pair(c, card) for c in (512, 1024, 2048)}
     for c in (512, 1024):
         launched = soaks[c]["auto"]["launches"]
-        if not launched["lexn_union"] or launched["lexn_merge"] or launched["lexn_compact"]:
+        if not launched["lexn_gc_union"] or launched["lexn_union"] or \
+                launched["lexn_merge"] or launched["lexn_compact"]:
             raise AssertionError(f"the capacity-{c} auto soak launched {launched}, expected "
-                                 "the wide body's lexn_union alone")
+                                 "the wide body's GC instance (lexn_gc_union) alone")
     launched = soaks[2048]["auto"]["launches"]
-    if launched["lexn_union"] or not (launched["lexn_merge"] and launched["lexn_compact"]):
+    if launched["lexn_union"] or launched["lexn_gc_union"] or \
+            not (launched["lexn_merge"] and launched["lexn_compact"]):
         raise AssertionError(f"the capacity-2048 auto soak launched {launched}, expected "
                              "the striped lexn_merge and lexn_compact alone")
     gcs = gc_soaks(card)
@@ -5066,7 +5181,7 @@ def md_world_a(card: str, x: dict, want: dict) -> dict:
                 hu.LAUNCHES[k] = 0
             got, nu = step()
             torch.cuda.synchronize()
-            launches = hu.LAUNCHES["lexn_union"]
+            launches = hu.LAUNCHES["lexn_union"] + hu.LAUNCHES["lexn_gc_union"]
             same(f"(a) {name}: NCCL world of 1 vs the single-device converge",
                  got, want[name][0])
             if nu is not None and int(nu) != int(want[name][1]):
@@ -5132,7 +5247,8 @@ def md_rank(rank: int, world: int, root: str) -> None:
             dist.barrier()
             res["steps"][name] = {"s": time.perf_counter() - t0, "digest": md_digest(got),
                                   "max_n_unique": None if nu is None else int(nu),
-                                  "lexn_union_launches": hu.LAUNCHES["lexn_union"]}
+                                  "lexn_union_launches": (hu.LAUNCHES["lexn_union"]
+                                                          + hu.LAUNCHES["lexn_gc_union"])}
         res["backend"] = mesh.backend
     finally:
         dist.destroy_process_group()

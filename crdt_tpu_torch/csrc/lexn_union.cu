@@ -54,6 +54,13 @@
 //     scan, the map rewritten in place into the compacted gather map, and a
 //     move of out_size rows.  Past the card's 227 KB opt-in (C = 2048 at 18
 //     words) the host stripes the union instead.
+// The wide body's GC instance (lexn_gc_union, tomb_gc's GC join over RSeq)
+// runs the join's floor rule in that same flag pass: a one-sided row that
+// the other side's floor covers never enters the gather map, so the launch
+// writes the joined lane's C rows, its n_unique after the rule and the
+// rows the rule dropped, where the composition it replaces wrote a
+// lossless 2C union with a side-marker plane and then sorted the holes
+// away in plain torch (design above wide_union_kernel).
 // Both take the key and value counts at run time (under kMaxPlanes planes a
 // side; the tile body under tile_union::kMaxKeys key words).
 // lexn_merge and lexn_compact (designs above their kernels) work on tiles
@@ -71,7 +78,8 @@
 // 2.52 GB (0.75 ms) in one launch: it reads each key word from device
 // memory once (flags and move take them from the owners' shared memory),
 // the values once more where they are gathered, and writes no merged
-// intermediate.  At one or two lanes (the sequence soak's joins) nothing is
+// intermediate.  So does its GC instance, and 2 x W floor words a lane
+// more.  At one or two lanes (the sequence soak's joins) nothing is
 // bound by bytes: the launch, the cluster's barriers and the owner CTA's
 // rank and scan set the time.
 
@@ -98,6 +106,12 @@ struct Params {
   int out_size;  // rows of each output plane
   int n_keys;
   int n_vals;
+  // the GC instance of the wide body alone (null / 0 elsewhere)
+  const int32_t* floor_a;  // (n_writers, lanes): each side's per-writer floor
+  const int32_t* floor_b;
+  int32_t* dropped;        // (lanes,): rows the floor rule took out
+  int n_writers;
+  int seq_bits;            // identity word = rid << seq_bits | seq
 };
 
 // Block-wide exclusive scan of `cnt` (one count per thread, threads in
@@ -349,18 +363,40 @@ lexn_merge_kernel(Params p) {
 //      lane's n_unique (read from the owner) are SENTINEL / 0.
 // At fewer than 8 lanes only the owners of real lanes rank and scan, while
 // all 8 CTAs stage and move.
+//
+// The GC instance (kGc, the GC join of tomb_gc over RSeq: lexn_gc_union)
+// adds the floor rule to step 3.  Step 1 also loads the owner lane's floor
+// column of each side (2 x n_writers words, after the warp sums).  In step
+// 3 a kept row is dropped where the next merged row is not its duplicate
+// (the row is one-sided: no matched pair is ever dropped) and the OTHER
+// side's floor covers its identity word, the last key word of the staged
+// row: rid = ident >> seq_bits in [0, n_writers) and seq <= floor[rid].
+// The side comes from the map (src < C: A, whose rows B's floor covers).
+// A thread counts kept rows in the low 16 bits of its scan count and
+// dropped rows in the high bits, so the one block scan gives both; the
+// lane's n_unique is then the kept rows after the floor rule and before
+// truncation, and `dropped` gets the rest.  The move is step 4 as it
+// stands: a dropped row was never written to the gather map, so out_size
+// = C rows of the compacted lane come out of the one launch.
 
 constexpr int kWideMinRows = 2;   // merged rows a thread takes at least
 constexpr int kWideRankRows = 8;  // and at most
 constexpr int kWideUnroll = 2;    // staging items in flight a thread
 constexpr int32_t kDupBit = (int32_t)0x80000000u;
 
-__host__ __device__ inline size_t wide_smem_bytes(int nk, int c) {
-  return sizeof(int32_t) * ((size_t)2 * c * key_stride(nk) + 2 * (size_t)c + kMergeWarps) +
+// n_writers: the GC instance's floor words of each side (0 for the union)
+__host__ __device__ inline size_t wide_smem_bytes(int nk, int c, int n_writers = 0) {
+  return sizeof(int32_t) * ((size_t)2 * c * key_stride(nk) + 2 * (size_t)c + kMergeWarps +
+                            2 * (size_t)n_writers) +
          2 * (size_t)c;
 }
 
-template <int kWideThreads, int kCtasPerSm>
+// The GC instance's scan count: kept rows in the low 16 bits (2C <= 8,192
+// rows a lane), dropped rows above them.
+constexpr int kDropShift = 16;
+constexpr int kKeptMask = (1 << kDropShift) - 1;
+
+template <int kWideThreads, int kCtasPerSm, bool kGc>
 __global__ void __launch_bounds__(kWideThreads, kCtasPerSm)
 wide_union_kernel(Params p) {
   constexpr int groups = kWideThreads / kTile, warps = kWideThreads / 32;
@@ -375,7 +411,9 @@ wide_union_kernel(Params p) {
   int32_t* sb = sa + c * kp;    // C x KP  B's key words
   int32_t* map = sb + c * kp;   // 2C      merged row -> source, then the gather map
   int* warp_sums = map + n;     // kMergeWarps
-  unsigned char* flag = reinterpret_cast<unsigned char*>(warp_sums + kMergeWarps);  // 2C
+  int32_t* floors = warp_sums + kMergeWarps;  // GC: n_writers words of A's floor, then B's
+  const int fw = kGc ? p.n_writers : 0;
+  unsigned char* flag = reinterpret_cast<unsigned char*>(floors + 2 * fw);  // 2C
 
   const int l = threadIdx.x % kTile, g = threadIdx.x / kTile;
   const size_t lane = l0 + l;
@@ -395,6 +433,11 @@ wide_union_kernel(Params p) {
     for (int w = threadIdx.x; w < 2 * nv * nr; w += kWideThreads) {
       const int r = r0 + w % nr, v = nk + (w / nr) % nv, side = w / (nr * nv);
       tile_union::prefetch_l2((side ? p.b[v] : p.a[v]) + (size_t)r * lanes + l0);
+    }
+  }
+  if (kGc && l0 + me < lanes) {  // the owner lane's floor column of each side
+    for (int w = threadIdx.x; w < 2 * fw; w += kWideThreads) {
+      floors[w] = __ldg((w < fw ? p.floor_a : p.floor_b) + (size_t)(w % fw) * lanes + l0 + me);
     }
   }
   cluster.sync();
@@ -433,15 +476,35 @@ wide_union_kernel(Params p) {
       fl[k] = in ? flag[d0 + k] : 2;
       if (k < k_rows && d0 + k < d1) cnt += fl[k] == 0;
     }
+    if (kGc) {  // the floor rule: a one-sided kept row the other side's floor covers
+      const uint32_t seq_mask = (1u << p.seq_bits) - 1u;
+#pragma unroll
+      for (int k = 0; k < kWideRankRows; ++k) {
+        if (k < k_rows && d0 + k < d1 && fl[k] == 0 && fl[k + 1] != 1) {
+          const int32_t ident = sa[src[k] * kp + nk - 1];
+          const int rid = ident >> p.seq_bits;
+          const int seq = (int)((uint32_t)ident & seq_mask);
+          const int32_t* other = src[k] < c ? floors + fw : floors;
+          if (rid >= 0 && rid < fw && seq <= other[rid]) {
+            fl[k] = 3;
+            cnt += (1 << kDropShift) - 1;  // from the kept count to the dropped
+          }
+        }
+      }
+    }
     int total;
     int dst = block_exclusive_scan(cnt, warp_sums, &total);
+    if (kGc) dst &= kKeptMask;
 #pragma unroll
     for (int k = 0; k < kWideRankRows; ++k) {
       if (k < k_rows && d0 + k < d1 && fl[k] == 0) {
         map[dst++] = fl[k + 1] == 1 ? (src[k] | src[k + 1] << 16 | kDupBit) : src[k];
       }
     }
-    if (threadIdx.x == 0) p.n_unique[l0 + me] = total;
+    if (threadIdx.x == 0) {
+      p.n_unique[l0 + me] = kGc ? total & kKeptMask : total;
+      if (kGc) p.dropped[l0 + me] = total >> kDropShift;
+    }
   }
   cluster.sync();
 
@@ -449,7 +512,8 @@ wide_union_kernel(Params p) {
   {
     const int32_t* gather = cluster.map_shared_rank(map, l);
     const int32_t* keys = cluster.map_shared_rank(sa, l);
-    const int nu = lane_ok ? cluster.map_shared_rank(warp_sums, l)[warps - 1] : 0;
+    const int sum = lane_ok ? cluster.map_shared_rank(warp_sums, l)[warps - 1] : 0;
+    const int nu = kGc ? sum & kKeptMask : sum;
     const int out = p.out_size;
     const int per = (out + kTile - 1) / kTile;
     const int o0 = min(out, me * per), o1 = min(out, o0 + per);
@@ -742,22 +806,34 @@ cudaError_t merge_config(int lanes, int smem, cudaStream_t stream,
   return cudaOccupancyMaxActiveClusters(clusters, (void*)lexn_merge_kernel, cfg);
 }
 
+template <bool kGc>
+void (*wide_instance(int ctas_per_sm))(Params) {
+  return ctas_per_sm == 8   ? wide_union_kernel<128, 8, kGc>
+         : ctas_per_sm == 4 ? wide_union_kernel<256, 4, kGc>
+         : ctas_per_sm == 2 ? wide_union_kernel<512, 2, kGc>
+                            : wide_union_kernel<1024, 1, kGc>;
+}
+
 // The wide union's launch, after the checks of what it takes: the plan
 // (8 lanes a cluster, stages 0, `ctas_per_sm` 1, 2, 4 or 8), C a power of
 // two with 2C <= kWideRankRows x the instance's threads, and `smem` at
-// least its layout's.  k CTAs an SM run the instance of 1,024 / k threads,
-// each held to 64 registers.
+// least its layout's; the GC instance (`gc`) also its floors, its dropped
+// counts and a seq_bits under 32.  k CTAs an SM run the instance of
+// 1,024 / k threads, each held to 64 registers.
 cudaError_t wide_launch(const Params& p, int lane_tile, int ctas_per_sm, int smem,
-                        cudaStream_t stream) {
-  void (*kernel)(Params) = ctas_per_sm == 8   ? wide_union_kernel<128, 8>
-                           : ctas_per_sm == 4 ? wide_union_kernel<256, 4>
-                           : ctas_per_sm == 2 ? wide_union_kernel<512, 2>
-                                              : wide_union_kernel<1024, 1>;
+                        cudaStream_t stream, bool gc = false) {
+  void (*kernel)(Params) = gc ? wide_instance<true>(ctas_per_sm)
+                              : wide_instance<false>(ctas_per_sm);
   const int threads = 1024 / ctas_per_sm;
   if (lane_tile != kTile || (ctas_per_sm != 1 && ctas_per_sm != 2 && ctas_per_sm != 4 &&
                              ctas_per_sm != 8) || (p.c & (p.c - 1)) ||
       2 * p.c > kWideRankRows * threads || p.out_size < 0 || p.out_size > 2 * p.c ||
-      p.n_unique == nullptr || smem < 0 || (size_t)smem < wide_smem_bytes(p.n_keys, p.c)) {
+      p.n_unique == nullptr || smem < 0 ||
+      (size_t)smem < wide_smem_bytes(p.n_keys, p.c, gc ? p.n_writers : 0)) {
+    return cudaErrorInvalidValue;
+  }
+  if (gc && (p.floor_a == nullptr || p.floor_b == nullptr || p.dropped == nullptr ||
+             p.n_writers < 0 || p.seq_bits < 0 || p.seq_bits > 31)) {
     return cudaErrorInvalidValue;
   }
   cudaLaunchConfig_t cfg;
@@ -814,6 +890,28 @@ int lexn_union(int n_keys, int n_vals, const void* const* a,
   t.stage_vals = stage_vals;
   if (n_keys == 2) return tile_union::launch<2>(t, smem, s);
   return tile_union::launch<0>(t, smem, s);
+}
+
+// The GC join's union (the wide body's GC instance): the union's operands
+// and plan (`lane_tile` 8, `ctas_per_sm`), each side's floor plane
+// (n_writers, lanes) and the identity words' seq_bits; outputs (c, lanes):
+// a GC join writes the joined lane's capacity, never more; n_unique and
+// dropped (lanes,): the kept rows after the floor rule (before truncation)
+// and the rows it took out.
+int lexn_gc_union(int n_keys, int n_vals, const void* const* a, const void* const* b,
+                  const void* floor_a, const void* floor_b, void* const* out,
+                  void* n_unique, void* dropped, int c, int lanes, int n_writers,
+                  int seq_bits, int lane_tile, int ctas_per_sm, int smem, void* stream) {
+  Params p;
+  if (!fill_params(&p, n_keys, n_vals, a, b, out, n_unique, c, lanes, c)) {
+    return cudaErrorInvalidValue;
+  }
+  p.floor_a = static_cast<const int32_t*>(floor_a);
+  p.floor_b = static_cast<const int32_t*>(floor_b);
+  p.dropped = static_cast<int32_t*>(dropped);
+  p.n_writers = n_writers;
+  p.seq_bits = seq_bits;
+  return wide_launch(p, lane_tile, ctas_per_sm, smem, static_cast<cudaStream_t>(stream), true);
 }
 
 // The merge: inputs (s, lanes), outputs (2s, lanes); clusters of 8 CTAs.

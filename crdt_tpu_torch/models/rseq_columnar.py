@@ -206,10 +206,9 @@ def _slice_lanes(col: ColumnarRSeq, lo: int, hi: int) -> ColumnarRSeq:
     return tree_map(lambda x: x[..., lo:hi].contiguous(), col)
 
 
-def _union(a: ColumnarRSeq, b: ColumnarRSeq, extra_a=(), extra_b=(), out_size=None):
-    """The lexN union of two same-layout columnar swarms, value planes
-    (elem, removed, *extra): (keys[3D, out, L], vals[2 + extra, out, L],
-    n_unique), each block as the union returns it (no copy)."""
+def check_layouts(a: ColumnarRSeq, b: ColumnarRSeq) -> None:
+    """Raise ValueError unless two columnar swarms share depth, pack
+    layout, capacity and lane count (what a lane-wise join needs)."""
     if a.keys.shape[0] != b.keys.shape[0]:
         raise ValueError(
             f"depths differ ({a.depth} vs {b.depth}): widen to a common "
@@ -221,6 +220,13 @@ def _union(a: ColumnarRSeq, b: ColumnarRSeq, extra_a=(), extra_b=(), out_size=No
         raise ValueError(f"capacities differ ({a.capacity} vs {b.capacity})")
     if a.lanes != b.lanes:
         raise ValueError(f"lane counts differ ({a.lanes} vs {b.lanes})")
+
+
+def _union(a: ColumnarRSeq, b: ColumnarRSeq, extra_a=(), extra_b=(), out_size=None):
+    """The lexN union of two same-layout columnar swarms, value planes
+    (elem, removed, *extra): (keys[3D, out, L], vals[2 + extra, out, L],
+    n_unique), each block as the union returns it (no copy)."""
+    check_layouts(a, b)
     return hopper_union.sorted_union_columnar_lexn_auto(
         a.keys, (a.elem, a.removed, *extra_a),
         b.keys, (b.elem, b.removed, *extra_b),

@@ -5,22 +5,40 @@ exception (counterpart of ``crdt_tpu.models.rseq_engine``).
 The generic GC join (``tomb_gc.join_checked``) is a lossless union with a
 per-row source marker (1 = only a, 2 = only b, 3 = both) followed by the
 floor-suppression rule: a one-sided row covered by the OTHER side's floor
-was removed and collected there, so it is dropped.  The lexN kernels'
-duplicate rule is OR-combine-then-keep-first, which gives the marker for
-free: side a carries a ``src = 1`` value plane, side b ``src = 2``, a
-matched row's copies OR into 3.  (A kernel that kept the first copy of a
-value plane would break the suppression silently.)  Then:
+was removed and collected there, so it is dropped.  Each row's writer
+identity is the LAST level's packed identity word (``rid << seq_bits |
+seq``); per-lane floors are (W, R) planes.  Every GC join of this module
+(the pull round, the barrier's halvings, the pairwise and sharded joins)
+is :func:`_gc_join`, which takes one of two routes by device and shape:
 
-1. a lossless lexN union at ``out_size = 2C`` with value planes
-   ``(elem, removed, src)`` — nothing truncates, so a suppressed row never
-   evicts a real one;
-2. each row's writer identity is the LAST level's packed identity word
-   (``rid << seq_bits | seq``); per-lane floors are (W, R) planes, so
-   coverage is one gather per side;
-3. dropped rows are punched to SENTINEL/0 and compacted by a stable
-   single-key sort of the hole flag in plain torch (the JAX package does
-   it in XLA, outside Pallas): kept rows are already in key order;
-4. ``n_unique`` = kept rows a lane (post-suppression, pre-capacity-slice).
+* **fused** (a CUDA tensor whose shape the GC instance of kernel 1's wide
+  body takes, ``hopper_union.lexn_gc_union_plan``): one launch of
+  ``hopper_union.gc_union_columnar_lexn``, where the floor rule runs in
+  the wide body's flag pass: a kept row whose next merged row is not its
+  duplicate is one-sided, its side comes from the merge map, and it is
+  dropped before the scan where the other side's floor covers it.  C rows
+  come out, with ``n_unique`` (kept rows after the rule, before
+  truncation) and the rows dropped a lane; no marker plane, no 2C
+  intermediate, no sort;
+* **composition** (the CPU, where it is the plain twin the JAX package is
+  held against, and shapes the fused route does not take: RSeq's 18 words
+  at C = 2048, where the union is striped, or floors past its shared
+  memory):
+
+  1. a lossless lexN union at ``out_size = 2C`` with value planes
+     ``(elem, removed, src)``: the lexN kernels' duplicate rule is
+     OR-combine-then-keep-first, so side a carries ``src = 1``, side b
+     ``src = 2``, a matched row's copies OR into 3 (a kernel that kept the
+     first copy of a value plane would break the suppression silently);
+     nothing truncates, so a suppressed row never evicts a real one;
+  2. coverage is one gather per side from the (W, R) floor planes;
+  3. dropped rows are punched to SENTINEL/0 and compacted by a stable
+     single-key sort of the hole flag in plain torch (the JAX package does
+     it in XLA, outside Pallas): kept rows are already in key order;
+  4. ``n_unique`` = kept rows a lane (post-suppression, pre-capacity-slice).
+
+Both routes give the same planes, unique counts and dropped rows, and the
+merged floor is the two floors' maximum.
 
 A GC'd swarm lives in this layout for its whole life through
 :func:`plan_gc` → :class:`GcSwarm`: its pull rounds
@@ -31,6 +49,7 @@ no key sort.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import warnings
 
@@ -38,6 +57,7 @@ import torch
 
 from crdt_tpu_torch.models import rseq, rseq_columnar as rc, tomb_gc
 from crdt_tpu_torch.models.oplog_engine import EngineFallback
+from crdt_tpu_torch.ops import hopper_union
 from crdt_tpu_torch.parallel import swarm as swarm_mod
 from crdt_tpu_torch.utils.constants import SENTINEL_PY
 from crdt_tpu_torch.utils.tracing import trace_region
@@ -159,18 +179,54 @@ def _gc_suppress(a: ColumnarGc, b: ColumnarGc, keys, vals):
     return ColumnarGc(col=col, floor=torch.maximum(a.floor, b.floor)), n_unique, drop
 
 
+def _fused(a: ColumnarGc) -> bool:
+    """Whether the GC join of ``a``'s layout takes the fused route: a
+    CUDA tensor in a shape kernel 1's GC instance takes."""
+    device = a.floor.device
+    return device.type == "cuda" and hopper_union.lexn_gc_union_plan(
+        a.col.keys.shape[0], 2, a.capacity, a.floor.shape[0],
+        hopper_union.smem_limit(device)) is not None
+
+
+def _region(span: str | None, part: str):
+    return trace_region(f"{span}.{part}") if span else contextlib.nullcontext()
+
+
+def _gc_join(a: ColumnarGc, b: ColumnarGc, span: str | None = None):
+    """The GC join of two same-layout columnar GC swarms, lane by lane, on
+    the route the device and shape take (module docstring): (ColumnarGc,
+    n_unique[R], dropped[R]), dropped the rows the floor rule took out of
+    each lane.  Under ``span`` the row work opens ``<span>.union`` (the
+    fused kernel, or the lossless union) and ``<span>.suppress`` (the floor
+    maximum, and the composition's floor rule and compaction)."""
+    if a.floor.shape != b.floor.shape:
+        raise ValueError(
+            f"writer counts differ (floor shapes {tuple(a.floor.shape)} vs "
+            f"{tuple(b.floor.shape)})"
+        )
+    if not _fused(a):
+        with _region(span, "union"):
+            keys, vals = _gc_union(a, b)
+        with _region(span, "suppress"):
+            merged, n_unique, drop = _gc_suppress(a, b, keys, vals)
+            return merged, n_unique, drop.sum(dim=0, dtype=torch.int32)
+    with _region(span, "union"):
+        rc.check_layouts(a.col, b.col)
+        keys, (elem, removed), n_unique, dropped = hopper_union.gc_union_columnar_lexn(
+            a.col.keys, (a.col.elem, a.col.removed), a.floor,
+            b.col.keys, (b.col.elem, b.col.removed), b.floor, a.col.seq_bits)
+    with _region(span, "suppress"):
+        col = rc.ColumnarRSeq(keys=keys, elem=elem, removed=removed, seq_bits=a.col.seq_bits)
+        return ColumnarGc(col=col, floor=torch.maximum(a.floor, b.floor)), n_unique, dropped
+
+
 def gc_merge_checked(a: ColumnarGc, b: ColumnarGc):
     """Lane-wise GC-aware CRDT join on the lexN kernels: exactly
     ``tomb_gc.join_checked(·, ·, rseq.GC_ADAPTER)`` per lane (union, floor
     suppression, capacity slice, floor max).  Returns (ColumnarGc,
     n_unique[R]); n_unique counts post-suppression rows — > capacity means
     truncation broke the state (tomb_gc.GcOverflow)."""
-    if a.floor.shape != b.floor.shape:
-        raise ValueError(
-            f"writer counts differ (floor shapes {tuple(a.floor.shape)} vs "
-            f"{tuple(b.floor.shape)})"
-        )
-    merged, n_unique, _ = _gc_suppress(a, b, *_gc_union(a, b))
+    merged, n_unique, _ = _gc_join(a, b)
     return merged, n_unique
 
 
@@ -185,7 +241,7 @@ def _gc_lub_lane(work: ColumnarGc):
     while p > 1:
         p //= 2
         lo, hi = _slice_lanes(work, 0, p), _slice_lanes(work, p, 2 * p)
-        work, nu, _ = _gc_suppress(lo, hi, *_gc_union(lo, hi))
+        work, nu, _ = _gc_join(lo, hi)
         max_nu = torch.maximum(max_nu, nu.max())
     return work, max_nu
 
@@ -376,16 +432,13 @@ def gc_gossip_round(cg: ColumnarGc, peers: torch.Tensor, alive: torch.Tensor,
         with trace_region("rseq_engine.gc_gossip_round.gather"):
             peers = peers.to(device=cg.floor.device, dtype=torch.long)
             peer = tree_map(lambda x: x[..., peers], cg)
-        with trace_region("rseq_engine.gc_gossip_round.union"):
-            keys, vals = _gc_union(cg, peer)
-        with trace_region("rseq_engine.gc_gossip_round.suppress"):
-            merged, n_unique, drop = _gc_suppress(cg, peer, keys, vals)
+        merged, n_unique, dropped = _gc_join(cg, peer, span="rseq_engine.gc_gossip_round")
         with trace_region("rseq_engine.gc_gossip_round.gate"):
             ok = alive & alive[peers]
             out = tree_map(lambda m, x: torch.where(ok, m, x), merged, cg)
             n_unique = torch.where(ok, n_unique, 0)
             if counts is not None:
-                counts.add((drop & ok).sum())
+                counts.add((dropped * ok).sum())
         return out, n_unique
 
 

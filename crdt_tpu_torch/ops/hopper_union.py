@@ -10,7 +10,10 @@ Counterpart of ``crdt_tpu.ops.pallas_union``.  Two CUDA sources:
   OR-combined into the kept copy (OR-combine-then-keep-first); the host
   functions ``sorted_union_columnar_striped_lexn`` and
   ``sorted_union_columnar_lexn_auto`` serve capacities whose fused union
-  does not fit a block's shared memory;
+  does not fit a block's shared memory; and the fused union's GC instance
+  (``gc_union_columnar_lexn``), which runs ``tomb_gc``'s floor rule in
+  the wide body's flag pass for the GC join of ``models.rseq_engine`` and
+  has no CPU twin of its own (the engine's composition is its twin);
 * ``csrc/set_union.cu`` — the single-key OR-Set union
   (``sorted_union_columnar_fused``), its merge stage alone
   (``bitonic_merge_columnar``) and the bucket-local union
@@ -60,7 +63,7 @@ from crdt_tpu_torch.utils.tracing import trace_region
 
 LAUNCHES = {"lexn_union": 0, "set_union": 0, "merge": 0, "bucketed_union": 0,
             "lexn_merge": 0, "lexn_compact": 0, "floor_union": 0,
-            "bucketed_floor_union": 0, "member_mask": 0}
+            "bucketed_floor_union": 0, "member_mask": 0, "lexn_gc_union": 0}
 
 # key + value planes a side that one lexN launch takes (csrc/lexn_union.cu
 # kMaxPlanes): RSeq at depth 9 with its GC join's three value planes
@@ -174,6 +177,13 @@ def wide_threads(plan: tuple[int, int, int]) -> int:
     return 1024 // plan[2]
 
 
+def _wide_plan(smem: int) -> tuple[int, int, int]:
+    """The wide body's plan (8, 0, CTAs an SM) at ``smem`` bytes a CTA."""
+    per_cta = smem + _SMEM_PER_CTA_RESERVED
+    ctas = next((k for k in (8, 4, 2) if k * per_cta <= HOPPER_SMEM_PER_SM), 1)
+    return WIDE_LANES, 0, ctas
+
+
 def lexn_union_body(n_keys: int, n_vals: int, c: int, out: int,
                     limit: int) -> tuple[int, int, int]:
     """The fused union's body: (lane tile, key stages, values staged) of
@@ -183,9 +193,32 @@ def lexn_union_body(n_keys: int, n_vals: int, c: int, out: int,
         plan = _tile_plan(n_keys, n_vals, c, out, (8,), limit)
         if plan is not None:
             return plan
-    per_cta = lexn_wide_smem_bytes(n_keys, c) + _SMEM_PER_CTA_RESERVED
-    ctas = next((k for k in (8, 4, 2) if k * per_cta <= HOPPER_SMEM_PER_SM), 1)
-    return WIDE_LANES, 0, ctas
+    return _wide_plan(lexn_wide_smem_bytes(n_keys, c))
+
+
+# merged rows a wide-body thread ranks at most (csrc/lexn_union.cu
+# kWideRankRows): 2C may not pass that many times the CTA's threads
+_WIDE_RANK_ROWS = 8
+
+
+def lexn_gc_union_smem_bytes(n_keys: int, c: int, n_writers: int) -> int:
+    """The wide body's GC instance, per CTA: the wide body's layout and
+    the owner lane's floor column of each side (a word a writer)."""
+    return lexn_wide_smem_bytes(n_keys, c) + 4 * 2 * n_writers
+
+
+def lexn_gc_union_plan(n_keys: int, n_vals: int, c: int, n_writers: int,
+                       limit: int) -> tuple[int, int, int] | None:
+    """The wide body's plan for the GC join's union (the floor rule in its
+    flag pass) on a card with ``limit`` bytes of shared memory a block, or
+    None where the GC instance cannot take the shape: its shared memory past
+    ``limit`` (RSeq's 18 words at C = 2048, or floors too wide), more
+    planes than a launch takes, or 2C rows past its threads' reach."""
+    smem = lexn_gc_union_smem_bytes(n_keys, c, n_writers)
+    if n_keys + n_vals > MAX_PLANES or smem > limit:
+        return None
+    plan = _wide_plan(smem)
+    return plan if 2 * c <= _WIDE_RANK_ROWS * wide_threads(plan) else None
 
 
 def lexn_union_smem_bytes(n_keys: int, n_vals: int, c: int, out: int | None = None,
@@ -459,6 +492,49 @@ def sorted_union_columnar_lexn_auto(
         return _striped_lexn(keys_a, vals_a, keys_b, vals_b, out, stripe)
 
 
+def gc_union_columnar_lexn(keys_a, vals_a, floor_a, keys_b, vals_b, floor_b,
+                           seq_bits: int):
+    """Kernel 1's GC instance: the fused lexN union with ``tomb_gc``'s
+    floor rule in its flag pass, the row work of the GC join.  A kept row
+    with no equal key on the other side whose identity word (the last key
+    word, ``rid << seq_bits | seq``) the OTHER side's floor covers (``0 <=
+    rid < W`` and ``seq <= floor[rid]``, floors (W, L) int32) is dropped
+    before the compaction and the truncation to C rows, the joined lane's
+    capacity.  Returns (keys[n_keys, C, L], vals[n_vals, C, L], n_unique[L],
+    dropped[L]): the kept rows after the rule and before truncation, and
+    the rows the rule took out.  CUDA tensors only, in a shape that
+    :func:`lexn_gc_union_plan` takes; the plain twin is the lossless union's
+    followed by the rule (``models.rseq_engine``)."""
+    with trace_region("crdt.union_lexn"):
+        keys_a, vals_a, keys_b, vals_b = map(tuple, (keys_a, vals_a, keys_b, vals_b))
+        n_keys, n_vals, c, lanes, device = _lexn_shape(keys_a, vals_a, keys_b, vals_b)
+        if _route("lexn_gc_union", device):
+            raise ValueError("the GC union's kernel takes CUDA tensors; its plain twin is "
+                             "the lossless union followed by the floor rule")
+        if floor_a.dim() != 2:
+            raise ValueError(f"floors must be (W, L), got shape {tuple(floor_a.shape)}")
+        _check_planes((floor_a, floor_b), (floor_a.shape[0], lanes), device)
+        if not 0 <= seq_bits < 32:
+            raise ValueError(f"seq_bits {seq_bits} outside [0, 32)")
+        n_writers = floor_a.shape[0]
+        limit = smem_limit(device)
+        plan = lexn_gc_union_plan(n_keys, n_vals, c, n_writers, limit)
+        if plan is None:
+            raise ValueError(
+                f"the GC union at C={c} with {n_keys} key words and {n_writers} writers "
+                f"does not fit the wide body ({lexn_gc_union_smem_bytes(n_keys, c, n_writers)} "
+                f"B of shared memory a block, {limit} B allowed)")
+        dropped = torch.empty((lanes,), dtype=torch.int32, device=device)
+        keys, vals, nu = _lexn_launch(
+            "lexn_gc_union", n_keys, n_vals, c, lanes, device,
+            lexn_gc_union_smem_bytes(n_keys, c, n_writers),
+            lambda lib, o, nu, smem, st: lib.lexn_gc_union(
+                n_keys, n_vals, _ptrs(keys_a + vals_a), _ptrs(keys_b + vals_b),
+                floor_a.data_ptr(), floor_b.data_ptr(), _block_ptrs(o), nu.data_ptr(),
+                dropped.data_ptr(), c, lanes, n_writers, seq_bits, plan[0], plan[2], smem, st))
+        return keys, vals, nu, dropped
+
+
 # ---- the lexN family: launches ----
 
 _P = ctypes.c_void_p
@@ -470,6 +546,8 @@ _SIGNATURES = {
         "lexn_union": ([_I, _I, _PP, _PP, _PP, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),
         "lexn_merge": ([_I, _I, _PP, _PP, _PP, _I, _I, _I, _P], _I),
         "lexn_compact": ([_I, _I, _PP, _PP, _P, _I, _I, _I, _I, _I, _P], _I),
+        "lexn_gc_union": ([_I, _I, _PP, _PP, _P, _P, _PP, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                           _P], _I),
         "lexn_merge_clusters": ([_I], _I),
         "lexn_union_error_string": ([_I], ctypes.c_char_p),
     },

@@ -19,10 +19,12 @@ from crdt_tpu.ops import joins as jjoins
 from crdt_tpu.parallel import swarm as jswarm
 from crdt_tpu_torch.models import rseq as trseq, rseq_engine as tre, tomb_gc as tgc
 from crdt_tpu_torch.models.oplog_engine import EngineFallback
+from crdt_tpu_torch.ops import hopper_union as hu
 from crdt_tpu_torch.parallel import swarm as tswarm
 from crdt_tpu_torch.utils import tracing
 from crdt_tpu_torch.utils.tree import tree_map
 from tests.test_torch_rseq import branch
+from tests.seq_gc_planted import PLANTED_COUNTS, planted_pairs, staged_planted
 from tests.test_torch_tomb_gc import JAD, TAD, assert_gc, gc_j, lane, stacked
 
 CAP, W, R = 64, 4, 12
@@ -244,6 +246,73 @@ def test_plan_falls_back_loudly_and_serves_the_same_results():
     np.testing.assert_array_equal(want_nu, nu.numpy())
     with pytest.warns(EngineFallback, match="power of two"):
         tgc.gc_round(tswarm.make(g, alive), TAD, trseq.empty(96, device="cpu"))
+
+
+# ---- the GC join's route: the twin on the CPU, the fused kernel by shape ------
+
+
+def test_a_cpu_tensor_takes_the_twin(swarm, monkeypatch):
+    """On the CPU every GC join (pulls and the barrier's halvings) is the
+    composition, never the fused kernel, whose entry point refuses CPU
+    tensors."""
+    def no_kernel(*args, **kwargs):
+        raise AssertionError("the fused GC union was called on the CPU")
+
+    a, b = staged_planted()
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        hu.gc_union_columnar_lexn(a.col.keys, (a.col.elem, a.col.removed), a.floor,
+                                  b.col.keys, (b.col.elem, b.col.removed), b.floor,
+                                  a.col.seq_bits)
+    monkeypatch.setattr(hu, "gc_union_columnar_lexn", no_kernel)
+    alive = torch.ones(R, dtype=torch.bool)
+    col, _ = engines(swarm, alive)
+    assert not tre._fused(col.columnar)
+    peers = peer_draw(9)
+    want, want_nu = jax_pull(gc_j(swarm), peers, alive.numpy())
+    out, nu = col.gossip_round(torch.from_numpy(peers))
+    assert_gc(want, out.rows())
+    np.testing.assert_array_equal(want_nu, nu.numpy())
+    out.gc_barrier()
+
+
+@pytest.mark.parametrize("n_keys, c, n_writers, plan", [
+    (18, 1024, 16, (8, 0, 1)),    # the gc cell: one CTA of 1,024 threads an SM
+    (18, 512, 16, (8, 0, 2)),
+    (18, 64, 16, (8, 0, 8)),
+    (18, 2048, 16, None),         # 18 words at C = 2048: the union is striped
+    (18, 1024, 7_280, (8, 0, 1)),  # the widest floors that fit at C = 1024 ...
+    (18, 1024, 7_281, None),      # ... one writer more does not
+    (31, 64, 4, None),            # 31 keys and 2 values pass the 32 planes a launch
+])
+def test_gc_union_plan_at_the_h100_limit(n_keys, c, n_writers, plan):
+    """Where the fused route takes the GC join: the wide body's layout
+    plus a floor word a writer a side within the card's 232,448 B, the
+    planes within a launch's, 2C within its threads' reach; elsewhere the
+    composition serves (on the card too)."""
+    assert hu.lexn_gc_union_plan(n_keys, 2, c, n_writers, hu.HOPPER_SMEM_OPTIN) == plan
+    smem = hu.lexn_gc_union_smem_bytes(n_keys, c, n_writers)
+    assert smem == hu.lexn_wide_smem_bytes(n_keys, c) + 8 * n_writers
+    if plan is None and n_keys + 2 <= hu.MAX_PLANES:
+        assert smem > hu.HOPPER_SMEM_OPTIN
+
+
+@pytest.mark.parametrize("i", range(len(PLANTED_COUNTS[0])))
+def test_planted_joins_on_the_twin_match_jax(i):
+    """The planted cases of the card's tests (lane 0: a union of 12 rows
+    that fits C = 8 only after the floor rule) on the twin: the pairwise GC
+    join equals the JAX package's ``tomb_gc.join_checked`` and the port's
+    generic one, and the batch's unique and dropped counts are the planted
+    ones."""
+    a, b = planted_pairs()
+    want, want_nu = jgc.join_checked(gc_j(lane(a, i)), gc_j(lane(b, i)), JAD)
+    got, nu = tre.gc_join_checked(lane(a, i), lane(b, i))
+    assert_gc(want, got)
+    assert int(nu) == int(want_nu) == PLANTED_COUNTS[0][i]
+    gen, gen_nu = tgc.join_checked(lane(a, i), lane(b, i), TAD)
+    assert_gc(want, gen)
+    assert int(gen_nu) == int(want_nu)
+    _, n_unique, dropped = tre._gc_join(*staged_planted())
+    assert (n_unique.tolist(), dropped.tolist()) == PLANTED_COUNTS
 
 
 # ---- spans: opened only while a profiler records ------------------------------

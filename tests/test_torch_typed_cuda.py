@@ -56,13 +56,13 @@ def test_registered_join_on_the_card_equals_the_cpu(name):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("capacity,kernels", [(512, ("lexn_union",)),
-                                              (1024, ("lexn_union",)),
+@pytest.mark.parametrize("capacity,kernels", [(512, ("lexn_gc_union",)),
+                                              (1024, ("lexn_gc_union",)),
                                               (2048, ("lexn_merge", "lexn_compact"))])
 def test_seq_soak_auto_equals_generic_on_the_card(capacity, kernels):
-    """The soak's auto engine (kernel 1's wide body at capacity 512 and
-    1024, kernels 4 and 5 at 2048) gives the generic engine's report, and
-    launched its kernels."""
+    """The soak's auto engine (kernel 1's wide body in its GC instance at
+    capacity 512 and 1024, kernels 4 and 5 at 2048) gives the generic
+    engine's report, and launched its kernels."""
     need_card()
     for name in hu.LAUNCHES:
         hu.LAUNCHES[name] = 0

@@ -39,7 +39,12 @@ the RSeq path's calls on chip_smoke.py phase 10's swarm (R=10,240,
 C=1024, depth 6, replica 7 dead): ``rseq_columnar.gossip_round`` with its
 first peer round, ``converge_checked``, and
 ``rseq_engine.gc_converge_checked`` of the converged swarm with empty
-floors (16 writers), each through its checkout's own route.  ``pair2k``,
+floors (16 writers), each through its checkout's own route; ``gcpull``
+one GC pull round (``rseq_engine.gc_gossip_round``) of the swarm before
+convergence with empty floors, through its checkout's own route, and
+``gcunion1024`` kernel 1's GC instance alone
+(``hopper_union.gc_union_columnar_lexn``, (18, 2), out=C) on phase 9's
+draw with empty floors (16 writers).  ``pair2k``,
 ``pair4k`` and ``pair5`` time the fused union (out=C) on
 ``workload.lexn_pair`` draws at the other shapes kernel 1's wide body
 took from the first one-lane body: (2, 2) at C=2048 and 4096, and (5, 2)
@@ -84,8 +89,8 @@ PAIR_CASES = {"pair2k": (2, 2, 2048), "pair4k": (2, 2, 4096), "pair5": (5, 2, 64
 CASES = ("oplog", "merge20", "merge21", "compact20", "compact21", "set2m", "bucket16",
          "bucket32", "merge131k", "floor131k", "bfloor131k", "rseq512", "rseq512gc",
          "soak1", "merge2k", "rseq1024", "gc1024", "gossip", "converge", "gcconverge",
-         *PAIR_CASES)
-PATH_CASES = ("gossip", "converge", "gcconverge")
+         "gcpull", "gcunion1024", *PAIR_CASES)
+PATH_CASES = ("gossip", "converge", "gcconverge", "gcpull")
 # the union cases through the auto route: (capacity, GC join's src plane,
 # out rows, the draws' seeds)
 UNION_CASES = {"rseq512": (512, False, 512, (SEED + 43, SEED + 44)),
@@ -259,6 +264,19 @@ def soak_merge_call(hu):
     return call, checksum((*keys, *vals))
 
 
+def gc_union_call(workload, rc, hu):
+    """Kernel 1's GC instance at (18, 2), out=C, on phase 9's draw with
+    floors of -1 for 16 writers."""
+    ka, va, kb, vb = rseq_sides(workload, rc, False)
+    floor = torch.full((16, R), -1, dtype=torch.int32, device="cuda")
+
+    def call():  # floors of -1 cover nothing, whatever the identity split
+        return hu.gc_union_columnar_lexn(ka, va, floor, kb, vb, floor, 20)
+
+    keys, vals, nu, dropped = call()
+    return call, checksum((*keys, *vals, nu, dropped))
+
+
 def pair_call(case: str, workload, hu):
     """The fused union at out=C on a ``workload.lexn_pair`` draw."""
     n_keys, n_vals, c = PAIR_CASES[case]
@@ -291,6 +309,12 @@ def path_call(case: str, workload, rc):
     elif case == "converge":
         def call():
             return rc.converge_checked(col, alive)
+    elif case == "gcpull":
+        cg = reng.ColumnarGc(col=col, floor=torch.full((16, R), -1, dtype=torch.int32,
+                                                       device="cuda"))
+
+        def call():
+            return reng.gc_gossip_round(cg, peers, alive)
     else:
         conv = rc.unstack(rc.converge_checked(col, alive)[0])
         cg = reng.stack(tomb_gc.Gc(inner=conv, floor=torch.full(
@@ -413,6 +437,8 @@ def main() -> int:
             call, total = path_call(case, workload, rc)
         elif case in PAIR_CASES:
             call, total = pair_call(case, workload, hu)
+        elif case == "gcunion1024":
+            call, total = gc_union_call(workload, rc, hu)
         else:
             call, total = rseq_call(case, workload, rc, hu)
         times = time_call(call, args.reps)
